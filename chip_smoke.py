@@ -1,0 +1,454 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (H100).
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and
+drives the port (never JAX, never ``repro``):
+
+1. the card's name and power limit; TF32 off; the kernel library build;
+2. every kernel against its plain PyTorch version on the card, at the
+   main path's shapes (64 CUs x 40 WFs, 64 tables x 128 slots, 10 V/f
+   states, the 1024-block ``comd`` program), from numpy-seeded inputs;
+3. the main path, the README quickstart: ``run_workload`` of static17,
+   crisp, pcstall and oracle on ``comd`` for 600 epochs, with the fused
+   epoch kernel's launches counted (crisp and pcstall run it; static17 and
+   the oracle run the unfused body, as in the reference);
+4. the PC-table kernel path: pcstall with ``use_pallas="v1"``;
+5. whole runs of the kernel engine against the unfused engine;
+6. times (CUDA events after warm-up; device time from ``torch.profiler``
+   where it reports one), each beside the card's name and power limit.
+
+Prints a ``{"kernels": [...]}`` line, the card line, and as the last line
+``{"ok": true, "device": {...}}``. Any failed check exits non-zero without
+that line; so does a machine without CUDA.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+
+import torch  # noqa: E402
+
+from repro_torch import no_tf32  # noqa: E402
+from repro_torch import kernels as K  # noqa: E402
+from repro_torch.core import power as PWR  # noqa: E402
+from repro_torch.core import predictors as PRED  # noqa: E402
+from repro_torch.core import simulate as SIM  # noqa: E402
+from repro_torch.core.workloads import get_workload  # noqa: E402
+from repro_torch.kernels import epoch_fused as KEF  # noqa: E402
+from repro_torch.kernels import pc_table as KPT  # noqa: E402
+from repro_torch.kernels import ref as REF  # noqa: E402
+
+# main-path shapes (SimConfig defaults)
+CU, WF, NF, T_TABLES, ENTRIES, P = 64, 40, 10, 64, 128, 1024
+N_EPOCHS = 600
+# kernel vs plain version on the card: discrete outputs equal; floats
+# |a - b| <= ATOL + RTOL |b| (the two sum in different orders: warp trees
+# and a fixed-order block reduction against torch's reductions)
+RTOL, ATOL = 1e-5, 1e-4
+# whole runs, kernel engine vs unfused engine: run-level work and energy
+AGG_TOL = 1e-3
+# H100 SXM data-sheet peaks (the roofline bound of each kernel)
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+EPOCH_FAMS = [("pc", False, None), ("pc", True, None),
+              ("reactive", False, "stall"), ("reactive", False, "crisp"),
+              ("reactive", True, None)]
+
+FAILURES = []
+
+
+def check(ok: bool, what: str) -> None:
+    print(("PASS " if ok else "FAIL ") + what, flush=True)
+    if not ok:
+        FAILURES.append(what)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def compare(name, got, want, *, rtol=RTOL, atol=ATOL):
+    """Kernel output against plain output: returns the max abs error."""
+    g, w = got.detach().cpu(), want.detach().cpu()
+    if not g.is_floating_point():
+        same = torch.equal(g, w.to(g.dtype))
+        bad = int((g != w.to(g.dtype)).sum())
+        check(same, f"{name}: equal ({bad} differ)")
+        return 0.0
+    err = (g.double() - w.double()).abs()
+    lim = atol + rtol * w.double().abs()
+    worst = float((err / lim).max()) if err.numel() else 0.0
+    check(bool((err <= lim).all()),
+          f"{name}: max_abs_err {float(err.max()):.3e} "
+          f"(worst err/limit {worst:.3f})")
+    return float(err.max())
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+# ---------------------------------------------------------------------------
+# inputs at the main path's shapes
+# ---------------------------------------------------------------------------
+
+def table_case(seed, dev):
+    rng = np.random.default_rng(seed)
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32)).to(dev)
+
+    tbl = [f32(rng.uniform(0, 60, (T_TABLES, ENTRIES))),
+           f32(rng.uniform(0, 40, (T_TABLES, ENTRIES))),
+           f32((rng.uniform(size=(T_TABLES, ENTRIES)) > 0.4)
+               * rng.integers(1, 9, (T_TABLES, ENTRIES)))]
+    tid = torch.as_tensor(np.arange(CU) % T_TABLES, dtype=torch.int32).to(dev)
+    idx = torch.as_tensor(rng.integers(0, ENTRIES, (CU, WF)),
+                          dtype=torch.int32).to(dev)
+    fb = [f32(rng.uniform(0, 60, (CU, WF))), f32(rng.uniform(0, 40, (CU, WF)))]
+    return tbl, tid, idx, fb
+
+
+def epoch_case(family, fork_est, model, seed, dev):
+    """One full ``epoch_fused`` operand set: the comd program plus
+    randomised carry state."""
+    rng = np.random.default_rng(seed)
+    prog = get_workload("comd", P=P, device=dev)
+    sim = SIM.SimConfig()
+    ax = sim.axes(dev)
+    F = PWR.freqs_ghz(ax.power, NF)
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32)).to(dev)
+
+    pos = f32(rng.uniform(0, P * 4 * 3, (CU, WF)))
+    eps = SIM._epoch_noise(pos, P, 0)
+    args = (prog.i0_rate, prog.sens_rate, prog.cum3.T.contiguous(), pos, F,
+            eps, F[torch.as_tensor(rng.integers(0, NF, CU)).to(dev)]
+            .contiguous(), f32(rng.uniform(0, 50, CU)), f32(30.0))
+    kw = dict(p_blocks=P, epoch_us=ax.epoch_us, sigma=ax.sigma,
+              cap_per_ghz=ax.cap_per_ghz, membw=ax.membw, obj=ax.obj,
+              lat_us=PWR.transition_latency_us(ax.epoch_us, ax.power),
+              power=ax.power, family=family, fork_estimator=fork_est,
+              cu_model=model, offset_blocks=sim.offset_blocks,
+              table_ema=ax.table_ema)
+    if family == "pc":
+        tbl, tid, _, fb = table_case(seed + 1, dev)
+        kw.update(table=PRED.PCTable(*tbl), tid=tid, wf_i0=fb[0],
+                  wf_sens=fb[1])
+    else:
+        kw.update(react_i0=f32(rng.uniform(500, 3000, CU)),
+                  react_sens=f32(rng.uniform(300, 2000, CU)))
+    return args, kw
+
+
+def epoch_bytes(args, kw, out):
+    ins = list(args) + [kw.get("react_i0"), kw.get("react_sens"),
+                        kw.get("tid"), kw.get("wf_i0"), kw.get("wf_sens")]
+    if kw.get("table") is not None:
+        ins += list(kw["table"])
+    outs = [out.pos, out.wf_i0, out.wf_sens, out.react_i0, out.react_sens,
+            out.f_sel, out.e_acc, out.t_acc, out.work, out.energy, out.err,
+            out.fidx, out.true_sens, out.hit_rate]
+    if out.table is not None:
+        outs += list(out.table)
+    return nbytes(*ins) + nbytes(*outs) + 4 * (9 + 11)
+
+
+def epoch_flops(family):
+    """Floating-point operations of one epoch's function at the main
+    shape, counted from the plain version: ~27 per WF for each of the 11
+    execute rows, ~25 per WF for the selected row's counters and energy,
+    ~10 per WF for the estimator, ~40 per (CU, state) for predict and
+    select, and for pc the lookup (2 per WF) and update (3 per WF + 12 per
+    slot)."""
+    n = CU * WF
+    ops = 27 * (NF + 1) * n + 25 * n + 10 * n + 40 * CU * NF
+    if family == "pc":
+        ops += 2 * n + 3 * n + 12 * T_TABLES * ENTRIES
+    return ops
+
+
+def bound_ms(nb, ops):
+    t_bytes = nb / HBM_BYTES_PER_S
+    t_ops = ops / F32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+# ---------------------------------------------------------------------------
+# timing
+# ---------------------------------------------------------------------------
+
+def time_events(fn, reps=200, warm=20):
+    """ms per call of ``fn`` by CUDA events over ``reps`` back-to-back
+    calls (includes host time when the host is the slower side)."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def device_ms(fn, kernel_name, reps=100):
+    """Device time per launch of the CUDA kernel whose name contains
+    ``kernel_name``, from torch.profiler; None if it reports none."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for ev in prof.key_averages():
+        if kernel_name in ev.key:
+            t = getattr(ev, "device_time_total", None)
+            if t is None:
+                t = getattr(ev, "cuda_time_total", 0.0)
+            total += t
+            count += ev.count
+    if count == 0 or total <= 0:
+        return None
+    return total / count / 1e3
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    name = torch.cuda.get_device_name(0)
+    print(f"card: {card}", flush=True)
+    print("torch", torch.__version__, "cuda", torch.version.cuda, flush=True)
+
+    # ---- 1. TF32 off, build ------------------------------------------------
+    no_tf32()
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and not torch.backends.cudnn.allow_tf32, "TF32 is off")
+    t0 = time.perf_counter()
+    K.library()
+    print(f"kernel library ready in {time.perf_counter() - t0:.1f} s "
+          f"(nvcc build {K.BUILD['seconds']:.1f} s)", flush=True)
+    for line in K.BUILD["log"].splitlines():
+        if "registers" in line or "spill" in line or line.startswith("=="):
+            print("  " + line.strip())
+
+    # ---- 2. kernels against their plain versions -------------------------
+    rows = {}
+    tbl, tid, idx, fb = table_case(7, dev)
+    F = PWR.freqs_ghz(PWR.DEFAULT, NF, device=dev)
+    kp = dict(epoch_us=1.0, cap_per_ghz=5500.0)
+    got = KPT.pc_table_predict(*tbl, tid, idx, *fb, F, **kp)
+    want = REF.pc_table_predict_ref(*tbl, tid, idx, *fb, F, **kp)
+    torch.cuda.synchronize()
+    rows["pc_table_predict"] = dict(
+        max_abs_err=compare("pc_table_predict", got, want),
+        nbytes=nbytes(*tbl, tid, idx, *fb, F, got),
+        ops=2 * CU * WF + 5 * CU * NF)
+    shp = (T_TABLES, CU // T_TABLES * WF)
+    upd_in = (idx.reshape(shp), fb[0].reshape(shp), fb[1].reshape(shp))
+    got = KPT.pc_table_update(*tbl, *upd_in, ema=0.5)
+    want = REF.pc_table_update_ref(*tbl, *upd_in, ema=0.5)
+    torch.cuda.synchronize()
+    err = max(compare(f"pc_table_update[{k}]", g, w)
+              for k, g, w in zip(("i0", "sens", "count"), got, want))
+    rows["pc_table_update"] = dict(
+        max_abs_err=err, nbytes=nbytes(*tbl, *upd_in, *got),
+        ops=3 * T_TABLES * shp[1] + 12 * T_TABLES * ENTRIES)
+    epoch_inputs = {}
+    for fam, fork_est, model in EPOCH_FAMS:
+        for lean in (True, False):
+            args, kw = epoch_case(fam, fork_est, model, 11, dev)
+            kw["lean"] = lean
+            got = KEF.epoch_fused(*args, **kw)
+            want = KEF.epoch_fused_ref(*args, **kw)
+            torch.cuda.synchronize()
+            tag = f"epoch_fused[{fam},{model or ('fork-est' if fork_est else '')},lean={lean}]"
+            errs = []
+            for field in got._fields:
+                g, w = getattr(got, field), getattr(want, field)
+                if g is None:
+                    continue
+                if field == "table":
+                    for k, gg, ww in zip(("i0", "sens", "count"), g, w):
+                        errs.append(compare(f"{tag}.table.{k}", gg, ww))
+                else:
+                    errs.append(compare(f"{tag}.{field}", g, w))
+            key = f"epoch_fused[{fam}]"
+            row = rows.setdefault(key, dict(max_abs_err=0.0))
+            row["max_abs_err"] = max(row["max_abs_err"], max(errs))
+            if lean and key not in epoch_inputs:
+                epoch_inputs[key] = (args, kw)
+                row["nbytes"] = epoch_bytes(args, kw, got)
+                row["ops"] = epoch_flops(fam)
+
+    # ---- 3. the main path --------------------------------------------------
+    prog = get_workload("comd", device=dev)
+    sim = SIM.SimConfig(n_epochs=N_EPOCHS)
+    for fn in (KEF.epoch_fused, KPT.pc_table_predict, KPT.pc_table_update):
+        fn.launches = 0
+    KEF.epoch_fused.launches_by_family = {"pc": 0, "reactive": 0}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = SIM.run_workload(prog, sim, mechanisms=("static17", "crisp",
+                                                  "pcstall", "oracle"))
+    torch.cuda.synchronize()
+    main_wall = time.perf_counter() - t0
+    v2_launches = dict(KEF.epoch_fused.launches_by_family)
+    print(f"{'mechanism':10s} {'accuracy':>9s} {'ED2P vs 1.7GHz':>15s}")
+    for mech, r in res.items():
+        acc = "-" if mech.startswith("static") else f"{r['accuracy']:.3f}"
+        print(f"{mech:10s} {acc:>9s} {r['ednp_norm']:>15.3f}")
+    print(f"main path wall {main_wall:.2f} s on {card}")
+    vals = [v for m, r in res.items() for k, v in r.items()
+            if not (k == "accuracy" and m.startswith("static"))]
+    check(bool(np.isfinite(vals).all()), "main path metrics finite")
+    check(res["oracle"]["accuracy"] > res["pcstall"]["accuracy"]
+          > res["crisp"]["accuracy"], "accuracy oracle > pcstall > crisp")
+    check(res["pcstall"]["ednp_norm"] < 1.0, "pcstall ED2P vs static < 1")
+    check(KEF.epoch_fused.launches == 2 * N_EPOCHS,
+          f"epoch_fused launches {KEF.epoch_fused.launches} == "
+          f"{2 * N_EPOCHS}")
+    check(v2_launches == {"pc": N_EPOCHS, "reactive": N_EPOCHS},
+          f"epoch_fused launches by family {v2_launches}")
+    check(KPT.pc_table_predict.launches == 0
+          and KPT.pc_table_update.launches == 0,
+          "no PC-table kernel launches on the fused path")
+
+    # ---- 4. the PC-table kernel path --------------------------------------
+    for fn in (KEF.epoch_fused, KPT.pc_table_predict, KPT.pc_table_update):
+        fn.launches = 0
+    tr_v1 = SIM.run_sim(prog, SIM.SimConfig(n_epochs=N_EPOCHS,
+                                            use_pallas="v1"), "pcstall")
+    v1_launches = (KPT.pc_table_predict.launches,
+                   KPT.pc_table_update.launches)
+    check(v1_launches == (N_EPOCHS, N_EPOCHS) and
+          KEF.epoch_fused.launches == 0,
+          f"v1 launches (predict, update) {v1_launches} == "
+          f"({N_EPOCHS}, {N_EPOCHS})")
+    check(all(np.isfinite(v).all() for v in tr_v1.values()),
+          "v1 run outputs finite")
+    rows["pc_table_predict"]["launches"] = v1_launches[0]
+    rows["pc_table_update"]["launches"] = v1_launches[1]
+    rows["epoch_fused[pc]"]["launches"] = v2_launches["pc"]
+    rows["epoch_fused[reactive]"]["launches"] = v2_launches["reactive"]
+
+    # ---- 5. whole runs: kernel engine against the unfused engine ----------
+    for mech in ("pcstall", "crisp"):
+        a = SIM.run_sim(prog, SIM.SimConfig(n_epochs=N_EPOCHS), mech)
+        b = SIM.run_sim(prog, SIM.SimConfig(n_epochs=N_EPOCHS,
+                                            use_pallas=False), mech)
+        flips = np.where((a["fidx"] != b["fidx"]).any(1))[0]
+        for k in ("work", "energy"):
+            dev_rel = abs(float(a[k].sum(dtype=np.float64))
+                          - float(b[k].sum(dtype=np.float64))) \
+                / abs(float(b[k].sum(dtype=np.float64)))
+            check(dev_rel <= AGG_TOL,
+                  f"{mech} kernel vs unfused run {k} rel dev {dev_rel:.3e} "
+                  f"(first fidx divergence at epoch "
+                  f"{flips[0] if len(flips) else 'none'})")
+
+    # ---- 6. times ----------------------------------------------------------
+    times = {}
+    times["pc_table_predict"] = (
+        lambda: KPT.pc_table_predict(*tbl, tid, idx, *fb, F, **kp),
+        lambda: REF.pc_table_predict_ref(*tbl, tid, idx, *fb, F, **kp),
+        "pc_table_predict_kernel")
+    times["pc_table_update"] = (
+        lambda: KPT.pc_table_update(*tbl, *upd_in, ema=0.5),
+        lambda: REF.pc_table_update_ref(*tbl, *upd_in, ema=0.5),
+        "pc_table_update_kernel")
+    for key, (args, kw) in epoch_inputs.items():
+        times[key] = (lambda a=args, k=kw: KEF.epoch_fused(*a, **k),
+                      lambda a=args, k=kw: KEF.epoch_fused_ref(*a, **k),
+                      "epoch_fused_kernel")
+    for key, (kern, plain, kname) in times.items():
+        ev = time_events(kern)
+        dv = device_ms(kern, kname)
+        row = rows[key]
+        row["events_ms"] = ev
+        row["ms"] = dv if dv is not None else ev
+        row["plain_ms"] = time_events(plain, reps=50, warm=5)
+        row["bound_ms"], row["bound_by"] = bound_ms(row["nbytes"],
+                                                    row["ops"])
+        print(f"time {key}: kernel {row['ms'] * 1e3:.2f} us (device"
+              f"{'' if dv is not None else ' n/a, events'}), "
+              f"{ev * 1e3:.2f} us per call (events), plain "
+              f"{row['plain_ms'] * 1e3:.1f} us, bound "
+              f"{row['bound_ms'] * 1e3:.4f} us ({row['bound_by']}) "
+              f"on {card}", flush=True)
+    for up in (False, True):
+        cfg = SIM.SimConfig(n_epochs=100, use_pallas=up)
+        SIM.run_sim(prog, cfg, "pcstall")  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        SIM.run_sim(prog, cfg, "pcstall")
+        per = (time.perf_counter() - t0) / 100
+        print(f"time engine use_pallas={up}: {per * 1e3:.3f} ms per epoch "
+              f"(pcstall, 64x40, host wall incl. sync) on {card}",
+              flush=True)
+
+    replaces = {
+        "pc_table_predict": "src/repro/kernels/pc_table.py:67",
+        "pc_table_update": "src/repro/kernels/pc_table.py:132",
+        "epoch_fused[pc]": "src/repro/kernels/epoch_fused.py:748",
+        "epoch_fused[reactive]": "src/repro/kernels/epoch_fused.py:748",
+    }
+    sources = {
+        "pc_table_predict": "src/repro_torch/kernels/csrc/pc_table.cu",
+        "pc_table_update": "src/repro_torch/kernels/csrc/pc_table.cu",
+        "epoch_fused[pc]": "src/repro_torch/kernels/csrc/epoch_fused.cu",
+        "epoch_fused[reactive]":
+            "src/repro_torch/kernels/csrc/epoch_fused.cu",
+    }
+    kernels = []
+    for key in replaces:
+        r = rows[key]
+        check(r.get("launches", 0) > 0, f"{key} launched on its path")
+        kernels.append({
+            "name": key, "route": "cuda", "source": sources[key],
+            "replaces": replaces[key], "launches": r.get("launches", 0),
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None})
+    if FAILURES:
+        print(f"chip_smoke: {len(FAILURES)} check(s) failed:",
+              file=sys.stderr)
+        for f in FAILURES:
+            print("  " + f, file=sys.stderr)
+        return 1
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

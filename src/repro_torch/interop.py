@@ -1,0 +1,74 @@
+"""Carry state across from the JAX package, as numpy arrays.
+
+Plain functions that turn numpy arrays (never JAX arrays: this module
+imports neither JAX nor ``repro``) into the port's tensors on a device, so
+a comparison can start both packages from the same bits. This matters most
+for ``Program.cum3``: the reference builds it with an XLA f32 cumsum,
+which is not guaranteed to round like ``torch.cumsum``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch import DeviceLike, resolve_device
+from repro_torch.core import power as PWR
+from repro_torch.core import predictors as PRED
+from repro_torch.core import simulate as SIM
+from repro_torch.core.workloads import Program
+
+
+def _t(a, device: DeviceLike, dtype=torch.float32) -> torch.Tensor:
+    return torch.as_tensor(np.array(a, copy=True), dtype=dtype).to(
+        resolve_device(device))
+
+
+def program_from_numpy(name: str, i0_rate, sens_rate, mem_frac, cum3,
+                       device: DeviceLike = "cuda") -> Program:
+    """A ``Program`` from its (P,) rate arrays and (2P+1, 3) prefix sums."""
+    return Program(name, _t(i0_rate, device), _t(sens_rate, device),
+                   _t(mem_frac, device), _t(cum3, device))
+
+
+def table_from_numpy(i0, sens, count,
+                     device: DeviceLike = "cuda") -> PRED.PCTable:
+    """A ``PCTable`` from its three (n_tables, entries) arrays."""
+    return PRED.PCTable(_t(i0, device), _t(sens, device), _t(count, device))
+
+
+def carry_from_numpy(*, pos, react_i0, react_sens, wf_i0, wf_sens, table,
+                     f_prev, e_acc, t_acc,
+                     device: DeviceLike = "cuda") -> SIM.Carry:
+    """A ``Carry`` from numpy fields; ``table`` is an (i0, sens, count)
+    triple of arrays."""
+    return SIM.Carry(
+        pos=_t(pos, device), react_i0=_t(react_i0, device),
+        react_sens=_t(react_sens, device), wf_i0=_t(wf_i0, device),
+        wf_sens=_t(wf_sens, device),
+        table=table_from_numpy(*table, device=device),
+        f_prev=_t(f_prev, device), e_acc=_t(e_acc, device),
+        t_acc=_t(t_acc, device).reshape(()))
+
+
+def power_axes_from_numpy(pw_vec, device: DeviceLike = "cuda"
+                          ) -> PWR.PowerAxes:
+    """A ``PowerAxes`` from the (11,) power vector in field order (the
+    fused epoch kernel's packed power operand)."""
+    vec = _t(pw_vec, device)
+    assert vec.shape == (len(PWR.PowerAxes._fields),), vec.shape
+    return PWR.PowerAxes(*vec.unbind(0))
+
+
+def sim_axes_from_numpy(scal, pw_vec, n_ep: int,
+                        device: DeviceLike = "cuda") -> SIM.SimAxes:
+    """A ``SimAxes`` from the (9,) packed sweep scalars [epoch_us, sigma,
+    cap_per_ghz, membw, table_ema, obj0..2, lat_us], the (11,) power
+    vector and the logical epoch count. ``lat_us`` is not a ``SimAxes``
+    field: the engine derives it from the power regime."""
+    s = _t(scal, device)
+    assert s.shape == (9,), s.shape
+    return SIM.SimAxes(
+        epoch_us=s[0], sigma=s[1], cap_per_ghz=s[2], membw=s[3],
+        table_ema=s[4], obj=s[5:8].clone(),
+        n_ep=torch.full((), n_ep, dtype=torch.int32, device=s.device),
+        power=power_axes_from_numpy(pw_vec, device))

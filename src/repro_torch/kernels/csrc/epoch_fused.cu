@@ -1,0 +1,516 @@
+// The fused fork--execute epoch for Hopper (sm_90a), families "pc" and
+// "reactive", both math modes.
+//
+// Replaces repro/kernels/epoch_fused.py:epoch_fused (body _epoch_kernel ->
+// _epoch_math) for the specialised run_sim families. One epoch:
+//   context gathers -> predict (PC table or reactive state) -> per-domain
+//   argmin select -> 11-way execute (NF fork rows + the selected row) ->
+//   oldest-first WF allocation -> global memory-traffic scale -> barrier /
+//   committed counters, transition dead time, energy -> estimator -> table
+//   update with hit rate.
+//
+// Bound on this card: at 64 CUs x 40 WFs x 10 states an epoch reads and
+// writes ~0.3 MB (the 64 x 128 x 3 table in and out dominates) and does
+// ~1 MFLOP, so the card could finish it in well under 1 us; the kernel is
+// launch- and latency-bound. The design is the simple correct one:
+//   * one CTA per simulation (run_sim has one; the CTA index is the future
+//     grid-row axis); the program rates and the three cum_t rows live in
+//     dynamic shared memory, with per-WF scratch beside them;
+//   * one warp per CU, two adjacent WFs per lane (WF <= 64); the 11 execute
+//     rows are looped, never materialised;
+//   * the one cross-CU dependency, the memory-traffic total of each row,
+//     is a fixed-order reduction in shared memory between two passes: pass
+//     A computes every row's allocation and traffic, pass B recomputes the
+//     same values (bitwise, same code) and applies the scale;
+//   * lean fork rows take their intra-CU prefix sum as a warp scan (the
+//     reference's tril GEMM); the selected row, and every row in exact
+//     mode, sums sequentially in WF order like the reference's cumsum;
+//   * the argmin takes the first minimum; the quantised core fraction
+//     rounds half to even (rintf); int casts truncate;
+//   * the table update walks, per slot, the CUs mapped to that table and
+//     their WFs in index order: deterministic sums, out-of-range table ids
+//     match no table (dropped), while lookups clamp them.
+#include "common.cuh"
+
+namespace {
+
+constexpr int kThreads = 512;
+constexpr int kMaxSmem = 232448;  // 227 KB: a CTA's share of an H100 SM
+
+enum { FAM_PC = 0, FAM_REACTIVE = 1 };
+enum { M_STALL = 0, M_LEAD = 1, M_CRIT = 2, M_CRISP = 3 };
+
+}  // namespace
+
+// Field order mirrors repro_torch/kernels/epoch_fused.py:_EpochArgs.
+struct EpochArgs {
+  const float* i0r; const float* sr; const float* cum_t;
+  const float* pos; const float* eps;
+  const float* ti0; const float* tse; const float* tcnt; const int* tid;
+  const float* wfi; const float* wfs;
+  const float* ri0; const float* rse;
+  const float* fprev; const float* eacc; const float* tacc;
+  const float* F; const float* scal; const float* pw;
+  float* pos_o; float* ti0_o; float* tse_o; float* tcnt_o;
+  float* wfi_o; float* wfs_o; float* ri0_o; float* rse_o;
+  float* fsel_o; float* eacc_o; float* tacc_o; float* work_o;
+  float* energy_o; float* err_o; int* fidx_o; float* tsens_o; float* hit_o;
+  int P, Pp, CU, WF, NF, T, E, CPD, IPB, OFFB;
+  int family, fork_est, cu_model, lean;
+};
+
+namespace {
+
+struct Pw {
+  float f_min, f_max, v_min, v_max, c_eff, k_leak, eta0, eta_slope, c_trans;
+};
+
+__device__ __forceinline__ float v_of_f(float f, const Pw& p) {
+  const float t = (f - p.f_min) / (p.f_max - p.f_min);
+  return p.v_min + t * (p.v_max - p.v_min);
+}
+
+__device__ __forceinline__ float power_of(float f, float act, const Pw& p) {
+  const float v = v_of_f(f, p);
+  const float p_dyn = p.c_eff * v * v * f * fminf(fmaxf(act, 0.05f), 1.f);
+  const float p_leak = p.k_leak * v;
+  const float t = (v - p.v_min) / (p.v_max - p.v_min);
+  return (p_dyn + p_leak) / (p.eta0 + p.eta_slope * t);
+}
+
+__device__ __forceinline__ float trans_energy(float fo, float fn,
+                                              const Pw& p) {
+  const float dv = v_of_f(fn, p) - v_of_f(fo, p);
+  return p.c_trans * dv * dv;
+}
+
+// shared-memory carve-up (floats and ints are both 4 bytes)
+struct Smem {
+  float *i0r, *sr, *c0, *c1, *c2;
+  int* blk;       // (N) starting PC block
+  int* idx;       // (N) table slot
+  float* dem;     // (N) serial-scan demand; later the i0 estimates
+  float* bef;     // (N) serial-scan "before"; later the sens estimates
+  float *cf0, *cfL;  // (N) fork rows 0 and NF-1 (accpc)
+  float* ipred;   // (CU, NF)
+  int* fidx;      // (CU)
+  float* fsel;    // (CU)
+  int* hits;      // (CU)
+  float* traf;    // (NF+1, CU) per-CU traffic partials
+  float* scale;   // (NF+1)
+};
+
+__host__ __device__ inline size_t smem_words(int Pp, int N, int CU, int NF) {
+  return (size_t)2 * Pp + (size_t)3 * (2 * Pp + 1) + (size_t)6 * N +
+         (size_t)CU * NF + (size_t)3 * CU + (size_t)(NF + 1) * CU +
+         (size_t)(NF + 1);
+}
+
+__device__ Smem carve(float* base, int Pp, int N, int CU, int NF) {
+  Smem s;
+  const int L = 2 * Pp + 1;
+  s.i0r = base; s.sr = s.i0r + Pp;
+  s.c0 = s.sr + Pp; s.c1 = s.c0 + L; s.c2 = s.c1 + L;
+  s.blk = (int*)(s.c2 + L); s.idx = s.blk + N;
+  s.dem = (float*)(s.idx + N); s.bef = s.dem + N;
+  s.cf0 = s.bef + N; s.cfL = s.cf0 + N;
+  s.ipred = s.cfL + N;
+  s.fidx = (int*)(s.ipred + CU * NF); s.fsel = (float*)(s.fidx + CU);
+  s.hits = (int*)(s.fsel + CU); s.traf = (float*)(s.hits + CU);
+  s.scale = s.traf + (NF + 1) * CU;
+  return s;
+}
+
+// One execute row for the two WFs (w0 = 2 lane, w1 = 2 lane + 1) of CU c:
+// demand, memory share, window rates, and the oldest-first allocation.
+struct Row {
+  float d[2], m[2], i0w[2], sw[2], a[2];
+};
+
+__device__ Row exec_row(const EpochArgs& A, const Smem& s, int c, float f,
+                        bool lean_form, int lane) {
+  const float T = A.scal[0], sigma = A.scal[1], cap = A.scal[2];
+  Row r;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int w = 2 * lane + j;
+    r.d[j] = r.m[j] = r.i0w[j] = r.sw[j] = 0.f;
+    if (w >= A.WF) continue;
+    const int n = c * A.WF + w;
+    const int blk = s.blk[n];
+    const float est = (s.i0r[blk] + s.sr[blk] * f) * T;
+    const int nblk = clampi((int)(est / (float)A.IPB) + 1, 1, A.P);
+    const int gi = blk + nblk;
+    const float nb = (float)nblk;
+    const float dci = s.c0[gi] - s.c0[blk];
+    const float dcs = s.c1[gi] - s.c1[blk];
+    r.m[j] = (s.c2[gi] - s.c2[blk]) / nb;
+    const float eps = A.eps[n];
+    if (lean_form) {
+      r.d[j] = (dci + dcs * f) * ((T * (1.f + sigma * eps)) / nb);
+    } else {
+      r.i0w[j] = dci / nb;
+      r.sw[j] = dcs / nb;
+      const float dm = (r.i0w[j] + r.sw[j] * f) * T;
+      r.d[j] = dm * (1.f + sigma * eps);
+    }
+  }
+  float b[2];
+  if (lean_form) {
+    // inclusive warp scan over lane pairs (the reference's tril GEMM)
+    const float pair = r.d[0] + r.d[1];
+    float incl = pair;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float y = __shfl_up_sync(FULL_MASK, incl, off);
+      if (lane >= off) incl = y + incl;
+    }
+    float excl = __shfl_up_sync(FULL_MASK, incl, 1);
+    if (lane == 0) excl = 0.f;
+    const float in0 = excl + r.d[0];
+    const float in1 = in0 + r.d[1];
+    b[0] = in0 - r.d[0];
+    b[1] = in1 - r.d[1];
+  } else {
+    // sequential cumsum in WF order (the reference's op order)
+    for (int j = 0; j < 2; ++j) {
+      const int w = 2 * lane + j;
+      if (w < A.WF) s.dem[c * A.WF + w] = r.d[j];
+    }
+    __syncwarp();
+    if (lane == 0) {
+      float acc = 0.f;
+      for (int w = 0; w < A.WF; ++w) {
+        const float dw = s.dem[c * A.WF + w];
+        acc = acc + dw;
+        s.bef[c * A.WF + w] = acc - dw;
+      }
+    }
+    __syncwarp();
+    for (int j = 0; j < 2; ++j) {
+      const int w = 2 * lane + j;
+      b[j] = w < A.WF ? s.bef[c * A.WF + w] : 0.f;
+    }
+    __syncwarp();
+  }
+  const float C = cap * f * T;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) r.a[j] = fminf(fmaxf(C - b[j], 0.f), r.d[j]);
+  return r;
+}
+
+__global__ void __launch_bounds__(kThreads)
+epoch_fused_kernel(const EpochArgs A) {
+  extern __shared__ float smem[];
+  const int N = A.CU * A.WF;
+  const Smem s = carve(smem, A.Pp, N, A.CU, A.NF);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int NF = A.NF, WF = A.WF;
+  const float T = A.scal[0], cap = A.scal[2], membw = A.scal[3];
+  const float ema = A.scal[4], w_pbar = A.scal[5], use_rate = A.scal[6];
+  const float capf = A.scal[7], lat = A.scal[8];
+  const Pw pw = {A.pw[0], A.pw[1], A.pw[2], A.pw[3], A.pw[4],
+                 A.pw[5], A.pw[6], A.pw[7], A.pw[8]};
+  const bool pc = A.family == FAM_PC;
+
+  // ---- program rates and cum_t rows into shared memory -----------------
+  for (int i = threadIdx.x; i < A.Pp; i += blockDim.x) {
+    s.i0r[i] = A.i0r[i];
+    s.sr[i] = A.sr[i];
+  }
+  const int L = 2 * A.Pp + 1;
+  for (int i = threadIdx.x; i < L; i += blockDim.x) {
+    s.c0[i] = A.cum_t[i];
+    s.c1[i] = A.cum_t[L + i];
+    s.c2[i] = A.cum_t[2 * L + i];
+  }
+  __syncthreads();
+
+  // ---- context + predict I(f) (warp per CU) ------------------------------
+  for (int c = warp; c < A.CU; c += nwarps) {
+    float i0s = 0.f, ss = 0.f;
+    int h = 0;
+    const int t = pc ? clampi(A.tid[c], 0, A.T - 1) : 0;
+    for (int j = 0; j < 2; ++j) {
+      const int w = 2 * lane + j;
+      if (w >= WF) continue;
+      const int n = c * WF + w;
+      const int blk = ((int)A.pos[n] / A.IPB) % A.P;
+      s.blk[n] = blk;
+      if (pc) {
+        const int e = (blk / A.OFFB) % A.E;
+        s.idx[n] = e;
+        const bool hit = A.tcnt[t * A.E + e] > 0.f;
+        i0s += hit ? A.ti0[t * A.E + e] : A.wfi[n];
+        ss += hit ? A.tse[t * A.E + e] : A.wfs[n];
+        h += hit ? 1 : 0;
+      }
+    }
+    float i0_cu, s_cu;
+    if (pc) {
+      i0_cu = warp_sum(i0s);
+      s_cu = warp_sum(ss);
+      h = warp_sum_int(h);
+      if (lane == 0) s.hits[c] = h;
+    } else {
+      i0_cu = A.ri0[c];
+      s_cu = A.rse[c];
+    }
+    if (lane < NF) {
+      const float f = A.F[lane];
+      const float capr = cap * f * T * (float)WF;
+      const float ip = (i0_cu + s_cu * f) * T;
+      s.ipred[c * NF + lane] = fminf(fmaxf(ip, 0.f), capr);
+    }
+  }
+  __syncthreads();
+
+  // ---- per-domain select: first argmin of the Lagrangian cost -----------
+  const int ND = A.CU / A.CPD;
+  for (int d = warp; d < ND; d += nwarps) {
+    float cost = INFINITY;
+    int k = lane;
+    const float tac = fmaxf(A.tacc[0], 1e-3f);
+    float pbar = 0.f;
+    for (int j = 0; j < A.CPD; ++j) pbar += A.eacc[d * A.CPD + j] / tac;
+    float I_sum = 0.f, P_dom = 0.f;
+    if (lane < NF) {
+      const float f = A.F[lane];
+      const float capr = cap * f * T * (float)WF;
+      for (int j = 0; j < A.CPD; ++j) {
+        const float I = s.ipred[(d * A.CPD + j) * NF + lane];
+        P_dom += power_of(f, I / capr, pw);
+        I_sum += I;
+      }
+      I_sum = fmaxf(I_sum, 1e-3f);
+    }
+    const float I_top = __shfl_sync(FULL_MASK, I_sum, NF - 1);
+    if (lane < NF) {
+      const float denom = use_rate > 0.f ? I_sum : 1.f;
+      const float infeasible = I_sum < capf * I_top ? 1.f : 0.f;
+      cost = (P_dom + w_pbar * pbar) / denom + 1e9f * infeasible;
+    } else {
+      k = NF;
+    }
+#pragma unroll
+    for (int m = 16; m > 0; m >>= 1) {
+      const float oc = __shfl_xor_sync(FULL_MASK, cost, m);
+      const int ok = __shfl_xor_sync(FULL_MASK, k, m);
+      if (oc < cost || (oc == cost && ok < k)) {
+        cost = oc;
+        k = ok;
+      }
+    }
+    if (lane == 0) {
+      for (int j = 0; j < A.CPD; ++j) {
+        s.fidx[d * A.CPD + j] = k;
+        s.fsel[d * A.CPD + j] = A.F[k];
+      }
+    }
+  }
+  __syncthreads();
+
+  // ---- pass A: every row's allocation -> per-CU traffic partials ---------
+  for (int c = warp; c < A.CU; c += nwarps) {
+    for (int r = 0; r <= NF; ++r) {
+      const bool sel = r == NF;
+      const Row row = exec_row(A, s, c, sel ? s.fsel[c] : A.F[r],
+                               A.lean && !sel, lane);
+      const float am = warp_sum(row.a[0] * row.m[0] + row.a[1] * row.m[1]);
+      if (lane == 0) s.traf[r * A.CU + c] = am;
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x <= NF) {
+    const int r = threadIdx.x;
+    float traffic = 0.f;
+    for (int c = 0; c < A.CU; ++c) traffic += s.traf[r * A.CU + c];
+    s.scale[r] = fminf(1.f, membw * T / fmaxf(traffic, 1e-6f));
+  }
+  __syncthreads();
+
+  // ---- pass B: steady rows, counters, energy, estimators (warp per CU) ---
+  const float dF = A.F[NF - 1] - A.F[0];
+  for (int c = warp; c < A.CU; c += nwarps) {
+    float If0 = 0.f, IfL = 0.f;
+    for (int r = 0; r < NF; ++r) {
+      const Row row = exec_row(A, s, c, A.F[r], A.lean, lane);
+      const float sc = s.scale[r];
+      float st[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        st[j] = A.lean ? row.a[j] - row.a[j] * row.m[j] * (1.f - sc)
+                       : row.a[j] * (1.f - row.m[j] * (1.f - sc));
+      }
+      const float If = warp_sum(st[0] + st[1]);
+      if (r == 0) If0 = If;
+      if (r == NF - 1) IfL = If;
+      if (r == 0 || r == NF - 1) {
+        float* dst = r == 0 ? s.cf0 : s.cfL;
+        for (int j = 0; j < 2; ++j) {
+          const int w = 2 * lane + j;
+          if (w < WF) dst[c * WF + w] = st[j];
+        }
+      }
+    }
+    // the selected (executed) row, exact op order
+    const float f = s.fsel[c];
+    const Row row = exec_row(A, s, c, f, false, lane);
+    const float sc = s.scale[NF];
+    const float plen = (float)(A.P * A.IPB);
+    const float fprev = A.fprev[c];
+    const bool trans = f != fprev;
+    float st[2], q[2], cf[2], pos[2], com[2];
+    float tmin = INFINITY;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int w = 2 * lane + j;
+      const bool ok = w < WF;
+      st[j] = row.a[j] * (1.f - row.m[j] * (1.f - sc));
+      q[j] = ok ? row.a[j] / fmaxf(row.d[j], 1e-6f) : 0.f;
+      cf[j] = ok ? row.sw[j] * f / fmaxf(row.i0w[j] + row.sw[j] * f, 1e-6f)
+                 : 0.f;
+      pos[j] = ok ? A.pos[c * WF + w] : 0.f;
+      if (ok) tmin = fminf(tmin, pos[j] + st[j]);
+    }
+    const float group_min = warp_min(tmin);
+    const float boundary = (floorf(group_min / plen) + 1.f) * plen;
+    const float dead = 1.f - lat / T * (trans ? 1.f : 0.f);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      com[j] = fminf(st[j], fmaxf(boundary - pos[j], 0.f)) * dead;
+    }
+    const float I_actual = warp_sum(st[0] + st[1]);
+    const float work = warp_sum(com[0] + com[1]);
+    const int fi = s.fidx[c];
+    const float I_at = s.ipred[c * NF + fi];
+    const float err = fabsf(I_at - I_actual) / fmaxf(I_actual, 1e-3f);
+    const float act_w = work / (cap * f * T * (float)WF);
+    const float energy = power_of(f, act_w, pw) * T +
+                         trans_energy(fprev, f, pw) * (trans ? 1.f : 0.f);
+    const float tsens = (IfL - If0) / (dF * T);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int w = 2 * lane + j;
+      if (w < WF) A.pos_o[c * WF + w] = pos[j] + com[j];
+    }
+    if (pc) {
+      float i0w[2], sw[2];
+      if (A.fork_est) {  // accpc: exact per-WF linear model from the forks
+        for (int j = 0; j < 2; ++j) {
+          const int w = 2 * lane + j;
+          const float c0 = w < WF ? s.cf0[c * WF + w] : 0.f;
+          const float cL = w < WF ? s.cfL[c * WF + w] : 0.f;
+          const float sv = (cL - c0) / dF;
+          sw[j] = sv / T;
+          i0w[j] = (c0 - sv * A.F[0]) / T;
+        }
+      } else {  // pcstall: counter-driven STALL model
+        const float q_cu = fmaxf(warp_sum(q[0] + q[1]) / (float)WF, 0.05f);
+        for (int j = 0; j < 2; ++j) {
+          const float cfq = rintf(cf[j] * 16.f) / 16.f;
+          const float dm = st[j] / q_cu;
+          const float sv = dm * cfq / f;
+          sw[j] = sv / T;
+          i0w[j] = fmaxf(dm - sv * f, 0.f) / T;
+        }
+      }
+      for (int j = 0; j < 2; ++j) {
+        const int w = 2 * lane + j;
+        if (w < WF) {
+          A.wfi_o[c * WF + w] = i0w[j];
+          A.wfs_o[c * WF + w] = sw[j];
+          s.dem[c * WF + w] = i0w[j];
+          s.bef[c * WF + w] = sw[j];
+        }
+      }
+    } else if (lane == 0 && A.fork_est) {  // accreac: exact from the forks
+      const float s_est = (IfL - If0) / (dF * T);
+      A.ri0_o[c] = If0 / T - s_est * A.F[0];
+      A.rse_o[c] = s_est;
+    }
+    if (!pc && !A.fork_est) {  // counter CU models
+      float sens;
+      // issue ratios clipped at 0.05, zero past the CU's last WF
+      float qc[2];
+      for (int j = 0; j < 2; ++j)
+        qc[j] = 2 * lane + j < WF ? fmaxf(q[j], 0.05f) : 0.f;
+      if (A.cu_model == M_STALL) {
+        const float cf_cu = warp_sum(cf[0] + cf[1]) / (float)WF;
+        sens = I_actual * cf_cu / f;
+      } else if (A.cu_model == M_LEAD || A.cu_model == M_CRIT) {
+        const float cf_cu = warp_sum(st[0] * cf[0] + st[1] * cf[1]) /
+                            fmaxf(I_actual, 1e-6f);
+        if (A.cu_model == M_LEAD) {
+          sens = I_actual * cf_cu / f;
+        } else {
+          const float q_mean = warp_sum(qc[0] + qc[1]) / (float)WF;
+          sens = I_actual * cf_cu / (f * fmaxf(q_mean, 0.05f));
+        }
+      } else {  // crisp
+        float v[2];
+        for (int j = 0; j < 2; ++j)
+          v[j] = 2 * lane + j < WF ? st[j] / qc[j] * cf[j] : 0.f;
+        sens = warp_sum(v[0] + v[1]) / f;
+      }
+      if (lane == 0) {
+        A.ri0_o[c] = fmaxf(I_actual - sens * f, 0.f) / T;
+        A.rse_o[c] = sens / T;
+      }
+    }
+    if (lane == 0) {
+      A.fsel_o[c] = f;
+      A.eacc_o[c] = A.eacc[c] + energy;
+      A.work_o[c] = work;
+      A.energy_o[c] = energy;
+      A.err_o[c] = err;
+      A.fidx_o[c] = fi;
+      A.tsens_o[c] = tsens;
+    }
+  }
+  if (threadIdx.x == 0) A.tacc_o[0] = A.tacc[0] + T;
+  if (!pc) return;
+  __syncthreads();
+
+  // ---- table update: per slot, its CUs' WFs in index order --------------
+  for (int sl = threadIdx.x; sl < A.T * A.E; sl += blockDim.x) {
+    const int t = sl / A.E, e = sl % A.E;
+    float isum = 0.f, ssum = 0.f, cnt = 0.f;
+    for (int c = 0; c < A.CU; ++c) {
+      if (A.tid[c] != t) continue;
+      for (int w = 0; w < WF; ++w) {
+        const int n = c * WF + w;
+        if (s.idx[n] == e) {
+          isum += s.dem[n];
+          ssum += s.bef[n];
+          cnt += 1.f;
+        }
+      }
+    }
+    ema_write(A.ti0[sl], A.tse[sl], A.tcnt[sl], isum, ssum, cnt, ema,
+              A.ti0_o + sl, A.tse_o + sl, A.tcnt_o + sl);
+  }
+  if (threadIdx.x == 0) {
+    int h = 0;
+    for (int c = 0; c < A.CU; ++c) h += s.hits[c];
+    A.hit_o[0] = (float)h / (float)N;
+  }
+}
+
+}  // namespace
+
+extern "C" int epoch_fused_launch(const EpochArgs* args, void* stream) {
+  const EpochArgs& A = *args;
+  if (A.WF < 1 || A.WF > 64 || A.NF < 2 || A.NF > 32 || A.CU < 1 ||
+      A.CU % A.CPD != 0 || A.NF + 1 > kThreads)
+    return (int)cudaErrorInvalidValue;
+  const size_t bytes = 4 * smem_words(A.Pp, A.CU * A.WF, A.CU, A.NF);
+  if (bytes > (size_t)kMaxSmem) return (int)cudaErrorInvalidConfiguration;
+  cudaError_t err = cudaFuncSetAttribute(
+      epoch_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  epoch_fused_kernel<<<1, kThreads, bytes, (cudaStream_t)stream>>>(A);
+  return (int)cudaGetLastError();
+}

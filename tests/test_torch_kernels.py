@@ -1,0 +1,178 @@
+"""Tier 2 of the port's parity: one kernel call at fixed inputs.
+
+The port's kernel wrappers on CPU tensors run their plain PyTorch versions;
+each is held against the reference's Pallas kernel run as the reference's
+own tests run it on the CPU (the direct-eval interpret engine, and
+``pallas_call(interpret=True)`` for the PC-table pair). Both sides get the
+same numpy-made inputs, the reference's noise ``eps`` included.
+
+Tolerances: discrete outputs (``fidx``) equal; floats to rtol 1e-5 /
+atol 1e-5 — the two packages sum in different orders and the reference's
+jitted CPU code contracts multiply-adds into FMAs, so agreement is to a
+few ulp, not bitwise.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from _torch_parity import (EPOCH_FAMS, assert_epoch_close,  # noqa: E402
+                           epoch_case, epoch_fields, np_, t_)
+from repro.kernels import epoch_fused as JKEF  # noqa: E402
+from repro.kernels import ops as JOPS  # noqa: E402
+from repro.kernels import pc_table as JKPT  # noqa: E402
+from repro.kernels import ref as JREF  # noqa: E402
+from repro_torch.kernels import epoch_fused as KEF  # noqa: E402
+from repro_torch.kernels import pc_table as KPT  # noqa: E402
+from repro_torch.kernels import ref as REF  # noqa: E402
+
+RTOL = ATOL = 1e-5
+
+
+def _pc_inputs(T, E, CU, WF, seed):
+    rng = np.random.default_rng(seed)
+    return dict(
+        ti0=rng.uniform(0, 60, (T, E)).astype(np.float32),
+        tse=rng.uniform(0, 40, (T, E)).astype(np.float32),
+        tcnt=(rng.uniform(size=(T, E)) > 0.4).astype(np.float32),
+        tid=rng.integers(0, T, CU).astype(np.int32),
+        idx=rng.integers(0, E, (CU, WF)).astype(np.int32),
+        fb0=rng.uniform(0, 60, (CU, WF)).astype(np.float32),
+        fbs=rng.uniform(0, 40, (CU, WF)).astype(np.float32),
+        freqs=np.linspace(1.3, 2.2, 10).astype(np.float32))
+
+
+# the shapes of tests/test_kernels.py::test_pc_table_predict_sweep
+@pytest.mark.parametrize("T,E,CU,WF", [(4, 64, 8, 16), (8, 128, 16, 40)])
+@pytest.mark.parametrize("cap", [0.0, 60.0])
+def test_pc_table_predict_matches_reference(T, E, CU, WF, cap):
+    d = _pc_inputs(T, E, CU, WF, seed=T * CU)
+    names = ("ti0", "tse", "tcnt", "tid", "idx", "fb0", "fbs", "freqs")
+    want = JKPT.pc_table_predict(*(jnp.asarray(d[k]) for k in names),
+                                 epoch_us=1.0, cap_per_ghz=cap,
+                                 interpret=True)
+    also = JREF.pc_table_predict_ref(*(jnp.asarray(d[k]) for k in names),
+                                     epoch_us=1.0, cap_per_ghz=cap)
+    args = [t_(d[k], torch.int32 if k in ("tid", "idx") else torch.float32)
+            for k in names]
+    got = KPT.pc_table_predict(*args, epoch_us=1.0, cap_per_ghz=cap)
+    plain = REF.pc_table_predict_ref(*args, epoch_us=1.0, cap_per_ghz=cap)
+    np.testing.assert_array_equal(np_(got), np_(plain))
+    np.testing.assert_allclose(np_(got), np_(want), rtol=RTOL, atol=1e-3)
+    np.testing.assert_allclose(np_(got), np_(also), rtol=RTOL, atol=1e-3)
+    assert KPT.pc_table_predict.launches == 0   # CPU: the plain version
+
+
+def test_pc_table_predict_clamps_out_of_range_ids():
+    """The reference's gathers clamp table ids past the last table; torch
+    indexing would raise, so the port clamps explicitly."""
+    d = _pc_inputs(4, 64, 6, 8, seed=3)
+    d["tid"] = np.array([0, 3, 4, 9, 2, 1], np.int32)
+    names = ("ti0", "tse", "tcnt", "tid", "idx", "fb0", "fbs", "freqs")
+    want = JOPS.pc_table_predict(*(jnp.asarray(d[k]) for k in names))
+    got = KPT.pc_table_predict(*[
+        t_(d[k], torch.int32 if k in ("tid", "idx") else torch.float32)
+        for k in names])
+    np.testing.assert_allclose(np_(got), np_(want), rtol=RTOL, atol=1e-3)
+
+
+@pytest.mark.parametrize("T,E,N", [(4, 64, 16), (8, 128, 40), (3, 16, 90)])
+def test_pc_table_update_matches_reference(T, E, N):
+    rng = np.random.default_rng(T + N)
+    tbl = [rng.uniform(0, 60, (T, E)).astype(np.float32),
+           rng.uniform(0, 40, (T, E)).astype(np.float32),
+           ((rng.uniform(size=(T, E)) > 0.5)
+            * rng.integers(1, 5, (T, E))).astype(np.float32)]
+    # collisions: N wavefronts over E slots, with repeats
+    idx = rng.integers(0, E, (T, N)).astype(np.int32)
+    i0 = rng.uniform(0, 60, (T, N)).astype(np.float32)
+    se = rng.uniform(0, 40, (T, N)).astype(np.float32)
+    want = JKPT.pc_table_update(*map(jnp.asarray, tbl + [idx, i0, se]),
+                                ema=0.3, interpret=True)
+    got = KPT.pc_table_update(*map(t_, tbl), t_(idx, torch.int32), t_(i0),
+                              t_(se), ema=0.3)
+    plain = REF.pc_table_update_ref(*map(t_, tbl), t_(idx, torch.int32),
+                                    t_(i0), t_(se), ema=0.3)
+    for g, p, w in zip(got, plain, want):
+        np.testing.assert_array_equal(np_(g), np_(p))
+        np.testing.assert_allclose(np_(g), np_(w), rtol=RTOL, atol=ATOL)
+    assert KPT.pc_table_update.launches == 0
+
+
+def _run_both(family, fork_est, model, CU, WF, NF, lean, seed, **kw):
+    ja, jk, ta, tk = epoch_case(family, CU, WF, NF=NF, seed=seed,
+                                fork_estimator=fork_est, cu_model=model,
+                                **kw)
+    want = JKEF.epoch_fused(*ja, **jk, lean=lean)
+    got = KEF.epoch_fused(*ta, **tk, lean=lean)
+    return epoch_fields(got), epoch_fields(want), (ta, tk)
+
+
+# an odd shape (the table-map cases below use it too: the reference's
+# eager ops compile once per shape, which dominates this file's time)
+@pytest.mark.parametrize("CU,WF,NF", [(5, 7, 6)])
+@pytest.mark.parametrize("lean", [True, False], ids=["lean", "exact"])
+@pytest.mark.parametrize("family,fork_est,model", EPOCH_FAMS)
+def test_epoch_fused_matches_reference(family, fork_est, model, lean, CU, WF,
+                                       NF):
+    got, want, (ta, tk) = _run_both(family, fork_est, model, CU, WF, NF,
+                                    lean, seed=CU * NF + 1)
+    assert_epoch_close(got, want, rtol=RTOL, atol=ATOL,
+                       what=f"{family}/{model}/lean={lean}")
+    # the wrapper on CPU tensors runs the plain version, bit for bit
+    plain = epoch_fields(KEF.epoch_fused_ref(*ta, **tk, lean=lean))
+    for k in got:
+        np.testing.assert_array_equal(got[k], plain[k], err_msg=k)
+    assert KEF.epoch_fused.launches == 0
+
+
+def test_epoch_fused_noncontiguous_tid_permutation_invariance():
+    """Relabelling table ids (permuting tid and the table rows alike)
+    leaves every CU-level output unchanged and permutes the updated table
+    rows the same way."""
+    T = 3
+    perm = np.array([2, 0, 1])
+    inv = np.argsort(perm)
+    tid_a = np.array([0, 2, 1, 0, 2])
+    _, _, ta, tk_a = epoch_case("pc", 5, 7, NF=6, T=T, tid=tid_a, seed=5)
+    tk_b = dict(tk_a)
+    tk_b["tid"] = t_(perm[tid_a], torch.int32)
+    tbl = tk_a["table"]
+    tk_b["table"] = type(tbl)(*(x[torch.as_tensor(inv)] for x in tbl))
+    a = KEF.epoch_fused(*ta, **tk_a)
+    b = KEF.epoch_fused(*ta, **tk_b)
+    for field in ("pos", "wf_i0", "wf_sens", "f_sel", "e_acc", "work",
+                  "energy", "err", "fidx", "true_sens", "hit_rate"):
+        np.testing.assert_array_equal(np_(getattr(a, field)),
+                                      np_(getattr(b, field)), err_msg=field)
+    for f in ("i0", "sens", "count"):
+        np.testing.assert_array_equal(np_(getattr(a.table, f)),
+                                      np_(getattr(b.table, f))[perm],
+                                      err_msg=f)
+
+
+def test_epoch_fused_out_of_range_tid_matches_reference():
+    """Out-of-range table ids clamp on lookup and drop on update, in both
+    packages."""
+    T, CU, WF = 3, 5, 7
+    tid = np.array([0, 1, T, T + 4, 1])
+    ja, jk, ta, tk = epoch_case("pc", CU, WF, NF=6, T=T, tid=tid, seed=9)
+    got = KEF.epoch_fused(*ta, **tk)
+    want = JKEF.epoch_fused(*ja, **jk)
+    assert_epoch_close(epoch_fields(got), epoch_fields(want), rtol=RTOL,
+                       atol=ATOL)
+    added = float(np_(got.table.count).sum() - np_(tk["table"].count).sum())
+    assert added == pytest.approx(int((tid < T).sum()) * WF)
+
+
+def test_epoch_fused_rejects_unported_modes():
+    _, _, ta, tk = epoch_case("pc", 5, 7, NF=6, seed=2)
+    for extra in (dict(family="fork"), dict(block_cu=2),
+                  dict(mech=torch.tensor(5))):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            KEF.epoch_fused(*ta, **dict(tk, **extra))
+    with pytest.raises(ValueError, match="cu_model"):
+        KEF.epoch_fused(*ta, **dict(tk, family="reactive", cu_model="nope",
+                                    react_i0=ta[7], react_sens=ta[7]))

@@ -1,0 +1,227 @@
+"""Tier 3 of the port's parity: the closed loop.
+
+The sin-hash noise turns one ulp into O(1) noise, so the port's own hash
+cannot be compared with the reference's; every comparison here swaps the
+port's ``simulate._epoch_noise`` for the reference's noise evaluated on the
+port's positions (``_torch_parity.jax_noise_for``).
+
+Two comparisons:
+
+* lockstep: at every epoch of the port's own run, the reference's engine
+  is started from the port's carry for one epoch; the epoch's outputs
+  agree to rtol/atol 1e-5 and ``fidx`` is equal. This holds every epoch of
+  the run to the per-epoch tier. Both engines get an integer-keyed noise
+  here (``_torch_parity.lockstep_noise``): the reference's hash evaluated
+  inside a one-epoch executable does not round like any eager
+  evaluation of it.
+* whole runs: the port's ``run_sim`` against the reference's agree per
+  epoch to 1e-5 up to their first divergence. The two engines round
+  differently in the last ulp (the reference's jitted CPU code contracts
+  multiply-adds into FMAs and sums in its own order), and a ulp of
+  position that crosses a PC-block boundary re-keys that wavefront's
+  noise, after which the runs part. The first divergence must come no
+  earlier than ``MIN_AGREE`` epochs, and the run-level work and energy
+  sums must stay within ``AGG_TOL``.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from _torch_parity import (jax_noise_for, lockstep_noise, np_,  # noqa: E402
+                           port_program)
+from repro.core import predictors as JPRED  # noqa: E402
+from repro.core import simulate as JSIM  # noqa: E402
+from repro.core.workloads import get_workload as j_get_workload  # noqa: E402
+from repro_torch.core import mechanisms as MECH  # noqa: E402
+from repro_torch.core import simulate as SIM  # noqa: E402
+from repro_torch.core.workloads import get_workload  # noqa: E402
+from repro_torch.kernels import epoch_fused as KEF  # noqa: E402
+from repro_torch.kernels import pc_table as KPT  # noqa: E402
+
+CU, WF, N_EPOCHS = 8, 10, 60
+# per-epoch tier: floats to 1e-5 of the value or of the channel's largest
+# value that epoch (true_sens is a difference of the fmax and fmin fork
+# totals over a CU and cancels: its ulp is the totals' ulp)
+RTOL = ATOL = 1e-5
+
+
+def _tol(ref):
+    return ATOL + RTOL * float(np.abs(ref).max(initial=0.0))
+# whole runs: the first divergence comes no earlier than the first
+# PC-loop wrap (epochs 54-58 at 8 CUs x 10 WFs), where the barrier lands
+# every wave of a CU on the loop boundary and a ulp of position decides
+# the block, hence the noise key
+MIN_AGREE = 50
+# run-level work/energy relative deviation over 80 epochs, the last ~25
+# past that wrap: measured 0 to 1.05e-3 (oracle work) at 8 x 10. The
+# reference's own 5.1e-4 budget compares two of its engines whose
+# positions stay bitwise equal; port and reference part for good at the
+# wrap, and at 80 WFs one re-keyed wave is a large share of the total
+AGG_TOL = 2e-3
+MECHS = ("static17", "crisp", "pcstall", "accpc", "accreac", "oracle")
+
+
+@pytest.fixture(scope="module")
+def progs():
+    jprog = j_get_workload("comd")
+    return jprog, port_program(jprog)
+
+
+@pytest.fixture
+def jax_noise(monkeypatch, progs):
+    monkeypatch.setattr(SIM, "_epoch_noise", jax_noise_for(progs[0]))
+
+
+_jit_scan = jax.jit(JSIM._scan_sim, static_argnames=("st", "mech"))
+
+
+def _jax_carry(c: SIM.Carry) -> JSIM.Carry:
+    return JSIM.Carry(
+        pos=jnp.asarray(np_(c.pos)), react_i0=jnp.asarray(np_(c.react_i0)),
+        react_sens=jnp.asarray(np_(c.react_sens)),
+        wf_i0=jnp.asarray(np_(c.wf_i0)), wf_sens=jnp.asarray(np_(c.wf_sens)),
+        table=JPRED.PCTable(*(jnp.asarray(np_(x)) for x in c.table)),
+        f_prev=jnp.asarray(np_(c.f_prev)), e_acc=jnp.asarray(np_(c.e_acc)),
+        t_acc=jnp.asarray(np_(c.t_acc)))
+
+
+@pytest.mark.parametrize("mech,use_pallas", [
+    (m, u) for m in MECHS for u in (False, True)] + [
+    ("pcstall", "v1"), ("accpc", "v1")])
+def test_lockstep_epochs_match_reference(progs, monkeypatch, mech,
+                                         use_pallas):
+    lockstep_noise(monkeypatch)
+    jprog, prog = progs
+    jsim = JSIM.SimConfig(n_cu=CU, n_wf=WF, n_epochs=1)
+    sim = SIM.SimConfig(n_cu=CU, n_wf=WF, n_epochs=1, use_pallas=use_pallas)
+    st = sim.static_part()
+    step = SIM._make_step(prog, prog.n_blocks, 0, st, sim.axes("cpu"), mech)
+    carry = SIM.init_carry(prog.n_blocks, st, "cpu")
+    for ep in range(N_EPOCHS):
+        want = _jit_scan(jprog, jnp.int32(jprog.n_blocks), jnp.int32(0),
+                         st=jsim.static_part(), ax=jsim.axes(),
+                         mech=JSIM.MECH.resolve(mech),
+                         carry0=_jax_carry(carry))
+        carry, ys = step(carry)
+        assert ys.keys() == want.keys()
+        for k, v in want.items():
+            got, ref = np_(ys[k]), np_(v)[0]
+            if k == "fidx":
+                np.testing.assert_array_equal(got, ref, err_msg=f"ep {ep}")
+            else:
+                np.testing.assert_allclose(got, ref, rtol=RTOL,
+                                           atol=_tol(ref),
+                                           err_msg=f"ep {ep} {k}")
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+@pytest.mark.parametrize("mech", MECHS)
+def test_run_sim_matches_reference(progs, jax_noise, mech, use_pallas):
+    jprog, prog = progs
+    n_ep = 80
+    want = JSIM.run_sim(jprog, JSIM.SimConfig(n_cu=CU, n_wf=WF,
+                                              n_epochs=n_ep), mech)
+    got = SIM.run_sim(prog, SIM.SimConfig(n_cu=CU, n_wf=WF, n_epochs=n_ep,
+                                          use_pallas=use_pallas), mech)
+    assert got.keys() == want.keys()
+    for k in want:
+        assert got[k].shape == want[k].shape and got[k].dtype == want[k].dtype
+    # first epoch at which any channel leaves the per-epoch tier
+    ok = np.ones(n_ep, bool)
+    for k in want:
+        a, b = got[k].reshape(n_ep, -1), want[k].reshape(n_ep, -1)
+        if k == "fidx":
+            ok &= (a == b).all(1)
+        else:
+            tol = ATOL + RTOL * np.abs(b).max(1, keepdims=True)
+            ok &= (np.abs(a - b) <= tol + RTOL * np.abs(b)).all(1)
+    first = int(np.argmin(ok)) if not ok.all() else n_ep
+    assert first >= MIN_AGREE, f"{mech}: runs part at epoch {first}"
+    for k in ("work", "energy"):
+        dev = abs(got[k].sum(dtype=np.float64) - want[k].sum(dtype=np.float64))
+        dev /= abs(want[k].sum(dtype=np.float64))
+        assert dev <= AGG_TOL, f"{mech} {k}: run-level deviation {dev:.2e}"
+
+
+def test_quickstart_ordering_with_port_noise():
+    """The paper's result on the port's own noise, at a small size:
+    accuracy oracle > pcstall > crisp and PCSTALL beats static 1.7 GHz on
+    ED^2P."""
+    prog = get_workload("comd", device="cpu")
+    res = SIM.run_workload(prog, SIM.SimConfig(n_cu=16, n_wf=20,
+                                               n_epochs=300),
+                           mechanisms=("static17", "crisp", "pcstall",
+                                       "oracle"))
+    acc = {m: r["accuracy"] for m, r in res.items()}
+    assert acc["oracle"] > acc["pcstall"] > acc["crisp"], acc
+    assert res["pcstall"]["ednp_norm"] < 1.0, res["pcstall"]
+    assert res["static17"]["ednp_norm"] == 1.0
+
+
+def test_engine_routing_and_cpu_plain_versions(monkeypatch):
+    """``use_pallas`` routes as the reference's: the fused epoch for the
+    traced fork mechanisms, the PC-table pair for pc under "v1", the
+    unfused body for static pins, the oracle and custom hooks. On the CPU
+    the routed engines run their plain versions: no kernel launches."""
+    st = SIM.SimConfig(n_cu=4, n_wf=6).static_part()
+    for name in MECH.BUILTIN_NAMES:
+        spec = MECH.get(name)
+        v2, v1 = SIM._engines(st, spec)
+        assert v2 == (spec.family in ("reactive", "pc")), name
+        # the reference enables the table pair for the oracle too; its body
+        # never reaches the table
+        assert v1 == (spec.family == "oracle"), name
+        v2, v1 = SIM._engines(dataclasses.replace(st, use_pallas="v1"), spec)
+        assert not v2 and v1 == (spec.family != "static"), name
+        assert SIM._engines(dataclasses.replace(st, use_pallas=False),
+                            spec) == (False, False)
+    with pytest.raises(AssertionError):
+        SIM._engines(dataclasses.replace(st, use_pallas="v3"),
+                     MECH.get("crisp"))
+    calls = []
+    real = KEF._epoch_math
+    monkeypatch.setattr(KEF, "_epoch_math",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    for fn in (KEF.epoch_fused, KPT.pc_table_predict, KPT.pc_table_update):
+        monkeypatch.setattr(fn, "launches", 0)
+    prog = get_workload("comd", P=256, device="cpu")
+    SIM.run_sim(prog, SIM.SimConfig(n_cu=4, n_wf=6, n_epochs=5), "pcstall")
+    SIM.run_sim(prog, SIM.SimConfig(n_cu=4, n_wf=6, n_epochs=5,
+                                    use_pallas="v1"), "pcstall")
+    assert len(calls) == 5
+    assert KEF.epoch_fused.launches == KPT.pc_table_predict.launches \
+        == KPT.pc_table_update.launches == 0
+
+
+def test_logical_epoch_mask_and_custom_hook():
+    """Epochs past the logical count report zeros; a registered custom
+    mechanism runs its hooks through the unfused body."""
+    prog = get_workload("comd", P=256, device="cpu")
+    sim = SIM.SimConfig(n_cu=4, n_wf=6, n_epochs=12)
+    ax = sim.axes("cpu")
+    ys = SIM._scan_sim(prog, prog.n_blocks, 0, sim.static_part(),
+                       ax._replace(n_ep=torch.tensor(7, dtype=torch.int32)),
+                       "pcstall")
+    full = SIM.run_sim(prog, sim, "pcstall")
+    for k, v in ys.items():
+        v = np_(v)
+        assert not v[7:].any(), k
+        np.testing.assert_array_equal(v[:7], full[k][:7], err_msg=k)
+
+    def predict(carry, ctx, st, ax):
+        return SIM.predict_instr(carry.react_i0, carry.react_sens, st, ax)
+
+    def update(ctr, f_sel, I_f, carry, ctx, st, ax):
+        return carry.react_i0 * 0.9, carry.react_sens * 1.1
+
+    spec = MECH.MechanismSpec("decay", "reactive", MECH._CTRL,
+                              predict=predict, update=update)
+    out = SIM.run_sim(prog, sim, spec)
+    assert set(out) == {"work", "energy", "err", "fidx", "true_sens"}
+    assert np.isfinite(out["work"]).all() and (out["work"] > 0).all()
