@@ -107,6 +107,28 @@ def test_epoch_fused_kernel_matches_plain(dev, family, fork_est, model,
             _close(g, w, field)
 
 
+@pytest.mark.parametrize("objective,cpd", [("edp", 2), ("perfcap10", 4),
+                                           ("deadline05", 1),
+                                           ("perfcap30", 8)])
+@pytest.mark.parametrize("family,fork_est,model", [("pc", False, None),
+                                                  ("reactive", False,
+                                                   "crisp")])
+def test_epoch_fused_kernel_objectives_and_domains(dev, family, fork_est,
+                                                   model, objective, cpd):
+    """Every objective's cost path (rate-normalised or perf-capped) and
+    multi-CU frequency domains, kernel against plain version."""
+    args, kw = _case(family, fork_est, model, 16, 20, 10, dev, seed=cpd)
+    kw.update(obj=torch.as_tensor(SIM.objective_weights(objective)).to(dev),
+              cus_per_domain=cpd, offset_blocks=2)
+    got = KEF.epoch_fused(*args, **kw)
+    want = KEF.epoch_fused_ref(*args, **kw)
+    for field in ("fidx", "f_sel", "pos", "work", "energy", "err", "e_acc",
+                  "true_sens"):
+        _close(getattr(got, field), getattr(want, field), field)
+    fidx = got.fidx.reshape(-1, cpd).cpu()
+    assert (fidx == fidx[:, :1]).all()      # one choice per domain
+
+
 def test_epoch_fused_kernel_table_maps(dev):
     """Arbitrary and out-of-range table maps: clamp on lookup, drop on
     update, several CUs per table."""
