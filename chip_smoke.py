@@ -5,17 +5,29 @@
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and
 drives the port (never JAX, never ``repro``):
 
-1. the card's name and power limit; TF32 off; the kernel library build;
+1. the card's name and power limit; TF32 off; the kernel library build
+   (registers and spills from nvcc's report);
 2. every kernel against its plain PyTorch version on the card, at the
    main path's shapes (64 CUs x 40 WFs, 64 tables x 128 slots, 10 V/f
-   states, the 1024-block ``comd`` program), from numpy-seeded inputs;
-3. the main path, the README quickstart: ``run_workload`` of static17,
-   crisp, pcstall and oracle on ``comd`` for 600 epochs, with the fused
-   epoch kernel's launches counted (crisp and pcstall run it; static17 and
-   the oracle run the unfused body, as in the reference);
+   states, 1024-block Table II programs), from numpy-seeded inputs: the
+   PC-table pair, the fused epoch in families pc/reactive (K3), and the
+   fork family (K4) for every traced id in both math modes and in one
+   launch of 300 mixed rows; then each K4 row against K3 run as that
+   row's mechanism;
+3. the quickstart path: ``run_workload`` of static17, crisp, pcstall and
+   oracle on ``comd`` for 600 epochs, with the fused epoch kernel's
+   launches counted (crisp and pcstall run K3; static17 and the oracle
+   run the unfused body, as in the reference);
 4. the PC-table kernel path: pcstall with ``use_pallas="v1"``;
 5. whole runs of the kernel engine against the unfused engine;
-6. times (CUDA events after warm-up; device time from ``torch.profiler``
+6. the sweep path, the paper's Fig-15 suite through ``run_grid`` (ten
+   workloads x eight mechanisms x 800 epochs, ``suite_metrics``): one K4
+   launch of 40 rows per epoch, no K3 launch, the reference's dispatch
+   accounting, the paper's orderings, and each mechanism's geomean ED2P
+   and mean accuracy beside the JAX reference's;
+7. the sweep's bitwise contracts on the card (suite = one-point grid =
+   per-point grid = streamed) and kernel grid against unfused grid;
+8. times (CUDA events after warm-up; device time from ``torch.profiler``
    where it reports one), each beside the card's name and power limit.
 
 Prints a ``{"kernels": [...]}`` line, the card line, and as the last line
@@ -24,6 +36,7 @@ that line; so does a machine without CUDA.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -41,6 +54,7 @@ from repro_torch import kernels as K  # noqa: E402
 from repro_torch.core import power as PWR  # noqa: E402
 from repro_torch.core import predictors as PRED  # noqa: E402
 from repro_torch.core import simulate as SIM  # noqa: E402
+from repro_torch.core import sweep as SW  # noqa: E402
 from repro_torch.core.workloads import get_workload  # noqa: E402
 from repro_torch.kernels import epoch_fused as KEF  # noqa: E402
 from repro_torch.kernels import pc_table as KPT  # noqa: E402
@@ -61,6 +75,34 @@ F32_FLOP_PER_S = 67e12
 EPOCH_FAMS = [("pc", False, None), ("pc", True, None),
               ("reactive", False, "stall"), ("reactive", False, "crisp"),
               ("reactive", True, None)]
+# the paper's Fig-15 suite as benchmarks/paper_figs.py runs it
+# (WORKLOADS_FAST and FAST_MECHS, copied: this script imports nothing of
+# the reference)
+FIG15_WORKLOADS = ["comd", "hpgmg", "lulesh", "xsbench", "hacc", "quickS",
+                   "dgemm", "BwdBN", "BwdPool", "FwdSoft"]
+FIG15_MECHS = ("static13", "static17", "static22", "crisp", "accreac",
+               "pcstall", "accpc", "oracle")
+FIG15_EPOCHS = 800
+# the JAX reference's Fig-15 numbers on the same suite, computed on the CPU
+# by `PYTHONPATH=src:. JAX_PLATFORMS=cpu python scripts/fig15_reference.py`
+# (jax 0.9.0): geomean ED2P vs static 1.7 GHz, mean prediction accuracy
+REF_FIG15_ED2P = {"static13": 1.0833245515823364, "static17": 1.0,
+                  "static22": 0.9346031546592712, "crisp": 0.882896900177002,
+                  "accreac": 0.8576440811157227,
+                  "pcstall": 0.8805471658706665, "accpc": 0.862924337387085,
+                  "oracle": 0.862209677696228}
+REF_FIG15_ACC = {"crisp": 0.8202141046524047, "accreac": 0.8211552262306213,
+                 "pcstall": 0.9707660734653473, "accpc": 0.9714100241661072,
+                 "oracle": 0.9980913400650024}
+# what the reference's run_grid counts in DISPATCH_ROWS for that suite:
+# ten workloads x (four traced ids | one spec) on a one-point grid
+FIG15_DISPATCH_ROWS = {"grid_forks": 40, "grid_static13": 10,
+                       "grid_static17": 10, "grid_static22": 10,
+                       "grid_oracle": 10}
+# the smaller grid of the exactness phase
+EXACT_WORKLOADS = ["comd", "hacc", "dgemm"]
+EXACT_GRID = {"epoch_us": [1.0, 10.0], "objective": ["ed2p", "edp"]}
+EXACT_EPOCHS = 200
 
 FAILURES = []
 
@@ -154,6 +196,93 @@ def epoch_case(family, fork_est, model, seed, dev):
     return args, kw
 
 
+def fork_rows_case(ids, names, seed, dev, *, lens=None):
+    """``epoch_fused_rows`` operands at the main shapes: one row per
+    traced id in ``ids``, row r on Table II program ``names[r % len]``
+    (logical lengths ``lens``, padded to the longest), with per-row sweep
+    scalars and power regimes, from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    R = len(ids)
+    lens = lens or [P] * len(names)
+    progs = [get_workload(n, P=L, device=dev) for n, L in zip(names, lens)]
+    Pp = max(lens)
+    padded = [SW.pad_program(p, Pp) for p in progs]
+    prog_idx = np.arange(R) % len(names)
+    regimes = [PWR.PowerConfig(), PWR.PowerConfig(f_max=2.0, c_eff=1.1)]
+    objs = ["ed2p", "edp", "perfcap10"]
+    F, scal, pw = [], [], []
+    for r in range(R):
+        reg = regimes[r % 2]
+        epoch_us = float(rng.choice([1.0, 10.0]))
+        F.append(PWR.freqs_ghz(reg, NF).numpy())
+        scal.append([epoch_us, 0.06, 5500.0, 160_000.0,
+                     float(rng.choice([0.5, 0.3])),
+                     *SIM.objective_weights(objs[r % 3]),
+                     PWR.transition_latency_us(epoch_us, reg)])
+        pw.append([getattr(reg, f) for f in PWR.PowerAxes._fields])
+    p_blocks = np.asarray(lens, np.int32)[prog_idx]
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32)).to(dev)
+
+    def i32(a):
+        return torch.as_tensor(np.asarray(a, np.int32)).to(dev)
+
+    F = np.asarray(F, np.float32)
+    pos = f32(np.stack([rng.uniform(0, L * 4 * 3, (CU, WF))
+                        for L in p_blocks]))
+    eps = SIM._epoch_noise(pos, i32(p_blocks)[:, None, None],
+                           i32(rng.integers(0, 3, R))[:, None, None])
+    tbl = [f32(rng.uniform(0, 60, (R, T_TABLES, ENTRIES))),
+           f32(rng.uniform(0, 40, (R, T_TABLES, ENTRIES))),
+           f32((rng.uniform(size=(R, T_TABLES, ENTRIES)) > 0.4)
+               * rng.integers(1, 9, (R, T_TABLES, ENTRIES)))]
+    args = (torch.stack([p.i0_rate for p in padded]),
+            torch.stack([p.sens_rate for p in padded]),
+            torch.stack([p.cum3.T for p in padded]).contiguous(),
+            i32(prog_idx), pos, f32(F), eps.contiguous(),
+            f32(F[np.arange(R)[:, None], rng.integers(0, NF, (R, CU))]),
+            f32(rng.uniform(0, 50, (R, CU))), f32(rng.uniform(20, 40, R)))
+    kw = dict(p_blocks=i32(p_blocks), mech=i32(ids), scal=f32(scal),
+              power=f32(pw), table=PRED.PCTable(*tbl),
+              tid=i32(np.arange(CU) % T_TABLES),
+              wf_i0=f32(rng.uniform(0, 60, (R, CU, WF))),
+              wf_sens=f32(rng.uniform(0, 40, (R, CU, WF))),
+              react_i0=f32(rng.uniform(500, 3000, (R, CU))),
+              react_sens=f32(rng.uniform(300, 2000, (R, CU))),
+              offset_blocks=8, react_models=SIM._REACT_MODELS,
+              pc_ids=SIM._PC_IDS, id_ctr_pc=SIM._ID_CTR_PC)
+    return args, kw
+
+
+def out_fields(out, r=None):
+    """An ``EpochOut`` (or its row ``r``) as {name: tensor}."""
+    res = {}
+    for name in out._fields:
+        v = getattr(out, name)
+        if v is None:
+            continue
+        if name == "table":
+            for k in ("i0", "sens", "count"):
+                res[f"table.{k}"] = getattr(v, k) if r is None \
+                    else getattr(v, k)[r]
+        else:
+            res[name] = v if r is None else v[r]
+    return res
+
+
+def rows_bytes(args, kw, out):
+    """Bytes a fork-rows call must move: each input read once (the
+    programs once each, however many rows share them), each output
+    written once."""
+    ins = list(args) + [kw[k] for k in ("p_blocks", "mech", "scal", "power",
+                                        "tid", "wf_i0", "wf_sens",
+                                        "react_i0", "react_sens")]
+    ins += list(kw["table"])
+    outs = list(out_fields(out).values())
+    return nbytes(*ins) + nbytes(*outs)
+
+
 def epoch_bytes(args, kw, out):
     ins = list(args) + [kw.get("react_i0"), kw.get("react_sens"),
                         kw.get("tid"), kw.get("wf_i0"), kw.get("wf_sens")]
@@ -179,6 +308,12 @@ def epoch_flops(family):
     if family == "pc":
         ops += 2 * n + 3 * n + 12 * T_TABLES * ENTRIES
     return ops
+
+
+def fork_flops(rows):
+    """Operations of ``rows`` fork-family rows: a pc row's epoch plus the
+    reactive predictor and the four counter estimators (~20 per WF)."""
+    return rows * (epoch_flops("pc") + 20 * CU * WF)
 
 
 def bound_ms(nb, ops):
@@ -307,12 +442,80 @@ def main() -> int:
                 row["nbytes"] = epoch_bytes(args, kw, got)
                 row["ops"] = epoch_flops(fam)
 
-    # ---- 3. the main path --------------------------------------------------
+    # ---- 2b. K4: the fork family over grid rows ---------------------------
+    fork_row = rows.setdefault("epoch_fused[fork]", dict(max_abs_err=0.0))
+    ids7 = list(range(7))
+    for lean in (True, False):
+        args, kw = fork_rows_case(ids7, ["comd"], 21, dev)
+        kw["lean"] = lean
+        got = out_fields(KEF.epoch_fused_rows(*args, **kw))
+        want = out_fields(KEF.epoch_fused_rows_ref(*args, **kw))
+        torch.cuda.synchronize()
+        for field, w in want.items():
+            fork_row["max_abs_err"] = max(fork_row["max_abs_err"], compare(
+                f"epoch_fused[fork,ids 0-6,lean={lean}].{field}",
+                got[field], w))
+    mix_ids = [int(i) for i in np.random.default_rng(5).integers(0, 7, 300)]
+    mix_names = FIG15_WORKLOADS[:5]
+    args, kw = fork_rows_case(mix_ids, mix_names, 22, dev,
+                              lens=[1024, 768, 512, 896, 640])
+    n0 = KEF.epoch_fused.launches_by_family["fork"]
+    got = out_fields(KEF.epoch_fused_rows(*args, **kw))
+    check(KEF.epoch_fused.launches_by_family["fork"] == n0 + 1,
+          "epoch_fused[fork]: 300 rows in one launch")
+    want = out_fields(KEF.epoch_fused_rows_ref(*args, **kw))
+    torch.cuda.synchronize()
+    for field, w in want.items():
+        fork_row["max_abs_err"] = max(fork_row["max_abs_err"], compare(
+            f"epoch_fused[fork,300 mixed rows].{field}", got[field], w))
+    # each K4 row against K3 run as that row's mechanism, same inputs
+    args, kw = fork_rows_case(ids7, ["comd"], 23, dev)
+    fork = out_fields(KEF.epoch_fused_rows(*args, **kw))
+    for m in ids7:
+        spec = SIM.MECH.get(SIM.FORK_MECHS[m])
+        sc = kw["scal"][m]
+        one = dict(p_blocks=P, epoch_us=sc[0], sigma=sc[1],
+                   cap_per_ghz=sc[2], membw=sc[3], table_ema=sc[4],
+                   obj=sc[5:8], lat_us=sc[8],
+                   power=PWR.PowerAxes(*kw["power"][m].unbind(0)),
+                   family=spec.family, fork_estimator=spec.fork_estimator,
+                   cu_model=spec.cu_model, offset_blocks=8)
+        groups = {"table": ("table.i0", "table.sens", "table.count",
+                            "wf_i0", "wf_sens"),
+                  "react": ("react_i0", "react_sens")}
+        if spec.family == "pc":
+            one.update(table=PRED.PCTable(*(t[m] for t in kw["table"])),
+                       tid=kw["tid"], wf_i0=kw["wf_i0"][m],
+                       wf_sens=kw["wf_sens"][m])
+            live, dead = groups["table"], groups["react"]
+        else:
+            one.update(react_i0=kw["react_i0"][m],
+                       react_sens=kw["react_sens"][m])
+            live, dead = groups["react"], groups["table"]
+        k3 = out_fields(KEF.epoch_fused(
+            args[0][0], args[1][0], args[2][0], args[4][m], args[5][m],
+            args[6][m], args[7][m], args[8][m], args[9][m:m + 1], **one))
+        torch.cuda.synchronize()
+        tag = f"K4 row id {m} vs K3 {spec.name}"
+        compare(f"{tag}: fidx", fork["fidx"][m], k3["fidx"])
+        for field in live + ("pos", "work", "energy", "err", "e_acc"):
+            compare(f"{tag}: {field}", fork[field][m], k3[field])
+        inputs = {"table.i0": kw["table"].i0[m],
+                  "table.sens": kw["table"].sens[m],
+                  "table.count": kw["table"].count[m],
+                  "wf_i0": kw["wf_i0"][m], "wf_sens": kw["wf_sens"][m],
+                  "react_i0": kw["react_i0"][m],
+                  "react_sens": kw["react_sens"][m]}
+        check(all(torch.equal(fork[f][m], inputs[f]) for f in dead),
+              f"{tag}: dead state {dead[0].split('.')[0]} passed through "
+              f"bitwise")
+
+    # ---- 3. the quickstart path -------------------------------------------
     prog = get_workload("comd", device=dev)
     sim = SIM.SimConfig(n_epochs=N_EPOCHS)
     for fn in (KEF.epoch_fused, KPT.pc_table_predict, KPT.pc_table_update):
         fn.launches = 0
-    KEF.epoch_fused.launches_by_family = {"pc": 0, "reactive": 0}
+    KEF.epoch_fused.launches_by_family = {"pc": 0, "reactive": 0, "fork": 0}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = SIM.run_workload(prog, sim, mechanisms=("static17", "crisp",
@@ -334,7 +537,7 @@ def main() -> int:
     check(KEF.epoch_fused.launches == 2 * N_EPOCHS,
           f"epoch_fused launches {KEF.epoch_fused.launches} == "
           f"{2 * N_EPOCHS}")
-    check(v2_launches == {"pc": N_EPOCHS, "reactive": N_EPOCHS},
+    check(v2_launches == {"pc": N_EPOCHS, "reactive": N_EPOCHS, "fork": 0},
           f"epoch_fused launches by family {v2_launches}")
     check(KPT.pc_table_predict.launches == 0
           and KPT.pc_table_update.launches == 0,
@@ -373,7 +576,101 @@ def main() -> int:
                   f"(first fidx divergence at epoch "
                   f"{flips[0] if len(flips) else 'none'})")
 
-    # ---- 6. times ----------------------------------------------------------
+    # ---- 6. the sweep path: the Fig-15 suite through run_grid ------------
+    progs15 = {w: get_workload(w, device=dev) for w in FIG15_WORKLOADS}
+    sim15 = SIM.SimConfig(n_epochs=FIG15_EPOCHS)
+    SW.reset_counters()
+    for fn in (KEF.epoch_fused, KPT.pc_table_predict, KPT.pc_table_update):
+        fn.launches = 0
+    KEF.epoch_fused.launches_by_family = {"pc": 0, "reactive": 0, "fork": 0}
+    KEF.epoch_fused.fork_rows = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    traces = SW.run_grid(progs15, sim15, {"epoch_us": [1.0]},
+                         FIG15_MECHS)[(1.0,)]
+    torch.cuda.synchronize()
+    fig15_wall = time.perf_counter() - t0
+    fig15_launches = dict(KEF.epoch_fused.launches_by_family)
+    fig15_rows = KEF.epoch_fused.fork_rows
+    fig15_k12 = (KPT.pc_table_predict.launches, KPT.pc_table_update.launches)
+    dispatch = dict(SW.DISPATCH_ROWS)
+    met = SW.suite_metrics(None, sim15, FIG15_MECHS, n=2, traces=traces)
+    ed2p = {m: float(np.exp(np.mean([np.log(met[w][m]["ednp_norm"])
+                                     for w in FIG15_WORKLOADS])))
+            for m in FIG15_MECHS}
+    acc = {m: float(np.mean([met[w][m]["accuracy"]
+                             for w in FIG15_WORKLOADS]))
+           for m in FIG15_MECHS if m in REF_FIG15_ACC}
+    print(f"Fig-15 suite: {len(FIG15_WORKLOADS)} workloads x "
+          f"{len(FIG15_MECHS)} mechanisms x {FIG15_EPOCHS} epochs at "
+          f"{CU} x {WF} through run_grid: {fig15_wall:.2f} s wall "
+          f"({fig15_wall / FIG15_EPOCHS * 1e3:.3f} ms per epoch) on {card}")
+    print(f"{'mechanism':10s} {'ED2P port':>10s} {'ED2P ref':>9s} "
+          f"{'gap':>8s} {'acc port':>9s} {'acc ref':>8s} {'gap':>8s}")
+    for m in FIG15_MECHS:
+        line = (f"{m:10s} {ed2p[m]:10.4f} {REF_FIG15_ED2P[m]:9.4f} "
+                f"{ed2p[m] - REF_FIG15_ED2P[m]:+8.4f}")
+        if m in acc:
+            line += (f" {acc[m]:9.4f} {REF_FIG15_ACC[m]:8.4f} "
+                     f"{acc[m] - REF_FIG15_ACC[m]:+8.4f}")
+        print(line)
+    check(all(np.isfinite(v).all() for trs in traces.values()
+              for tr in trs.values() for v in tr.values()),
+          "Fig-15 traces finite")
+    check(fig15_launches["fork"] == FIG15_EPOCHS
+          and fig15_rows == FIG15_EPOCHS * 40,
+          f"Fig-15: K4 launches {fig15_launches['fork']} == {FIG15_EPOCHS},"
+          f" {fig15_rows / max(fig15_launches['fork'], 1):.0f} rows each "
+          f"(40)")
+    check(fig15_launches["pc"] == fig15_launches["reactive"] == 0
+          and fig15_k12 == (0, 0),
+          f"Fig-15: no K1-K3 launches ({fig15_launches}, {fig15_k12})")
+    check(dispatch == FIG15_DISPATCH_ROWS,
+          f"Fig-15 DISPATCH_ROWS {dispatch} == {FIG15_DISPATCH_ROWS}")
+    check(acc["oracle"] > acc["pcstall"] > acc["crisp"],
+          "Fig-15 mean accuracy oracle > pcstall > crisp")
+    check(ed2p["pcstall"] < 1.0, "Fig-15 pcstall geomean ED2P vs static17 "
+                                 "< 1")
+    rows["epoch_fused[fork]"]["launches"] = fig15_launches["fork"]
+
+    # ---- 7. the sweep's bitwise contracts on the card ---------------------
+    progs3 = {w: get_workload(w, device=dev) for w in EXACT_WORKLOADS}
+    cfg3 = SIM.SimConfig(n_epochs=EXACT_EPOCHS)
+    mech3 = ("static17", "crisp", "accreac", "pcstall", "accpc", "oracle")
+
+    def same(a, b):
+        return all(np.array_equal(a[w][m][k], b[w][m][k])
+                   for w in a for m in a[w] for k in a[w][m])
+
+    grid = SW.run_grid(progs3, cfg3, EXACT_GRID, mech3)
+    suite = SW.run_suite(progs3, cfg3, mech3)
+    check(same(suite, SW.run_grid(progs3, cfg3, [{}], mech3)[()]),
+          "run_suite bitwise == one-point run_grid")
+    check(all(same(grid[key], SW.run_grid(
+        progs3, cfg3, [dict(zip(EXACT_GRID, key))], mech3)[key])
+        for key in grid), "every run_grid row bitwise == its per-point grid")
+    ex = SW.GridExecutor(cfg3, mech3, p_max=P, buckets=(2, 4, 8))
+    jobs = [(progs3[w], dict(zip(EXACT_GRID, key)))
+            for w in EXACT_WORKLOADS for key in grid]
+    streamed = []
+    for i in range(0, len(jobs), 3):
+        streamed += ex.dispatch(jobs[i:i + 3]).traces()
+    check(all(same({0: tr}, {0: grid[tuple(ov.values())][pr.name]})
+              for (pr, ov), tr in zip(jobs, streamed)),
+          "GridExecutor streamed rows (buckets 2/4/8) bitwise == run_grid")
+    grid_u = SW.run_grid(progs3, dataclasses.replace(cfg3, use_pallas=False),
+                         EXACT_GRID, mech3)
+    worst = {}
+    for k in ("work", "energy"):
+        a = sum(float(grid[key][w][m][k].sum(dtype=np.float64))
+                for key in grid for w in progs3 for m in mech3)
+        b = sum(float(grid_u[key][w][m][k].sum(dtype=np.float64))
+                for key in grid for w in progs3 for m in mech3)
+        worst[k] = abs(a - b) / abs(b)
+        check(worst[k] <= AGG_TOL, f"kernel grid vs unfused grid run-level "
+                                   f"{k} rel dev {worst[k]:.3e}")
+
+    # ---- 8. times ----------------------------------------------------------
     times = {}
     times["pc_table_predict"] = (
         lambda: KPT.pc_table_predict(*tbl, tid, idx, *fb, F, **kp),
@@ -384,16 +681,41 @@ def main() -> int:
         lambda: REF.pc_table_update_ref(*tbl, *upd_in, ema=0.5),
         "pc_table_update_kernel")
     for key, (args, kw) in epoch_inputs.items():
+        kname = "epoch_fused_kernel<0>" if "[pc]" in key \
+            else "epoch_fused_kernel<1>"
         times[key] = (lambda a=args, k=kw: KEF.epoch_fused(*a, **k),
                       lambda a=args, k=kw: KEF.epoch_fused_ref(*a, **k),
-                      "epoch_fused_kernel")
+                      kname)
+    # K4 at the Fig-15 grid's layout: its 10 programs x the 4 traced ids
+    ids40 = [SIM.FORK_MECH_IDS[m] for m in ("crisp", "accreac", "pcstall",
+                                            "accpc")]
+    args40, kw40 = fork_rows_case([i for i in ids40 for _ in range(10)],
+                                  FIG15_WORKLOADS, 31, dev)
+    out40 = KEF.epoch_fused_rows(*args40, **kw40)
+    fork_row["nbytes"] = rows_bytes(args40, kw40, out40)
+    fork_row["ops"] = fork_flops(40)
+    times["epoch_fused[fork]"] = (
+        lambda: KEF.epoch_fused_rows(*args40, **kw40),
+        lambda: KEF.epoch_fused_rows_ref(*args40, **kw40),
+        "epoch_fused_kernel<2>")
+    args1, kw1 = fork_rows_case([SIM.FORK_MECH_IDS["pcstall"]], ["comd"], 32,
+                                dev)
+    k4_r1 = lambda: KEF.epoch_fused_rows(*args1, **kw1)  # noqa: E731
+    r1_dev = device_ms(k4_r1, "epoch_fused_kernel<2>")
+    r1_ev = time_events(k4_r1)
+    print(f"time epoch_fused[fork] R=1 (pcstall row): kernel "
+          f"{(r1_dev if r1_dev is not None else r1_ev) * 1e3:.2f} us "
+          f"(device{'' if r1_dev is not None else ' n/a, events'}), "
+          f"{r1_ev * 1e3:.2f} us per call (events) on {card}", flush=True)
     for key, (kern, plain, kname) in times.items():
         ev = time_events(kern)
         dv = device_ms(kern, kname)
         row = rows[key]
         row["events_ms"] = ev
         row["ms"] = dv if dv is not None else ev
-        row["plain_ms"] = time_events(plain, reps=50, warm=5)
+        row["plain_ms"] = time_events(plain, reps=5 if "fork" in key
+                                      else 50, warm=1 if "fork" in key
+                                      else 5)
         row["bound_ms"], row["bound_by"] = bound_ms(row["nbytes"],
                                                     row["ops"])
         print(f"time {key}: kernel {row['ms'] * 1e3:.2f} us (device"
@@ -412,12 +734,25 @@ def main() -> int:
         print(f"time engine use_pallas={up}: {per * 1e3:.3f} ms per epoch "
               f"(pcstall, 64x40, host wall incl. sync) on {card}",
               flush=True)
+    print(f"time Fig-15 grid use_pallas=True: {fig15_wall:.2f} s wall, "
+          f"{fig15_wall / FIG15_EPOCHS * 1e3:.3f} ms per epoch on {card}",
+          flush=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    SW.run_grid(progs15, dataclasses.replace(sim15, use_pallas=False),
+                {"epoch_us": [1.0]}, FIG15_MECHS)
+    torch.cuda.synchronize()
+    wall_u = time.perf_counter() - t0
+    print(f"time Fig-15 grid use_pallas=False: {wall_u:.2f} s wall, "
+          f"{wall_u / FIG15_EPOCHS * 1e3:.3f} ms per epoch on {card}",
+          flush=True)
 
     replaces = {
         "pc_table_predict": "src/repro/kernels/pc_table.py:67",
         "pc_table_update": "src/repro/kernels/pc_table.py:132",
         "epoch_fused[pc]": "src/repro/kernels/epoch_fused.py:748",
         "epoch_fused[reactive]": "src/repro/kernels/epoch_fused.py:748",
+        "epoch_fused[fork]": "src/repro/kernels/epoch_fused.py:748",
     }
     sources = {
         "pc_table_predict": "src/repro_torch/kernels/csrc/pc_table.cu",
@@ -425,6 +760,7 @@ def main() -> int:
         "epoch_fused[pc]": "src/repro_torch/kernels/csrc/epoch_fused.cu",
         "epoch_fused[reactive]":
             "src/repro_torch/kernels/csrc/epoch_fused.cu",
+        "epoch_fused[fork]": "src/repro_torch/kernels/csrc/epoch_fused.cu",
     }
     kernels = []
     for key in replaces:

@@ -40,3 +40,36 @@ def clip(x: torch.Tensor, lo, hi) -> torch.Tensor:
     """``jnp.clip`` semantics, minimum(maximum(x, lo), hi), with tensor
     bounds allowed (``torch.clamp`` takes both bounds of one kind)."""
     return torch.minimum(torch.clamp(x, min=lo), hi)
+
+
+def clamp_blocks(n: torch.Tensor, p_blocks) -> torch.Tensor:
+    """``clip(n, 1, p_blocks)`` for a block count that is an int or a
+    tensor broadcasting against ``n`` (one per grid row)."""
+    if isinstance(p_blocks, torch.Tensor):
+        return torch.minimum(torch.clamp(n, min=1), p_blocks)
+    return torch.clamp(n, 1, p_blocks)
+
+
+def prog_len(p_blocks, instr_per_block: int):
+    """A program's length in instructions as f32: a float for an int block
+    count, a tensor for a tensor."""
+    if isinstance(p_blocks, torch.Tensor):
+        return (p_blocks * instr_per_block).to(torch.float32)
+    return float(p_blocks * instr_per_block)
+
+
+def select_id(mech: torch.Tensor, vals, default) -> torch.Tensor:
+    """``jnp.select([mech == k for k in range(len(vals))], vals,
+    default)``: the value of the traced id ``mech``, else ``default``."""
+    out = default
+    for k in reversed(range(len(vals))):
+        out = torch.where(mech == k, vals[k], out)
+    return out
+
+
+def any_id(mech: torch.Tensor, ids) -> torch.Tensor:
+    """Whether the traced id ``mech`` is one of ``ids`` (a bool tensor)."""
+    out = torch.zeros((), dtype=torch.bool, device=mech.device)
+    for i in ids:
+        out = out | (mech == i)
+    return out

@@ -24,12 +24,21 @@ body below. Static frequencies, the oracle and custom hooks always run the
 unfused body. The port defaults to ``True``. On a CUDA program the kernels
 launch; on a CPU program their plain versions run.
 
-The epoch loop is a Python loop that never syncs with the host: per-epoch
-outputs go into preallocated ``(n_epochs, CU)`` tensors, the logical-epoch
-mask is applied once after the loop, and ``run_sim`` copies to numpy once.
+Two loops drive the epoch step, and neither syncs with the host: per-epoch
+outputs go into preallocated tensors and the logical-epoch mask is applied
+once after the loop.
 
-Not ported yet: the traced mechanism-id mode of the scan (the batched
-sweep's shared executable); see ROADMAP queue A.
+* :func:`_scan_sim` runs one simulation with a concrete mechanism
+  (``run_sim``).
+* :func:`_scan_rows` steps R independent rows together, the batched sweep's
+  counterpart of the reference's ``vmap`` over (workload x grid point x
+  seed x mechanism). Each row has its own program, logical block count,
+  seed and grid point. The builtin fork mechanisms share one step in which
+  the mechanism is a per-row traced id (``FORK_MECHS``): on the fused
+  kernel engine that step is one ``epoch_fused_rows`` launch for all rows;
+  otherwise, and for the specialised families (statics, the oracle, custom
+  hooks), the one-row body is mapped over the rows with
+  ``torch.func.vmap``, so custom hooks see per-row views.
 """
 from __future__ import annotations
 
@@ -39,7 +48,8 @@ from typing import Dict, NamedTuple, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch import DeviceLike, clip, resolve_device
+from repro_torch import (DeviceLike, any_id, clamp_blocks, clip, prog_len,
+                         resolve_device, select_id)
 from repro_torch.core import estimators as EST
 from repro_torch.core import mechanisms as MECH
 from repro_torch.core import power as PWR
@@ -48,6 +58,37 @@ from repro_torch.core.mechanisms import MechanismSpec
 from repro_torch.core.workloads import INSTR_PER_BLOCK, Program
 
 MECHANISMS = MECH.BUILTIN_NAMES
+
+# Mechanisms that run the fork--pre-execute step, in traced-id order: the
+# batched sweep steps them as one family indexed by a per-row traced id
+# (the carry is shape-identical across all of them). The oracle predicts
+# from this epoch's forks and gets its own specialised step.
+FORK_MECHS = tuple(s.name for s in MECH.fork_specs())
+FORK_MECH_IDS = {m: i for i, m in enumerate(FORK_MECHS)}
+# traced ids 0.._N_REACT-1 predict from CU-level reactive state (the
+# registry asserts contiguity: the branch select is one `mech < n` compare)
+_N_REACT = MECH.traced_reactive_count()
+_REACT_SPECS = tuple(s for s in MECH.fork_specs()
+                     if s.is_traced and s.family == "reactive")
+_PC_IDS = tuple(s.traced_id for s in MECH.fork_specs()
+                if s.is_traced and s.family == "pc")
+# the one traced PC mechanism estimating from hardware counters (pcstall);
+# the other (accpc) takes the exact per-WF linear model from the forks
+_ID_CTR_PC = next(s.traced_id for s in MECH.fork_specs()
+                  if s.is_traced and s.family == "pc"
+                  and not s.fork_estimator)
+# the traced step builds its reactive-estimator select in this order:
+# counter models at ids 0..n-2, the fork-accurate reactive (accreac) last
+assert all(s.cu_model for s in _REACT_SPECS[:-1]) and \
+    _REACT_SPECS[-1].fork_estimator, _REACT_SPECS
+# the counter models of the traced reactive ids, in id order
+_REACT_MODELS = tuple(s.cu_model for s in _REACT_SPECS
+                      if not s.fork_estimator)
+# the shared traced-id step can run the fused epoch kernel only if every
+# mechanism it multiplexes is v2-capable (all builtin traced mechanisms
+# are)
+_FORK_V2_CAPABLE = all(s.v2_capable for s in MECH.fork_specs()
+                       if s.is_traced)
 
 _F32 = torch.float32
 
@@ -67,6 +108,10 @@ class SimStatic:
     # False (unfused body), "v1" (PC-table kernel pair), "v2" (the fused
     # epoch kernel), True = v2 where the mechanism permits, else v1
     use_pallas: Union[bool, str]
+    # fork family on the fused kernel engine: tile the CU axis over blocks
+    # of this many CUs (None = monolithic). No CUDA kernel yet (ROADMAP
+    # K5): inert on the CPU, raises on the card
+    pallas_block_cu: Optional[int]
     power: PWR.PowerStatic
 
 
@@ -132,6 +177,8 @@ class SimConfig:
     # False | True | "v1" | "v2": see SimStatic; the port runs its kernels
     # by default
     use_pallas: Union[bool, str] = True
+    # fork-family CU tile of the fused kernel (None = monolithic)
+    pallas_block_cu: Optional[int] = None
     power: PWR.PowerConfig = PWR.DEFAULT
     seed: int = 0
 
@@ -143,6 +190,7 @@ class SimConfig:
             cus_per_table=self.cus_per_table,
             cus_per_domain=self.cus_per_domain,
             record_wf=self.record_wf, use_pallas=self.use_pallas,
+            pallas_block_cu=self.pallas_block_cu,
             power=self.power.static_part())
 
     def axes(self, device: DeviceLike = "cuda") -> SimAxes:
@@ -185,38 +233,61 @@ class EpochCtx(NamedTuple):
     cum_lo: torch.Tensor  # (CU,WF,3) cum3 gathered at blk
 
 
-def _start_block(pos: torch.Tensor, p_blocks: int) -> torch.Tensor:
+BlockCount = Union[int, torch.Tensor]
+
+
+class ProgArrays(NamedTuple):
+    """The program arrays an epoch reads (a ``Program`` without its name),
+    as a tuple ``torch.func.vmap`` can map over."""
+    i0_rate: torch.Tensor    # (P,)
+    sens_rate: torch.Tensor  # (P,)
+    cum3: torch.Tensor       # (2P+1, 3)
+
+
+def _start_block(pos: torch.Tensor, p_blocks: BlockCount) -> torch.Tensor:
     return torch.remainder(
         torch.div(pos.to(torch.int32), INSTR_PER_BLOCK,
                   rounding_mode="floor"), p_blocks).long()
 
 
-def _epoch_noise(pos: torch.Tensor, p_blocks: int, seed: int
+def _seed_phase(seed):
+    """The noise hash's seed phase: the int32 ``seed`` as two exactly
+    representable halves folded into one f32 (seeds below 65536 add an
+    exact +0 high term). A Python int gives a float, a tensor a tensor of
+    the same f32 bits."""
+    if isinstance(seed, torch.Tensor):
+        return (torch.remainder(seed, 65536).to(_F32) * 3.7
+                + torch.div(seed, 65536, rounding_mode="floor").to(_F32)
+                * 2.2867257)                       # 3.7 * golden ratio
+    s_lo = np.float32(seed % 65536)
+    s_hi = np.float32(seed // 65536)
+    return float(s_lo * np.float32(3.7) + s_hi * np.float32(2.2867257))
+
+
+def _epoch_noise(pos: torch.Tensor, p_blocks: BlockCount, seed
                  ) -> torch.Tensor:
     """The deterministic (block, loop, wf, cu, seed)-keyed noise in
     [-1, 1): ``frac(sin(x) * 43758.5453)`` of a linear key. Identical for
     every fork and for the executed row (the paper's fork property).
 
-    ``seed`` is an int32; it enters as two exactly representable halves
-    folded into one f32 phase (seeds below 65536 add an exact +0 high
-    term). The hash amplifies one ulp of its argument into O(1) noise, so
+    ``pos`` is (..., CU, WF); ``p_blocks`` and the int32 ``seed`` are ints
+    or tensors broadcasting against it (one per row of a batch). Every op
+    is elementwise, so a row's noise has the same bits alone or in a
+    batch. The hash amplifies one ulp of its argument into O(1) noise, so
     its bits depend on the device's ``sin``."""
     blk = _start_block(pos, p_blocks)
     loop = torch.div(pos, INSTR_PER_BLOCK * p_blocks, rounding_mode="floor")
-    wf_id = torch.arange(pos.shape[1], dtype=_F32, device=pos.device)[None]
-    cu_id = torch.arange(pos.shape[0], dtype=_F32,
+    wf_id = torch.arange(pos.shape[-1], dtype=_F32, device=pos.device)[None]
+    cu_id = torch.arange(pos.shape[-2], dtype=_F32,
                          device=pos.device)[:, None]
-    s_lo = np.float32(seed % 65536)
-    s_hi = np.float32(seed // 65536)
-    seed_phase = float(s_lo * np.float32(3.7)
-                       + s_hi * np.float32(2.2867257))  # 3.7 * golden ratio
     h = torch.sin(blk * 12.9898 + loop * 78.233 + wf_id * 37.719
-                  + cu_id * 9.131 + seed_phase) * 43758.5453
+                  + cu_id * 9.131 + _seed_phase(seed)) * 43758.5453
     return (h - torch.floor(h)) * 2.0 - 1.0
 
 
-def _epoch_context(prog: Program, pos: torch.Tensor, p_blocks: int,
-                   seed: int) -> EpochCtx:
+def _epoch_context(prog, pos: torch.Tensor, p_blocks: BlockCount,
+                   seed) -> EpochCtx:
+    """``prog`` is a ``Program`` or :class:`ProgArrays`."""
     blk = _start_block(pos, p_blocks)
     cum3 = prog.cum3
     return EpochCtx(blk=blk, i0_l=prog.i0_rate[blk], s_l=prog.sens_rate[blk],
@@ -235,16 +306,15 @@ class _SteadyParts(NamedTuple):
     mfw: torch.Tensor
 
 
-
 def _steady_parts(ctx: EpochCtx, pos: torch.Tensor, f_cu: torch.Tensor,
-                  p_blocks: int, ax: SimAxes) -> _SteadyParts:
+                  p_blocks: BlockCount, ax: SimAxes) -> _SteadyParts:
     """Steady-state committed instructions at frequency rows ``f_cu`` of
     shape ``(..., CU)``; all outputs carry the batch shape."""
     T = ax.epoch_us
     f_b = f_cu[..., :, None]                                  # (...,CU,1)
     est_instr = (ctx.i0_l + ctx.s_l * f_b) * T
-    nblk = torch.clamp((est_instr / INSTR_PER_BLOCK).to(torch.int32) + 1,
-                       1, p_blocks).long()
+    nblk = clamp_blocks((est_instr / INSTR_PER_BLOCK).to(torch.int32) + 1,
+                         p_blocks).long()
     wavg = (ctx.cum3[ctx.blk + nblk] - ctx.cum_lo) / nblk[..., None]
     i0w, sw, mfw = wavg[..., 0], wavg[..., 1], wavg[..., 2]
     demand = (i0w + sw * f_b) * T
@@ -253,8 +323,11 @@ def _steady_parts(ctx: EpochCtx, pos: torch.Tensor, f_cu: torch.Tensor,
     C = ax.cap_per_ghz * f_cu * T
     before = torch.cumsum(demand, -1) - demand
     alloc = clip(C[..., :, None] - before, 0.0, demand)
-    # shared L2/DRAM bandwidth coupling across all CUs
-    traffic = (alloc * mfw).sum(dim=(-2, -1))
+    # shared L2/DRAM bandwidth coupling across all CUs, summed per CU and
+    # then over CUs: short reductions whose order on the GPU does not
+    # depend on how many rows a batch holds (one 2560-long reduction per
+    # row is split across warps only when the batch has few rows)
+    traffic = (alloc * mfw).sum(-1).sum(-1)
     scale = torch.clamp(ax.membw * T / torch.clamp(traffic, min=1e-6),
                         max=1.0)
     steady = alloc * (1.0 - mfw * (1.0 - scale[..., None, None]))
@@ -262,14 +335,14 @@ def _steady_parts(ctx: EpochCtx, pos: torch.Tensor, f_cu: torch.Tensor,
 
 
 def _row_counters(parts: _SteadyParts, pos: torch.Tensor,
-                  f_cu: torch.Tensor, p_blocks: int
+                  f_cu: torch.Tensor, p_blocks: BlockCount
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Complete one frequency row into the hardware-counter view, with the
     workgroup barrier at each kernel-loop boundary (waves wait for the
     slowest wave of their CU before the next iteration)."""
     f_b = f_cu[..., :, None]
     q = parts.alloc / torch.clamp(parts.demand, min=1e-6)
-    plen = float(p_blocks * INSTR_PER_BLOCK)
+    plen = prog_len(p_blocks, INSTR_PER_BLOCK)
     tentative = pos + parts.steady
     group_min = tentative.amin(-1)                              # slowest
     boundary = (torch.floor(group_min / plen) + 1.0) * plen     # (...,CU)
@@ -283,7 +356,7 @@ def _row_counters(parts: _SteadyParts, pos: torch.Tensor,
 
 
 def _execute_ctx(ctx: EpochCtx, pos: torch.Tensor, f_cu: torch.Tensor,
-                 p_blocks: int, ax: SimAxes
+                 p_blocks: BlockCount, ax: SimAxes
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full execute of ``f_cu`` rows of shape ``(..., CU)``."""
     parts = _steady_parts(ctx, pos, f_cu, p_blocks, ax)
@@ -345,27 +418,35 @@ def _true_wf_linear(c_f: torch.Tensor, F: torch.Tensor
     return i0, sens
 
 
-def init_carry(p_blocks: int, st: SimStatic,
+def init_carry(p_blocks: BlockCount, st: SimStatic,
                device: DeviceLike = "cuda") -> Carry:
-    """The loop-initial state for a ``p_blocks``-block program."""
+    """The loop-initial state for a ``p_blocks``-block program. An (R,)
+    tensor of block counts gives R rows' states stacked on a leading axis
+    (each row's bits those of its one-row state)."""
     dev = resolve_device(device)
     n_tables = max(st.n_cu // st.cus_per_table, 1)
-    plen = float(p_blocks * INSTR_PER_BLOCK)
+    rows = ()
+    plen = prog_len(p_blocks, INSTR_PER_BLOCK)
+    if isinstance(p_blocks, torch.Tensor):
+        rows = tuple(p_blocks.shape)
+        plen = plen.to(dev).reshape(rows + (1, 1))
     cu_off = torch.remainder(
         torch.arange(st.n_cu, dtype=_F32, device=dev)[:, None] * 97.0, plen)
     wf_off = torch.arange(st.n_wf, dtype=_F32, device=dev)[None, :] * 1.0
     pos0 = torch.remainder(cu_off + wf_off, plen)
 
     def full(shape, x):
-        return torch.full(shape, x, dtype=_F32, device=dev)
+        return torch.full(rows + shape, x, dtype=_F32, device=dev)
 
+    tbl = PRED.table_init(n_tables, st.entries, dev)
     return Carry(
         pos=pos0,
         react_i0=full((st.n_cu,), 50.0),
         react_sens=full((st.n_cu,), 30.0),
         wf_i0=full((st.n_cu, st.n_wf), 1.2),
         wf_sens=full((st.n_cu, st.n_wf), 0.8),
-        table=PRED.table_init(n_tables, st.entries, dev),
+        table=PRED.PCTable(*(t.expand(rows + t.shape).contiguous()
+                             for t in tbl)),
         # F_STATIC of the default ladder: one initial transition per CU off
         # it, like hardware coming out of a fixed boot frequency
         f_prev=full((st.n_cu,), 1.7),
@@ -389,47 +470,41 @@ def _engines(st: SimStatic, spec: MechanismSpec) -> Tuple[bool, bool]:
     return v2, v1
 
 
-def _make_step(prog: Program, p_blocks: int, seed: int, st: SimStatic,
-               ax: SimAxes, mech: Union[str, MechanismSpec]):
-    """The epoch step ``carry -> (carry, ys)`` for one concrete mechanism
-    (a registered name or a ``MechanismSpec``), with the engine chosen by
-    ``st.use_pallas``; ``ys`` maps each output channel to this epoch's
-    tensor."""
-    spec = MECH.resolve(mech)
-    dev = prog.device
+def _make_body(st: SimStatic, spec: Optional[MechanismSpec],
+               tid: torch.Tensor, use_v1: bool = False):
+    """The unfused epoch ``body(carry, prog, p_blocks, seed, ax, F, lat_us,
+    mech) -> (carry, ys)`` of one simulation: ``prog`` a ``Program`` or
+    :class:`ProgArrays`, ``p_blocks``/``seed`` ints or 0-dim tensors, ``F``
+    the ladder and ``lat_us`` the transition dead time of ``ax``'s power
+    regime. ``spec`` None is the traced-id mode: ``mech`` is a 0-dim id
+    into ``FORK_MECHS``, both predictors and every estimator are evaluated
+    and the id selects, the table and per-WF state update only for the pc
+    ids, and ``hit_rate`` is emitted for every id. The body is a pure
+    tensor function, so ``torch.func.vmap`` maps it over rows."""
     NF = st.power.n_freqs
-    F = PWR.freqs_ghz(ax.power, NF)
-    T = ax.epoch_us
     CU = st.n_cu
     n_dom = CU // st.cus_per_domain
     n_tables = max(CU // st.cus_per_table, 1)
-    lat_us = PWR.transition_latency_us(ax.epoch_us, ax.power)
-    tid = torch.div(torch.arange(CU, device=dev), st.cus_per_table,
-                    rounding_mode="floor")
+    traced = spec is None
+    if traced:
+        is_static_f = is_custom = is_pc = is_react = is_oracle = False
+    else:
+        is_static_f = spec.family == "static"
+        is_custom = spec.predict is not None
+        is_pc = spec.family == "pc" and not is_custom
+        is_react = spec.family == "reactive" and not is_custom
+        is_oracle = spec.family == "oracle"
     tid32 = tid.to(torch.int32)
-    F_rows = F[:, None].expand(NF, CU)
-    is_static_f = spec.family == "static"
-    assert spec.static_fidx is None or spec.static_fidx < NF, \
-        f"{spec.name}: static_fidx {spec.static_fidx} is off the " \
-        f"{NF}-state ladder of this power regime"
-    is_custom = spec.predict is not None
-    is_pc = spec.family == "pc" and not is_custom
-    is_react = spec.family == "reactive" and not is_custom
-    is_oracle = spec.family == "oracle"
-    use_v2, use_v1 = _engines(st, spec)
     if use_v1:
         from repro_torch.kernels import pc_table as KPT
-    if use_v2:
-        from repro_torch.kernels import epoch_fused as KEF
-        cum_t = prog.cum3.T.contiguous()
 
-    def _pc_lookup(carry, idx_lu):
+    def _pc_lookup(carry, idx_lu, F, ax):
         """Table lookup + CU reduce + I(f) + capacity clip."""
         if use_v1:
             I_pc = KPT.pc_table_predict(
                 carry.table.i0, carry.table.sens, carry.table.count, tid32,
                 idx_lu.to(torch.int32), carry.wf_i0, carry.wf_sens, F,
-                epoch_us=T, cap_per_ghz=ax.cap_per_ghz)
+                epoch_us=ax.epoch_us, cap_per_ghz=ax.cap_per_ghz)
             hit = (carry.table.count[tid[:, None], idx_lu] > 0).to(_F32)
         else:
             i0t, s_t, hit = PRED.table_lookup(carry.table, tid, idx_lu,
@@ -437,7 +512,7 @@ def _make_step(prog: Program, p_blocks: int, seed: int, st: SimStatic,
             I_pc = _predict_instr(i0t.sum(-1), s_t.sum(-1), st, ax)
         return I_pc, hit
 
-    def _table_update(carry, idx_lu, i0_wf, s_wf):
+    def _table_update(carry, idx_lu, i0_wf, s_wf, ax):
         if use_v1:
             shp = (n_tables, st.cus_per_table * st.n_wf)
             i0n, sn, cn = KPT.pc_table_update(
@@ -448,8 +523,12 @@ def _make_step(prog: Program, p_blocks: int, seed: int, st: SimStatic,
         return PRED.table_update(carry.table, tid, idx_lu, i0_wf, s_wf,
                                  ax.table_ema)
 
-    def body(carry: Carry):
+    def body(carry: Carry, prog, p_blocks, seed, ax: SimAxes, F, lat_us,
+             mech):
+        T = ax.epoch_us
         pos = carry.pos
+        dev = pos.device
+        F_rows = F[:, None].expand(NF, CU)
         ctx = _epoch_context(prog, pos, p_blocks, seed)
         hit_rate = None
         c_f = I_f = I_pred_f = idx_lu = None
@@ -461,10 +540,10 @@ def _make_step(prog: Program, p_blocks: int, seed: int, st: SimStatic,
         else:
             idx_lu = PRED.table_index(ctx.blk, st.entries, st.offset_blocks)
             # custom pc-family specs keep the standard table machinery
-            if is_pc or (is_custom and spec.family == "pc"):
-                I_pc, hit = _pc_lookup(carry, idx_lu)
+            if traced or is_pc or (is_custom and spec.family == "pc"):
+                I_pc, hit = _pc_lookup(carry, idx_lu, F, ax)
                 hit_rate = hit.sum() / hit.numel()
-            if is_react:
+            if traced or is_react:
                 I_react = _predict_instr(carry.react_i0, carry.react_sens,
                                          st, ax)
             if is_custom:
@@ -482,8 +561,11 @@ def _make_step(prog: Program, p_blocks: int, seed: int, st: SimStatic,
             else:
                 # fused fork--pre-execute: the NF uniform fork rows and the
                 # chosen mixed row run as one (NF+1)-row batched execute
-                I_pred_f = I_hook if is_custom else \
-                    (I_pc if is_pc else I_react)
+                if traced:
+                    I_pred_f = torch.where(mech < _N_REACT, I_react, I_pc)
+                else:
+                    I_pred_f = I_hook if is_custom else \
+                        (I_pc if is_pc else I_react)
                 fidx = _select_freq(I_pred_f, st, ax, pbar)
                 f_all = torch.cat([F_rows, F[fidx][None]], 0)
                 parts = _steady_parts(ctx, pos, f_all, p_blocks, ax)
@@ -515,13 +597,36 @@ def _make_step(prog: Program, p_blocks: int, seed: int, st: SimStatic,
                              e_acc=carry.e_acc + energy,
                              t_acc=carry.t_acc + T)
         est_ctrs = dict(ctr, committed=ctr["steady"])
-        if is_custom:
+        if traced:
+            # every estimator, selected on the traced id (counter models at
+            # ids 0..n-2, the fork-accurate reactive last)
+            cu_ests = [EST.cu_estimate(est_ctrs, f_sel, m)
+                       for m in _REACT_MODELS]
+            sens_ar = (I_f[:, -1] - I_f[:, 0]) / ((F[-1] - F[0]) * T)
+            i0_ar = I_f[:, 0] / T - sens_ar * F[0]
+            r_i0 = select_id(mech, [e[0] / T for e in cu_ests] + [i0_ar],
+                              carry.react_i0)
+            r_se = select_id(mech, [e[1] / T for e in cu_ests] + [sens_ar],
+                              carry.react_sens)
+            i0_est, s_est = EST.wf_stall_estimate(est_ctrs, f_sel)
+            i0_tr, s_tr = _true_wf_linear(c_f, F)
+            i0_wf = torch.where(mech == _ID_CTR_PC, i0_est, i0_tr) / T
+            s_wf = torch.where(mech == _ID_CTR_PC, s_est, s_tr) / T
+            tbl_u = _table_update(carry, idx_lu, i0_wf, s_wf, ax)
+            pc_now = any_id(mech, _PC_IDS)
+            new = new._replace(
+                react_i0=r_i0, react_sens=r_se,
+                table=PRED.PCTable(*(torch.where(pc_now, a, b) for a, b
+                                     in zip(tbl_u, carry.table))),
+                wf_i0=torch.where(pc_now, i0_wf, carry.wf_i0),
+                wf_sens=torch.where(pc_now, s_wf, carry.wf_sens))
+        elif is_custom:
             if spec.family == "pc":
                 # standard counter-driven table maintenance, so a custom
                 # pc predictor reads a live table
                 i0_wf, s_wf = EST.wf_stall_estimate(est_ctrs, f_sel)
                 i0_wf, s_wf = i0_wf / T, s_wf / T
-                tbl = _table_update(carry, idx_lu, i0_wf, s_wf)
+                tbl = _table_update(carry, idx_lu, i0_wf, s_wf, ax)
                 new = new._replace(table=tbl, wf_i0=i0_wf, wf_sens=s_wf)
             if spec.update is not None:
                 upd = spec.update(est_ctrs, f_sel, I_f, carry, ctx, st, ax)
@@ -540,7 +645,7 @@ def _make_step(prog: Program, p_blocks: int, seed: int, st: SimStatic,
             else:  # exact per-WF linear model from the forks (accpc)
                 i0_wf, s_wf = _true_wf_linear(c_f, F)
             i0_wf, s_wf = i0_wf / T, s_wf / T
-            tbl = _table_update(carry, idx_lu, i0_wf, s_wf)
+            tbl = _table_update(carry, idx_lu, i0_wf, s_wf, ax)
             new = new._replace(table=tbl, wf_i0=i0_wf, wf_sens=s_wf)
         if is_static_f:
             true_sens_cu = torch.zeros((CU,), dtype=_F32, device=dev)
@@ -548,12 +653,44 @@ def _make_step(prog: Program, p_blocks: int, seed: int, st: SimStatic,
             true_sens_cu = (I_f[:, -1] - I_f[:, 0]) / ((F[-1] - F[0]) * T)
         ys = {"work": work_actual, "energy": energy, "err": err,
               "fidx": fidx, "true_sens": true_sens_cu}
-        if hit_rate is not None and spec.hit_telemetry:
+        # the traced mode emits the hit rate for every id (the sweep keeps
+        # it per spec on unpack)
+        if hit_rate is not None and (traced or spec.hit_telemetry):
             ys["hit_rate"] = hit_rate
         if st.record_wf and not is_static_f:
             ys["wf_sens"] = (c_f[-1] - c_f[0]) / (F[-1] - F[0])
             ys["wf_blk"] = ctx.blk.to(torch.int32)
         return new, ys
+
+    return body
+
+
+def _make_step(prog: Program, p_blocks: int, seed: int, st: SimStatic,
+               ax: SimAxes, mech: Union[str, MechanismSpec]):
+    """The epoch step ``carry -> (carry, ys)`` for one concrete mechanism
+    (a registered name or a ``MechanismSpec``), with the engine chosen by
+    ``st.use_pallas``; ``ys`` maps each output channel to this epoch's
+    tensor."""
+    spec = MECH.resolve(mech)
+    dev = prog.device
+    NF = st.power.n_freqs
+    F = PWR.freqs_ghz(ax.power, NF)
+    T = ax.epoch_us
+    CU = st.n_cu
+    lat_us = PWR.transition_latency_us(ax.epoch_us, ax.power)
+    tid = torch.div(torch.arange(CU, device=dev), st.cus_per_table,
+                    rounding_mode="floor")
+    assert spec.static_fidx is None or spec.static_fidx < NF, \
+        f"{spec.name}: static_fidx {spec.static_fidx} is off the " \
+        f"{NF}-state ladder of this power regime"
+    use_v2, use_v1 = _engines(st, spec)
+    if not use_v2:
+        body = _make_body(st, spec, tid, use_v1)
+        return lambda carry: body(carry, prog, p_blocks, seed, ax, F,
+                                  lat_us, None)
+    from repro_torch.kernels import epoch_fused as KEF
+    cum_t = prog.cum3.T.contiguous()
+    tid32 = tid.to(torch.int32)
 
     def body_v2(carry: Carry):
         # the whole epoch is ONE kernel; only the sin-hash noise is computed
@@ -587,7 +724,31 @@ def _make_step(prog: Program, p_blocks: int, seed: int, st: SimStatic,
             ys["hit_rate"] = out.hit_rate[0]
         return new, ys
 
-    return body_v2 if use_v2 else body
+    return body_v2
+
+
+def _run_loop(step, carry, n_epochs: int, n_ep: torch.Tensor,
+              dev: torch.device) -> Dict[str, torch.Tensor]:
+    """``n_epochs`` steps from ``carry`` into preallocated (n_epochs, ...)
+    buffers; epochs at index >= ``n_ep`` (a scalar, or one per leading row
+    of the outputs) are zeroed afterwards. No host sync."""
+    bufs: Dict[str, torch.Tensor] = {}
+    for ep in range(n_epochs):
+        carry, ys = step(carry)
+        if not bufs:
+            bufs = {k: torch.empty((n_epochs,) + tuple(v.shape),
+                                   dtype=torch.int8 if k == "fidx"
+                                   else v.dtype, device=dev)
+                    for k, v in ys.items()}
+        for k, v in ys.items():
+            bufs[k][ep].copy_(v)
+    # logical-epoch mask: epochs past n_ep report zeros (the loop is
+    # causal, so live epochs are unaffected)
+    live = torch.arange(n_epochs, device=dev).reshape(
+        (-1,) + (1,) * n_ep.dim()) < n_ep
+    return {k: torch.where(
+        live.reshape(live.shape + (1,) * (v.dim() - live.dim())), v,
+        torch.zeros((), dtype=v.dtype, device=dev)) for k, v in bufs.items()}
 
 
 def _scan_sim(prog: Program, p_blocks: int, seed: int, st: SimStatic,
@@ -600,22 +761,106 @@ def _scan_sim(prog: Program, p_blocks: int, seed: int, st: SimStatic,
     dev = prog.device
     step = _make_step(prog, p_blocks, seed, st, ax, mech)
     carry = init_carry(p_blocks, st, dev) if carry0 is None else carry0
-    bufs: Dict[str, torch.Tensor] = {}
-    for ep in range(st.n_epochs):
-        carry, ys = step(carry)
-        if not bufs:
-            bufs = {k: torch.empty((st.n_epochs,) + tuple(v.shape),
-                                   dtype=torch.int8 if k == "fidx"
-                                   else v.dtype, device=dev)
-                    for k, v in ys.items()}
-        for k, v in ys.items():
-            bufs[k][ep].copy_(v)
-    # logical-epoch mask: epochs past n_ep report zeros (the loop is
-    # causal, so live epochs are unaffected)
-    live = torch.arange(st.n_epochs, device=dev) < ax.n_ep
-    return {k: torch.where(live.reshape((-1,) + (1,) * (v.dim() - 1)), v,
-                           torch.zeros((), dtype=v.dtype, device=dev))
-            for k, v in bufs.items()}
+    return _run_loop(step, carry, st.n_epochs, ax.n_ep, dev)
+
+
+def _fork_kernel_engine(st: SimStatic) -> bool:
+    """Whether the traced-id family steps on the fused epoch kernel."""
+    assert st.use_pallas in (False, True, "v1", "v2"), \
+        f"use_pallas must be False|True|'v1'|'v2', got {st.use_pallas!r}"
+    return (st.use_pallas in (True, "v2") and not st.record_wf
+            and _FORK_V2_CAPABLE)
+
+
+def _scan_rows(progs: ProgArrays, prog_idx: torch.Tensor,
+               p_blocks: torch.Tensor, seeds: torch.Tensor, st: SimStatic,
+               ax: SimAxes, mech: Optional[Union[str, MechanismSpec]],
+               mech_ids: Optional[torch.Tensor], carry0: Carry
+               ) -> Dict[str, torch.Tensor]:
+    """Step R independent simulation rows together for ``st.n_epochs``
+    epochs (the batched sweep's counterpart of the reference's ``vmap``).
+
+    ``progs`` stacks W programs padded to a common block count (leading
+    axis W); row r runs program ``prog_idx[r]`` with logical block count
+    ``p_blocks[r]``, noise seed ``seeds[r]`` (int32) and the grid point
+    whose ``SimAxes`` leaves carry a leading row axis (``ax.n_ep`` (R,) is
+    each row's logical epoch count). ``mech`` None is the traced fork
+    family with per-row ids ``mech_ids`` (R,); otherwise every row runs
+    the concrete mechanism ``mech``. ``carry0`` has a leading row axis
+    (``init_carry`` of the (R,) block counts).
+
+    Engine: the traced family on the fused kernel engine (``use_pallas``
+    True/"v2") is ONE ``epoch_fused_rows`` call per epoch, a single kernel
+    launch on the card; every other case maps the one-row unfused body
+    over the rows with ``torch.func.vmap``. Returns {channel: (R, n_epochs,
+    ...)} on the device, zeroed past each row's logical epochs."""
+    dev = carry0.pos.device
+    NF = st.power.n_freqs
+    spec = None if mech is None else MECH.resolve(mech)
+    if spec is not None:
+        assert spec.static_fidx is None or spec.static_fidx < NF, \
+            f"{spec.name}: static_fidx {spec.static_fidx} is off the " \
+            f"{NF}-state ladder of this power regime"
+    F = torch.func.vmap(lambda pw: PWR.freqs_ghz(pw, NF))(ax.power)
+    lat_us = PWR.transition_latency_us(ax.epoch_us, ax.power)
+    tid = torch.div(torch.arange(st.n_cu, device=dev), st.cus_per_table,
+                    rounding_mode="floor")
+    if spec is None and _fork_kernel_engine(st):
+        step = _fork_rows_step(progs, prog_idx, p_blocks, seeds, st, ax, F,
+                               lat_us, mech_ids, tid)
+    else:
+        body = _make_body(st, spec, tid)
+        rows_prog = ProgArrays(*(a.index_select(0, prog_idx) for a in progs))
+        vbody = torch.func.vmap(body, in_dims=(0, 0, 0, 0, 0, 0, 0,
+                                               None if spec else 0))
+        ids = mech_ids if spec is None else None
+
+        def step(carry):
+            return vbody(carry, rows_prog, p_blocks, seeds, ax, F, lat_us,
+                         ids)
+    ys = _run_loop(step, carry0, st.n_epochs, ax.n_ep, dev)
+    return {k: v.movedim(0, 1) for k, v in ys.items()}
+
+
+def _fork_rows_step(progs: ProgArrays, prog_idx, p_blocks, seeds,
+                    st: SimStatic, ax: SimAxes, F, lat_us, mech_ids, tid):
+    """The traced family's step on the fused kernel engine: the sin-hash
+    noise of every row, then one ``epoch_fused_rows`` call."""
+    from repro_torch.kernels import epoch_fused as KEF
+    cum_t = progs.cum3.transpose(1, 2).contiguous()
+    scal = torch.stack([ax.epoch_us, ax.sigma, ax.cap_per_ghz, ax.membw,
+                        ax.table_ema, ax.obj[:, 0], ax.obj[:, 1],
+                        ax.obj[:, 2], lat_us], -1).contiguous()
+    pw = torch.stack(list(ax.power), -1).contiguous()
+    pidx = prog_idx.to(torch.int32).contiguous()
+    pb = p_blocks.to(torch.int32).contiguous()
+    ids = mech_ids.to(torch.int32).contiguous()
+    pb_b = pb[:, None, None]
+    seed_b = seeds[:, None, None]
+    tid32 = tid.to(torch.int32)
+
+    def step(carry: Carry):
+        eps = _epoch_noise(carry.pos, pb_b, seed_b)
+        out = KEF.epoch_fused_rows(
+            progs.i0_rate, progs.sens_rate, cum_t, pidx, carry.pos, F, eps,
+            carry.f_prev, carry.e_acc, carry.t_acc, p_blocks=pb, mech=ids,
+            scal=scal, power=pw, table=carry.table, tid=tid32,
+            wf_i0=carry.wf_i0, wf_sens=carry.wf_sens,
+            react_i0=carry.react_i0, react_sens=carry.react_sens,
+            cus_per_domain=st.cus_per_domain,
+            offset_blocks=st.offset_blocks, react_models=_REACT_MODELS,
+            pc_ids=_PC_IDS, id_ctr_pc=_ID_CTR_PC,
+            block_cu=st.pallas_block_cu)
+        new = Carry(pos=out.pos, react_i0=out.react_i0,
+                    react_sens=out.react_sens, wf_i0=out.wf_i0,
+                    wf_sens=out.wf_sens, table=out.table, f_prev=out.f_sel,
+                    e_acc=out.e_acc, t_acc=out.t_acc)
+        ys = {"work": out.work, "energy": out.energy, "err": out.err,
+              "fidx": out.fidx, "true_sens": out.true_sens,
+              "hit_rate": out.hit_rate}
+        return new, ys
+
+    return step
 
 
 def seed_i32(seeds) -> np.ndarray:

@@ -72,3 +72,58 @@ def sim_axes_from_numpy(scal, pw_vec, n_ep: int,
         table_ema=s[4], obj=s[5:8].clone(),
         n_ep=torch.full((), n_ep, dtype=torch.int32, device=s.device),
         power=power_axes_from_numpy(pw_vec, device))
+
+
+# ---------------------------------------------------------------------------
+# grid rows: the batched sweep's operands with a leading row axis
+# ---------------------------------------------------------------------------
+
+
+def stacked_programs_from_numpy(i0_rate, sens_rate, mem_frac, cum3,
+                                device: DeviceLike = "cuda") -> Program:
+    """W padded programs stacked on a leading axis, as the sweep's
+    ``_stack_programs`` lays them out: (W, Pp) rates and (W, 2Pp+1, 3)
+    prefix sums."""
+    prog = program_from_numpy("suite", i0_rate, sens_rate, mem_frac, cum3,
+                              device)
+    W, Pp = prog.i0_rate.shape
+    assert prog.cum3.shape == (W, 2 * Pp + 1, 3), prog.cum3.shape
+    return prog
+
+
+def carry_rows_from_numpy(*, pos, react_i0, react_sens, wf_i0, wf_sens,
+                          table, f_prev, e_acc, t_acc,
+                          device: DeviceLike = "cuda") -> SIM.Carry:
+    """R per-row carries (every field with a leading row axis, ``t_acc``
+    (R,)), as ``simulate.init_carry`` of an (R,) block-count tensor lays
+    them out; ``table`` is an (i0, sens, count) triple of (R, T, E)
+    arrays."""
+    carry = SIM.Carry(
+        pos=_t(pos, device), react_i0=_t(react_i0, device),
+        react_sens=_t(react_sens, device), wf_i0=_t(wf_i0, device),
+        wf_sens=_t(wf_sens, device),
+        table=table_from_numpy(*table, device=device),
+        f_prev=_t(f_prev, device), e_acc=_t(e_acc, device),
+        t_acc=_t(t_acc, device))
+    R = carry.pos.shape[0]
+    assert carry.t_acc.shape == (R,), carry.t_acc.shape
+    assert all(x.shape[0] == R for x in carry[:-1] if torch.is_tensor(x))
+    return carry
+
+
+def sim_axes_rows_from_numpy(scal, pw_vec, n_ep,
+                             device: DeviceLike = "cuda") -> SIM.SimAxes:
+    """A ``SimAxes`` whose leaves carry a leading row axis, from (R, 9)
+    packed sweep scalars, (R, 11) power vectors and (R,) logical epoch
+    counts (``lat_us``, the scalars' last column, is derived by the engine
+    and dropped)."""
+    s = _t(scal, device)
+    pw = _t(pw_vec, device)
+    R = s.shape[0]
+    assert s.shape == (R, 9) and pw.shape == (R, len(PWR.PowerAxes._fields))
+    return SIM.SimAxes(
+        epoch_us=s[:, 0].clone(), sigma=s[:, 1].clone(),
+        cap_per_ghz=s[:, 2].clone(), membw=s[:, 3].clone(),
+        table_ema=s[:, 4].clone(), obj=s[:, 5:8].clone(),
+        n_ep=_t(n_ep, device, torch.int32).reshape(R),
+        power=PWR.PowerAxes(*(c.clone() for c in pw.unbind(1))))

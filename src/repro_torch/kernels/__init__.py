@@ -1,11 +1,14 @@
 """Hand-written CUDA kernels of the DVFS engine's hot path (sm_90a).
 
-Three kernels, one shared library:
+Four kernels, one shared library:
 
 * ``pc_table.pc_table_predict`` / ``pc_table.pc_table_update`` — the PC
   table predict/update pair (``csrc/pc_table.cu``);
-* ``epoch_fused.epoch_fused`` — the whole fork--execute epoch
-  (``csrc/epoch_fused.cu``).
+* ``epoch_fused.epoch_fused`` — the whole fork--execute epoch of one
+  simulation, families ``pc``/``reactive`` (``csrc/epoch_fused.cu``);
+* ``epoch_fused.epoch_fused_rows`` — the same epoch for every row of a
+  sweep family at once, mechanism chosen per row by a traced id (family
+  ``fork``; same source, one CTA per row).
 
 Every wrapper launches its kernel on a CUDA tensor and runs the kernel's
 plain PyTorch version on a CPU tensor; there is no fallback between the
@@ -148,7 +151,12 @@ def check(code: int, what: str) -> None:
 
 def stream_ptr(t: torch.Tensor) -> int:
     """The current CUDA stream of ``t``'s device, as a pointer-sized int."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return stream_ptr_of(t.device)
+
+
+def stream_ptr_of(device: torch.device) -> int:
+    """The current CUDA stream of ``device``, as a pointer-sized int."""
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape,

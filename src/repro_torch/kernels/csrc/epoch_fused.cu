@@ -1,8 +1,10 @@
-// The fused fork--execute epoch for Hopper (sm_90a), families "pc" and
-// "reactive", both math modes.
+// The fused fork--execute epoch for Hopper (sm_90a): the specialised
+// families "pc" and "reactive" (K3) and the traced-mechanism-id family
+// "fork" (K4), both math modes.
 //
 // Replaces repro/kernels/epoch_fused.py:epoch_fused (body _epoch_kernel ->
-// _epoch_math) for the specialised run_sim families. One epoch:
+// _epoch_math): K3 for the specialised run_sim families, K4 for the batched
+// sweep, where one launch steps every grid row of a family. One epoch:
 //   context gathers -> predict (PC table or reactive state) -> per-domain
 //   argmin select -> 11-way execute (NF fork rows + the selected row) ->
 //   oldest-first WF allocation -> global memory-traffic scale -> barrier /
@@ -10,12 +12,14 @@
 //   update with hit rate.
 //
 // Bound on this card: at 64 CUs x 40 WFs x 10 states an epoch reads and
-// writes ~0.3 MB (the 64 x 128 x 3 table in and out dominates) and does
-// ~1 MFLOP, so the card could finish it in well under 1 us; the kernel is
-// launch- and latency-bound. The design is the simple correct one:
-//   * one CTA per simulation (run_sim has one; the CTA index is the future
-//     grid-row axis); the program rates and the three cum_t rows live in
-//     dynamic shared memory, with per-WF scratch beside them;
+// writes ~0.3 MB per row (the 64 x 128 x 3 table in and out dominates) and
+// does ~1 MFLOP, so the card could finish it in well under 1 us; the kernel
+// is launch- and latency-bound. The design is the simple correct one:
+//   * one CTA per simulation row (blockIdx.x is the row: run_sim launches
+//     one, a grid family all of its rows at once); the row's program rates
+//     and the three cum_t rows live in dynamic shared memory, with per-WF
+//     scratch beside them. Rows share nothing, so a row's bits do not
+//     depend on which rows share its launch;
 //   * one warp per CU, two adjacent WFs per lane (WF <= 64); the 11 execute
 //     rows are looped, never materialised;
 //   * the one cross-CU dependency, the memory-traffic total of each row,
@@ -26,10 +30,18 @@
 //     reference's tril GEMM); the selected row, and every row in exact
 //     mode, sums sequentially in WF order like the reference's cumsum;
 //   * the argmin takes the first minimum; the quantised core fraction
-//     rounds half to even (rintf); int casts truncate;
+//     rounds half to even (rintf); int casts truncate; no float atomics;
 //   * the table update walks, per slot, the CUs mapped to that table and
 //     their WFs in index order: deterministic sums, out-of-range table ids
-//     match no table (dropped), while lookups clamp them.
+//     match no table (dropped), while lookups clamp them;
+//   * the family is a template parameter, so the specialised instantiations
+//     carry none of the fork family's per-row mechanism logic. In the fork
+//     family a row's traced id picks its predictor (reactive ids predict
+//     from the CU state, the others from the table), its reactive
+//     estimator (counter models in id order, the fork-exact one last) and
+//     whether the table and per-WF state advance (pc ids only; a reactive
+//     row skips the table walk and copies the table through). The hit rate
+//     is written for every id.
 #include "common.cuh"
 
 namespace {
@@ -37,12 +49,22 @@ namespace {
 constexpr int kThreads = 512;
 constexpr int kMaxSmem = 232448;  // 227 KB: a CTA's share of an H100 SM
 
-enum { FAM_PC = 0, FAM_REACTIVE = 1 };
-enum { M_STALL = 0, M_LEAD = 1, M_CRIT = 2, M_CRISP = 3 };
+enum { FAM_PC = 0, FAM_REACTIVE = 1, FAM_FORK = 2 };
+// estimator of a row: the counter CU models, the fork-exact model, none
+enum { M_STALL = 0, M_LEAD = 1, M_CRIT = 2, M_CRISP = 3, EST_FORK = 4,
+       EST_NONE = -1 };
 
 }  // namespace
 
 // Field order mirrors repro_torch/kernels/epoch_fused.py:_EpochArgs.
+// Every per-row operand is contiguous with a leading row axis of R rows
+// (R = 1 for run_sim); the programs are a stack of W padded programs
+// (Pp blocks each) that row r reads through prow[r] (null: program 0),
+// with its logical block count Prow[r] (null: P). The shared table map
+// tid is one (CU,) vector. Fork rows read their traced id from mech[r];
+// n_react ids predict reactively, react_models packs the counter model of
+// ids 0..n_react-2 four bits each, pc_mask flags the table-maintaining ids
+// and id_ctr_pc is the counter-driven one among them.
 struct EpochArgs {
   const float* i0r; const float* sr; const float* cum_t;
   const float* pos; const float* eps;
@@ -51,12 +73,14 @@ struct EpochArgs {
   const float* ri0; const float* rse;
   const float* fprev; const float* eacc; const float* tacc;
   const float* F; const float* scal; const float* pw;
+  const int* prow; const int* Prow; const int* mech;
   float* pos_o; float* ti0_o; float* tse_o; float* tcnt_o;
   float* wfi_o; float* wfs_o; float* ri0_o; float* rse_o;
   float* fsel_o; float* eacc_o; float* tacc_o; float* work_o;
   float* energy_o; float* err_o; int* fidx_o; float* tsens_o; float* hit_o;
   int P, Pp, CU, WF, NF, T, E, CPD, IPB, OFFB;
   int family, fork_est, cu_model, lean;
+  int R, n_react, react_models, pc_mask, id_ctr_pc;
 };
 
 namespace {
@@ -82,6 +106,69 @@ __device__ __forceinline__ float trans_energy(float fo, float fn,
                                               const Pw& p) {
   const float dv = v_of_f(fn, p) - v_of_f(fo, p);
   return p.c_trans * dv * dv;
+}
+
+// The arguments of row r: every per-row pointer moved to the row's slice,
+// the program pointers to the row's program, P to its logical block count.
+// Absent operands stay null.
+__device__ __forceinline__ EpochArgs row_args(const EpochArgs& G, int r) {
+  EpochArgs A = G;
+  const size_t N = (size_t)G.CU * G.WF, C = G.CU;
+  const size_t TE = (size_t)G.T * G.E, L = 2 * (size_t)G.Pp + 1;
+  const size_t p = G.prow ? (size_t)G.prow[r] : 0;
+  A.i0r += p * G.Pp;
+  A.sr += p * G.Pp;
+  A.cum_t += p * 3 * L;
+  if (G.Prow) A.P = G.Prow[r];
+#define ROW_OFF(ptr, n) \
+  if (A.ptr) A.ptr += (size_t)r * (n)
+  ROW_OFF(pos, N); ROW_OFF(eps, N); ROW_OFF(wfi, N); ROW_OFF(wfs, N);
+  ROW_OFF(ti0, TE); ROW_OFF(tse, TE); ROW_OFF(tcnt, TE);
+  ROW_OFF(ri0, C); ROW_OFF(rse, C); ROW_OFF(fprev, C); ROW_OFF(eacc, C);
+  ROW_OFF(tacc, 1); ROW_OFF(F, G.NF); ROW_OFF(scal, 9); ROW_OFF(pw, 11);
+  ROW_OFF(pos_o, N); ROW_OFF(wfi_o, N); ROW_OFF(wfs_o, N);
+  ROW_OFF(ti0_o, TE); ROW_OFF(tse_o, TE); ROW_OFF(tcnt_o, TE);
+  ROW_OFF(ri0_o, C); ROW_OFF(rse_o, C); ROW_OFF(fsel_o, C);
+  ROW_OFF(eacc_o, C); ROW_OFF(tacc_o, 1); ROW_OFF(work_o, C);
+  ROW_OFF(energy_o, C); ROW_OFF(err_o, C); ROW_OFF(fidx_o, C);
+  ROW_OFF(tsens_o, C); ROW_OFF(hit_o, 1);
+#undef ROW_OFF
+  return A;
+}
+
+// The mechanism of one row: which predictor it reads, which reactive
+// estimator advances the CU state, which per-WF estimator advances the
+// table (0 counter-driven, 1 fork-exact); EST_NONE keeps the carry.
+struct Mech {
+  bool pred_react;
+  int react_est;
+  int pc_est;
+};
+
+template <int FAM>
+__device__ __forceinline__ Mech row_mech(const EpochArgs& A, int r) {
+  Mech m;
+  if (FAM == FAM_PC) {
+    m.pred_react = false;
+    m.react_est = EST_NONE;
+    m.pc_est = A.fork_est ? 1 : 0;
+  } else if (FAM == FAM_REACTIVE) {
+    m.pred_react = true;
+    m.react_est = A.fork_est ? EST_FORK : A.cu_model;
+    m.pc_est = EST_NONE;
+  } else {
+    const int id = A.mech[r];
+    m.pred_react = id < A.n_react;
+    m.react_est = EST_NONE;
+    if (id >= 0 && id < A.n_react - 1) {
+      m.react_est = (A.react_models >> (4 * id)) & 15;
+    } else if (id == A.n_react - 1) {
+      m.react_est = EST_FORK;
+    }
+    const bool pc = id >= 0 && id < 31 && ((A.pc_mask >> id) & 1);
+    m.pc_est = pc ? (id == A.id_ctr_pc ? 0 : 1) : EST_NONE;
+  }
+  return m;
 }
 
 // shared-memory carve-up (floats and ints are both 4 bytes)
@@ -199,9 +286,13 @@ __device__ Row exec_row(const EpochArgs& A, const Smem& s, int c, float f,
   return r;
 }
 
+template <int FAM>
 __global__ void __launch_bounds__(kThreads)
-epoch_fused_kernel(const EpochArgs A) {
+epoch_fused_kernel(const EpochArgs G) {
+  constexpr bool kTable = FAM != FAM_REACTIVE;
   extern __shared__ float smem[];
+  const EpochArgs A = row_args(G, blockIdx.x);
+  const Mech mech = row_mech<FAM>(G, blockIdx.x);
   const int N = A.CU * A.WF;
   const Smem s = carve(smem, A.Pp, N, A.CU, A.NF);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -212,7 +303,6 @@ epoch_fused_kernel(const EpochArgs A) {
   const float capf = A.scal[7], lat = A.scal[8];
   const Pw pw = {A.pw[0], A.pw[1], A.pw[2], A.pw[3], A.pw[4],
                  A.pw[5], A.pw[6], A.pw[7], A.pw[8]};
-  const bool pc = A.family == FAM_PC;
 
   // ---- program rates and cum_t rows into shared memory -----------------
   for (int i = threadIdx.x; i < A.Pp; i += blockDim.x) {
@@ -231,14 +321,14 @@ epoch_fused_kernel(const EpochArgs A) {
   for (int c = warp; c < A.CU; c += nwarps) {
     float i0s = 0.f, ss = 0.f;
     int h = 0;
-    const int t = pc ? clampi(A.tid[c], 0, A.T - 1) : 0;
+    const int t = kTable ? clampi(A.tid[c], 0, A.T - 1) : 0;
     for (int j = 0; j < 2; ++j) {
       const int w = 2 * lane + j;
       if (w >= WF) continue;
       const int n = c * WF + w;
       const int blk = ((int)A.pos[n] / A.IPB) % A.P;
       s.blk[n] = blk;
-      if (pc) {
+      if (kTable) {
         const int e = (blk / A.OFFB) % A.E;
         s.idx[n] = e;
         const bool hit = A.tcnt[t * A.E + e] > 0.f;
@@ -247,13 +337,14 @@ epoch_fused_kernel(const EpochArgs A) {
         h += hit ? 1 : 0;
       }
     }
-    float i0_cu, s_cu;
-    if (pc) {
+    float i0_cu = 0.f, s_cu = 0.f;
+    if (kTable) {
       i0_cu = warp_sum(i0s);
       s_cu = warp_sum(ss);
       h = warp_sum_int(h);
       if (lane == 0) s.hits[c] = h;
-    } else {
+    }
+    if (mech.pred_react) {
       i0_cu = A.ri0[c];
       s_cu = A.rse[c];
     }
@@ -395,9 +486,9 @@ epoch_fused_kernel(const EpochArgs A) {
       const int w = 2 * lane + j;
       if (w < WF) A.pos_o[c * WF + w] = pos[j] + com[j];
     }
-    if (pc) {
+    if (kTable && mech.pc_est != EST_NONE) {
       float i0w[2], sw[2];
-      if (A.fork_est) {  // accpc: exact per-WF linear model from the forks
+      if (mech.pc_est == 1) {  // accpc: exact per-WF linear model (forks)
         for (int j = 0; j < 2; ++j) {
           const int w = 2 * lane + j;
           const float c0 = w < WF ? s.cf0[c * WF + w] : 0.f;
@@ -425,24 +516,34 @@ epoch_fused_kernel(const EpochArgs A) {
           s.bef[c * WF + w] = sw[j];
         }
       }
-    } else if (lane == 0 && A.fork_est) {  // accreac: exact from the forks
-      const float s_est = (IfL - If0) / (dF * T);
-      A.ri0_o[c] = If0 / T - s_est * A.F[0];
-      A.rse_o[c] = s_est;
+    } else if (kTable) {  // a fork row off the table keeps its WF state
+      for (int j = 0; j < 2; ++j) {
+        const int w = 2 * lane + j;
+        if (w < WF) {
+          A.wfi_o[c * WF + w] = A.wfi[c * WF + w];
+          A.wfs_o[c * WF + w] = A.wfs[c * WF + w];
+        }
+      }
     }
-    if (!pc && !A.fork_est) {  // counter CU models
+    if (mech.react_est == EST_FORK) {  // accreac: exact from the forks
+      if (lane == 0) {
+        const float s_est = (IfL - If0) / (dF * T);
+        A.ri0_o[c] = If0 / T - s_est * A.F[0];
+        A.rse_o[c] = s_est;
+      }
+    } else if (mech.react_est != EST_NONE) {  // counter CU models
       float sens;
       // issue ratios clipped at 0.05, zero past the CU's last WF
       float qc[2];
       for (int j = 0; j < 2; ++j)
         qc[j] = 2 * lane + j < WF ? fmaxf(q[j], 0.05f) : 0.f;
-      if (A.cu_model == M_STALL) {
+      if (mech.react_est == M_STALL) {
         const float cf_cu = warp_sum(cf[0] + cf[1]) / (float)WF;
         sens = I_actual * cf_cu / f;
-      } else if (A.cu_model == M_LEAD || A.cu_model == M_CRIT) {
+      } else if (mech.react_est == M_LEAD || mech.react_est == M_CRIT) {
         const float cf_cu = warp_sum(st[0] * cf[0] + st[1] * cf[1]) /
                             fmaxf(I_actual, 1e-6f);
-        if (A.cu_model == M_LEAD) {
+        if (mech.react_est == M_LEAD) {
           sens = I_actual * cf_cu / f;
         } else {
           const float q_mean = warp_sum(qc[0] + qc[1]) / (float)WF;
@@ -458,6 +559,9 @@ epoch_fused_kernel(const EpochArgs A) {
         A.ri0_o[c] = fmaxf(I_actual - sens * f, 0.f) / T;
         A.rse_o[c] = sens / T;
       }
+    } else if (FAM == FAM_FORK && lane == 0) {  // off the reactive ids
+      A.ri0_o[c] = A.ri0[c];
+      A.rse_o[c] = A.rse[c];
     }
     if (lane == 0) {
       A.fsel_o[c] = f;
@@ -470,26 +574,34 @@ epoch_fused_kernel(const EpochArgs A) {
     }
   }
   if (threadIdx.x == 0) A.tacc_o[0] = A.tacc[0] + T;
-  if (!pc) return;
+  if (!kTable) return;
   __syncthreads();
 
-  // ---- table update: per slot, its CUs' WFs in index order --------------
-  for (int sl = threadIdx.x; sl < A.T * A.E; sl += blockDim.x) {
-    const int t = sl / A.E, e = sl % A.E;
-    float isum = 0.f, ssum = 0.f, cnt = 0.f;
-    for (int c = 0; c < A.CU; ++c) {
-      if (A.tid[c] != t) continue;
-      for (int w = 0; w < WF; ++w) {
-        const int n = c * WF + w;
-        if (s.idx[n] == e) {
-          isum += s.dem[n];
-          ssum += s.bef[n];
-          cnt += 1.f;
+  if (mech.pc_est != EST_NONE) {
+    // ---- table update: per slot, its CUs' WFs in index order ------------
+    for (int sl = threadIdx.x; sl < A.T * A.E; sl += blockDim.x) {
+      const int t = sl / A.E, e = sl % A.E;
+      float isum = 0.f, ssum = 0.f, cnt = 0.f;
+      for (int c = 0; c < A.CU; ++c) {
+        if (A.tid[c] != t) continue;
+        for (int w = 0; w < WF; ++w) {
+          const int n = c * WF + w;
+          if (s.idx[n] == e) {
+            isum += s.dem[n];
+            ssum += s.bef[n];
+            cnt += 1.f;
+          }
         }
       }
+      ema_write(A.ti0[sl], A.tse[sl], A.tcnt[sl], isum, ssum, cnt, ema,
+                A.ti0_o + sl, A.tse_o + sl, A.tcnt_o + sl);
     }
-    ema_write(A.ti0[sl], A.tse[sl], A.tcnt[sl], isum, ssum, cnt, ema,
-              A.ti0_o + sl, A.tse_o + sl, A.tcnt_o + sl);
+  } else {  // a fork row off the table passes it through
+    for (int sl = threadIdx.x; sl < A.T * A.E; sl += blockDim.x) {
+      A.ti0_o[sl] = A.ti0[sl];
+      A.tse_o[sl] = A.tse[sl];
+      A.tcnt_o[sl] = A.tcnt[sl];
+    }
   }
   if (threadIdx.x == 0) {
     int h = 0;
@@ -503,14 +615,21 @@ epoch_fused_kernel(const EpochArgs A) {
 extern "C" int epoch_fused_launch(const EpochArgs* args, void* stream) {
   const EpochArgs& A = *args;
   if (A.WF < 1 || A.WF > 64 || A.NF < 2 || A.NF > 32 || A.CU < 1 ||
-      A.CU % A.CPD != 0 || A.NF + 1 > kThreads)
+      A.CU % A.CPD != 0 || A.NF + 1 > kThreads || A.R < 1 ||
+      A.family < FAM_PC || A.family > FAM_FORK)
+    return (int)cudaErrorInvalidValue;
+  if (A.family == FAM_FORK &&
+      (A.mech == nullptr || A.n_react < 1 || A.n_react > 8))
     return (int)cudaErrorInvalidValue;
   const size_t bytes = 4 * smem_words(A.Pp, A.CU * A.WF, A.CU, A.NF);
   if (bytes > (size_t)kMaxSmem) return (int)cudaErrorInvalidConfiguration;
+  void (*kernel)(const EpochArgs) =
+      A.family == FAM_PC ? epoch_fused_kernel<FAM_PC>
+      : A.family == FAM_REACTIVE ? epoch_fused_kernel<FAM_REACTIVE>
+                                 : epoch_fused_kernel<FAM_FORK>;
   cudaError_t err = cudaFuncSetAttribute(
-      epoch_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  epoch_fused_kernel<<<1, kThreads, bytes, (cudaStream_t)stream>>>(A);
+  kernel<<<A.R, kThreads, bytes, (cudaStream_t)stream>>>(A);
   return (int)cudaGetLastError();
 }

@@ -1,8 +1,10 @@
 """The fused fork--execute epoch (``csrc/epoch_fused.cu``).
 
-Replaces ``repro/kernels/epoch_fused.py``'s ``epoch_fused`` for the
+Replaces ``repro/kernels/epoch_fused.py``'s ``epoch_fused``: for the
 specialised ``run_sim`` families ``"pc"`` (pcstall, accpc) and
-``"reactive"`` (stall/lead/crit/crisp, accreac). One call runs a whole
+``"reactive"`` (stall/lead/crit/crisp, accreac), and for the
+traced-mechanism-id family ``"fork"`` that the batched sweep steps, where
+each grid row carries its mechanism as an id. One call runs a whole
 epoch:
 
     context gathers -> predict (PC table or reactive state) -> select
@@ -22,13 +24,29 @@ The sin-hash noise ``eps`` rides in as an operand: ``frac(sin(x)*43758)``
 turns one ulp of a differently computed ``x`` into O(1) noise, so the
 kernel never recomputes it.
 
-On a CUDA tensor :func:`epoch_fused` launches the CUDA kernel (counted in
-``epoch_fused.launches``); on a CPU tensor it runs :func:`_epoch_math`.
-:func:`epoch_fused_ref` runs :func:`_epoch_math` on any device.
+In the fork family every predictor and estimator is evaluated and the
+row's id selects: ids below ``len(react_models) + 1`` predict from the
+reactive CU state, the others from the PC table; the reactive state
+advances by the id's counter model (``react_models`` in id order, the
+fork-exact model last) and the table and per-WF state only for
+``pc_ids`` (``id_ctr_pc`` counter-driven, the others fork-exact); every
+other group keeps its carry values. ``hit_rate`` is emitted for every id.
 
-Not ported yet: ``family="fork"`` (the traced-mechanism-id mode serving
-the batched sweep) and its CU-blocked variant (``block_cu``); see ROADMAP
-queue B.
+:func:`epoch_fused_rows` steps R fork-family rows at once (the sweep's
+grid rows, each with its own program, block count, id, sweep scalars and
+power regime): on CUDA tensors it is **one** kernel launch, one CTA per
+row; on CPU tensors it runs :func:`_epoch_math` row by row.
+:func:`epoch_fused` is the one-row call of every family.
+
+On a CUDA tensor the wrappers launch the CUDA kernel (counted in
+``epoch_fused.launches`` and ``epoch_fused.launches_by_family``); on a CPU
+tensor they run :func:`_epoch_math`. :func:`epoch_fused_ref` and
+:func:`epoch_fused_rows_ref` run :func:`_epoch_math` on any device.
+
+Not ported yet: the CU-blocked fork variant (``block_cu``, the
+reference's ``_fork_blocked``, ROADMAP queue B item K5). On CPU tensors
+``block_cu`` is inert, as on the reference's interpret engine; on CUDA
+tensors it raises.
 """
 from __future__ import annotations
 
@@ -37,24 +55,28 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch import clip, no_tf32
+from repro_torch import (any_id, clamp_blocks, clip, no_tf32, prog_len,
+                         select_id)
 from repro_torch.core import estimators as EST
 from repro_torch.core import power as PWR
 from repro_torch.core import predictors as PRED
-from repro_torch.kernels import check, library, require, stream_ptr
+from repro_torch.kernels import check, library, require, stream_ptr_of
 
 _F32, _I32 = torch.float32, torch.int32
 _N_SCAL = 9
+_N_PW = len(PWR.PowerAxes._fields)
 _CU_MODEL_IDS = {m: i for i, m in enumerate(EST.CU_MODELS)}
-_FORK_TODO = ("family='fork' and block_cu (the traced-id sweep kernel and "
-              "its CU-blocked variant) are not ported yet: ROADMAP queue B "
-              "items K4 and K5")
+_FAMILY_IDS = {"pc": 0, "reactive": 1, "fork": 2}
+_K5_TODO = ("block_cu (the CU-tiled fork epoch, the reference's "
+            "_fork_blocked) has no CUDA kernel yet: ROADMAP queue B item K5")
 
 
 class EpochOut(NamedTuple):
     """One epoch of state advance + telemetry. Reactive-family calls leave
     the table fields ``None``; pc-family calls leave the reactive state
-    ``None``."""
+    ``None``; fork-family calls fill every field. :func:`epoch_fused_rows`
+    returns each field with a leading row axis (``t_acc`` and ``hit_rate``
+    as (R,))."""
     pos: torch.Tensor                    # (CU,WF) advanced wave positions
     table: Optional[PRED.PCTable]        # updated PC table (pc family)
     wf_i0: Optional[torch.Tensor]        # (CU,WF) per-WF estimates (pc)
@@ -72,12 +94,18 @@ class EpochOut(NamedTuple):
     hit_rate: Optional[torch.Tensor]     # (1,) table hit fraction (pc)
 
 
-
 def _epoch_math(ins, *, NF, CU, WF, E, T_, ND, CPD, IPB, OFFB, P, family,
-                fork_estimator, cu_model, lean):
+                fork_estimator, cu_model, lean, react_models=(), pc_ids=(),
+                id_ctr_pc=0):
     """The fused epoch body on tensors, in the operand/output order of
-    :func:`epoch_fused` (families ``pc`` and ``reactive``)."""
-    if family == "pc":
+    :func:`epoch_fused` (one row). ``P`` is the logical block count, a
+    Python int or a 0-dim tensor. In the fork family ``ins`` carries both
+    state groups and the (0-dim) traced id ``mech``; ``react_models``,
+    ``pc_ids`` and ``id_ctr_pc`` are the registry-derived id layout."""
+    if family == "fork":
+        (i0r, sr, cum_t, pos, ti0, tse, tcnt, wfi, wfs, ri0, rse, fprev,
+         eacc, tacc, F, tid, mech, eps, scal, pw_vec) = ins
+    elif family == "pc":
         (i0r, sr, cum_t, pos, ti0, tse, tcnt, wfi, wfs, fprev, eacc, tacc,
          F, tid, eps, scal, pw_vec) = ins
     else:
@@ -99,7 +127,20 @@ def _epoch_math(ins, *, NF, CU, WF, E, T_, ND, CPD, IPB, OFFB, P, family,
     # ---- predict I(f) from carry state ------------------------------------
     capr = cap * F[None, :] * T * WF
     hit_rate = None
-    if family == "pc":
+    if family == "fork":
+        # both predictor paths, selected on the traced mechanism id
+        idx_lu = PRED.table_index(blk, E, OFFB)
+        t = tid.long().clamp(0, T_ - 1)[:, None]
+        hit = tcnt[t, idx_lu] > 0
+        hit_rate = (hit.to(_F32).sum() / hit.numel()).reshape(1)
+        i0_pc = torch.where(hit, ti0[t, idx_lu], wfi).sum(-1)
+        s_pc = torch.where(hit, tse[t, idx_lu], wfs).sum(-1)
+        I_pc = clip((i0_pc[:, None] + s_pc[:, None] * F[None, :]) * T, 0.0,
+                    capr)
+        I_react = clip((ri0[:, None] + rse[:, None] * F[None, :]) * T, 0.0,
+                       capr)
+        I_pred = torch.where(mech < len(react_models) + 1, I_react, I_pc)
+    elif family == "pc":
         idx_lu = PRED.table_index(blk, E, OFFB)
         t = tid.long().clamp(0, T_ - 1)[:, None]
         hit = tcnt[t, idx_lu] > 0
@@ -108,8 +149,9 @@ def _epoch_math(ins, *, NF, CU, WF, E, T_, ND, CPD, IPB, OFFB, P, family,
         hit_rate = (hit.to(_F32).sum() / hit.numel()).reshape(1)
     else:
         i0_cu, s_cu = ri0, rse
-    I_pred = (i0_cu[:, None] + s_cu[:, None] * F[None, :]) * T
-    I_pred = clip(I_pred, 0.0, capr)
+    if family != "fork":
+        I_pred = (i0_cu[:, None] + s_cu[:, None] * F[None, :]) * T
+        I_pred = clip(I_pred, 0.0, capr)
 
     # ---- per-domain frequency select (op order == _select_freq) ----------
     pbar = (eacc / torch.clamp(tacc[0], min=1e-3)).reshape(ND, CPD).sum(1)
@@ -129,7 +171,7 @@ def _epoch_math(ins, *, NF, CU, WF, E, T_, ND, CPD, IPB, OFFB, P, family,
     f_all = F_rows if lean else torch.cat([F_rows, f_sel[None]], 0)
     f_b = f_all[..., :, None]
     est_instr = (i0_l + s_l * f_b) * T
-    nblk = torch.clamp((est_instr / IPB).to(torch.int32) + 1, 1, P).long()
+    nblk = clamp_blocks((est_instr / IPB).to(torch.int32) + 1, P).long()
     gi = blk + nblk
     nb = nblk.to(_F32)
     dci = c_i0[gi] - lo_i0
@@ -162,7 +204,8 @@ def _epoch_math(ins, *, NF, CU, WF, E, T_, ND, CPD, IPB, OFFB, P, family,
     if lean:
         # the selected row: same shared gathers, reference op order
         est_s = (i0_l + s_l * f_sel[:, None]) * T
-        nblk_s = torch.clamp((est_s / IPB).to(torch.int32) + 1, 1, P).long()
+        nblk_s = clamp_blocks((est_s / IPB).to(torch.int32) + 1,
+                               P).long()
         gi_s = blk + nblk_s
         nb_s = nblk_s.to(_F32)
         i0w_s = (c_i0[gi_s] - lo_i0) / nb_s
@@ -183,7 +226,7 @@ def _epoch_math(ins, *, NF, CU, WF, E, T_, ND, CPD, IPB, OFFB, P, family,
 
     # ---- selected-row counters (op order == _row_counters) ---------------
     q = a_s / torch.clamp(d_s, min=1e-6)
-    plen = float(P * IPB)
+    plen = prog_len(P, IPB)
     tentative = pos + st_sel
     group_min = tentative.amin(-1)
     boundary = (torch.floor(group_min / plen) + 1.0) * plen
@@ -207,7 +250,26 @@ def _epoch_math(ins, *, NF, CU, WF, E, T_, ND, CPD, IPB, OFFB, P, family,
     ctrs = {"committed": st_sel, "steady": st_sel, "core_frac": core_frac,
             "issue_q": q, "mem_frac": mfw_s}
     tsens = (I_f[:, -1] - I_f[:, 0]) / ((F[-1] - F[0]) * T)
-    if family == "pc":
+    if family == "fork":
+        # every estimator variant, selected on the traced id (counter
+        # models in id order, the fork-exact reactive model last)
+        cu_ests = [EST.cu_estimate(ctrs, f_sel, m) for m in react_models]
+        sens_ar = tsens                 # the fork-exact reactive model
+        i0_ar = I_f[:, 0] / T - sens_ar * F[0]
+        r_i0 = select_id(mech, [e[0] / T for e in cu_ests] + [i0_ar], ri0)
+        r_se = select_id(mech, [e[1] / T for e in cu_ests] + [sens_ar], rse)
+        i0_est, s_est = EST.wf_stall_estimate(ctrs, f_sel)
+        s_tr = (c_f[-1] - c_f[0]) / (F[-1] - F[0])
+        i0_tr = c_f[0] - s_tr * F[0]
+        i0_wf = torch.where(mech == id_ctr_pc, i0_est, i0_tr) / T
+        s_wf = torch.where(mech == id_ctr_pc, s_est, s_tr) / T
+        tbl0 = PRED.PCTable(ti0, tse, tcnt)
+        tbl_u = PRED.table_update(tbl0, tid, idx_lu, i0_wf, s_wf, ema)
+        pc_now = any_id(mech, pc_ids)
+        tbl = [torch.where(pc_now, a, b) for a, b in zip(tbl_u, tbl0)]
+        state = (*tbl, torch.where(pc_now, i0_wf, wfi),
+                 torch.where(pc_now, s_wf, wfs), r_i0, r_se)
+    elif family == "pc":
         if fork_estimator:              # accpc: exact per-WF linear model
             s_wf = (c_f[-1] - c_f[0]) / (F[-1] - F[0])
             i0_wf = c_f[0] - s_wf * F[0]
@@ -229,7 +291,7 @@ def _epoch_math(ins, *, NF, CU, WF, E, T_, ND, CPD, IPB, OFFB, P, family,
     outs = (pos + committed,) + state + (
         f_sel, eacc + energy, (tacc + T).reshape(1), work, energy, err,
         fidx.to(_I32), tsens)
-    if family == "pc":
+    if family in ("pc", "fork"):
         outs = outs + (hit_rate,)
     return outs
 
@@ -239,11 +301,26 @@ class _EpochArgs(ctypes.Structure):
     _fields_ = [(n, ctypes.c_void_p) for n in (
         "i0r", "sr", "cum_t", "pos", "eps", "ti0", "tse", "tcnt", "tid",
         "wfi", "wfs", "ri0", "rse", "fprev", "eacc", "tacc", "F", "scal",
-        "pw", "pos_o", "ti0_o", "tse_o", "tcnt_o", "wfi_o", "wfs_o", "ri0_o",
-        "rse_o", "fsel_o", "eacc_o", "tacc_o", "work_o", "energy_o", "err_o",
-        "fidx_o", "tsens_o", "hit_o")] + [(n, ctypes.c_int) for n in (
-            "P", "Pp", "CU", "WF", "NF", "T", "E", "CPD", "IPB", "OFFB",
-            "family", "fork_est", "cu_model", "lean")]
+        "pw", "prow", "Prow", "mech", "pos_o", "ti0_o", "tse_o", "tcnt_o",
+        "wfi_o", "wfs_o", "ri0_o", "rse_o", "fsel_o", "eacc_o", "tacc_o",
+        "work_o", "energy_o", "err_o", "fidx_o", "tsens_o", "hit_o")] + [
+            (n, ctypes.c_int) for n in (
+                "P", "Pp", "CU", "WF", "NF", "T", "E", "CPD", "IPB", "OFFB",
+                "family", "fork_est", "cu_model", "lean", "R", "n_react",
+                "react_models", "pc_mask", "id_ctr_pc")]
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _run_kernel(args: _EpochArgs, dev: torch.device, family: str) -> None:
+    """Launch the kernel once on ``dev``'s current stream and count it."""
+    code = library().epoch_fused_launch(ctypes.addressof(args),
+                                        stream_ptr_of(dev))
+    epoch_fused.launches += 1
+    epoch_fused.launches_by_family[family] += 1
+    check(code, "epoch_fused")
 
 
 def _launch(ins, *, NF, CU, WF, E, T_, ND, CPD, IPB, OFFB, P, family,
@@ -298,24 +375,17 @@ def _launch(ins, *, NF, CU, WF, E, T_, ND, CPD, IPB, OFFB, P, family,
     else:
         o.update(ri0_o=empty(CU), rse_o=empty(CU))
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
     args = _EpochArgs(
-        i0r=ptr(i0r), sr=ptr(sr), cum_t=ptr(cum_t), pos=ptr(pos),
-        eps=ptr(eps), ti0=ptr(ti0), tse=ptr(tse), tcnt=ptr(tcnt),
-        tid=ptr(tid), wfi=ptr(wfi), wfs=ptr(wfs), ri0=ptr(ri0),
-        rse=ptr(rse), fprev=ptr(fprev), eacc=ptr(eacc), tacc=ptr(tacc),
-        F=ptr(F), scal=ptr(scal), pw=ptr(pw_vec),
-        **{k: ptr(v) for k, v in o.items()},
+        i0r=_ptr(i0r), sr=_ptr(sr), cum_t=_ptr(cum_t), pos=_ptr(pos),
+        eps=_ptr(eps), ti0=_ptr(ti0), tse=_ptr(tse), tcnt=_ptr(tcnt),
+        tid=_ptr(tid), wfi=_ptr(wfi), wfs=_ptr(wfs), ri0=_ptr(ri0),
+        rse=_ptr(rse), fprev=_ptr(fprev), eacc=_ptr(eacc), tacc=_ptr(tacc),
+        F=_ptr(F), scal=_ptr(scal), pw=_ptr(pw_vec),
+        **{k: _ptr(v) for k, v in o.items()},
         P=P, Pp=Pp, CU=CU, WF=WF, NF=NF, T=T_, E=E, CPD=CPD, IPB=IPB,
-        OFFB=OFFB, family=0 if pc else 1, fork_est=int(fork_estimator),
-        cu_model=_CU_MODEL_IDS.get(cu_model, -1), lean=int(lean))
-    code = library().epoch_fused_launch(ctypes.addressof(args),
-                                        stream_ptr(pos))
-    epoch_fused.launches += 1
-    epoch_fused.launches_by_family[family] += 1
-    check(code, "epoch_fused")
+        OFFB=OFFB, family=_FAMILY_IDS[family], fork_est=int(fork_estimator),
+        cu_model=_CU_MODEL_IDS.get(cu_model, -1), lean=int(lean), R=1)
+    _run_kernel(args, dev, family)
     head = (o["pos_o"],)
     if pc:
         head += (o["ti0_o"], o["tse_o"], o["tcnt_o"], o["wfi_o"], o["wfs_o"])
@@ -350,17 +420,200 @@ def _pack_power(power, device) -> torch.Tensor:
                         for f in PWR.PowerAxes._fields])
 
 
-def _epoch_call(engine, i0_rate, sens_rate, cum_t, pos, freqs, eps, f_prev,
-                e_acc, t_acc, *, p_blocks, epoch_us, sigma, cap_per_ghz,
-                membw, obj, lat_us, power, cus_per_domain=1, table=None,
-                tid=None, wf_i0=None, wf_sens=None, table_ema=0.5,
-                offset_blocks=4, react_i0=None, react_sens=None, mech=None,
-                block_cu=None, family="pc", fork_estimator=False,
-                cu_model=None, instr_per_block=4, lean=True) -> EpochOut:
-    if family == "fork" or mech is not None or block_cu is not None:
-        raise NotImplementedError(_FORK_TODO)
-    if family not in ("pc", "reactive"):
-        raise ValueError(f"family must be 'pc' or 'reactive', got {family!r}")
+def _fork_layout(react_models, pc_ids, id_ctr_pc):
+    """The registry-derived id layout as the kernel's four ints: reactive
+    id count, counter models packed four bits per id, pc-id bit mask, the
+    counter-driven pc id."""
+    n_react = len(react_models) + 1
+    if n_react > 8 or any(not 0 <= i < 31 for i in pc_ids):
+        raise ValueError(f"fork layout out of the kernel's range: "
+                         f"{len(react_models)} counter models, pc ids "
+                         f"{tuple(pc_ids)}")
+    packed = 0
+    for i, m in enumerate(react_models):
+        if m not in _CU_MODEL_IDS:
+            raise ValueError(f"react model {m!r} not one of {EST.CU_MODELS}")
+        packed |= _CU_MODEL_IDS[m] << (4 * i)
+    return n_react, packed, sum(1 << i for i in pc_ids), int(id_ctr_pc)
+
+
+def _launch_rows(ins, *, NF, CU, WF, E, T_, ND, CPD, IPB, OFFB, lean,
+                 react_models, pc_ids, id_ctr_pc):
+    """Check the operands of R fork rows and launch the kernel ONCE (one
+    CTA per row); same outputs as :func:`_rows_plain`."""
+    (i0r, sr, cum_t, prow, Prow, pos, ti0, tse, tcnt, wfi, wfs, ri0, rse,
+     fprev, eacc, tacc, F, tid, mech, eps, scal, pw_vec) = ins
+    if WF > 64 or NF > 32:
+        raise ValueError(f"epoch_fused kernel takes WF <= 64 and NF <= 32, "
+                         f"got WF={WF}, NF={NF}")
+    dev = pos.device
+    R = pos.shape[0]
+    W, Pp = i0r.shape
+    checks = [("i0_rate", i0r, _F32, (W, Pp)), ("sens_rate", sr, _F32, (W, Pp)),
+              ("cum_t", cum_t, _F32, (W, 3, 2 * Pp + 1)),
+              ("prog_idx", prow, _I32, (R,)), ("p_blocks", Prow, _I32, (R,)),
+              ("pos", pos, _F32, (R, CU, WF)), ("eps", eps, _F32, (R, CU, WF)),
+              ("table.i0", ti0, _F32, (R, T_, E)),
+              ("table.sens", tse, _F32, (R, T_, E)),
+              ("table.count", tcnt, _F32, (R, T_, E)),
+              ("wf_i0", wfi, _F32, (R, CU, WF)),
+              ("wf_sens", wfs, _F32, (R, CU, WF)),
+              ("react_i0", ri0, _F32, (R, CU)),
+              ("react_sens", rse, _F32, (R, CU)),
+              ("f_prev", fprev, _F32, (R, CU)), ("e_acc", eacc, _F32, (R, CU)),
+              ("t_acc", tacc, _F32, (R,)), ("freqs", F, _F32, (R, NF)),
+              ("tid", tid, _I32, (CU,)), ("mech", mech, _I32, (R,)),
+              ("scal", scal, _F32, (R, _N_SCAL)),
+              ("power", pw_vec, _F32, (R, _N_PW))]
+    for name, t, dt, shp in checks:
+        require(t, name, dt, shp, dev)
+    n_react, packed, pc_mask, ctr = _fork_layout(react_models, pc_ids,
+                                                 id_ctr_pc)
+
+    def empty(*shape, dtype=_F32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    o = dict(pos_o=empty(R, CU, WF), ti0_o=empty(R, T_, E),
+             tse_o=empty(R, T_, E), tcnt_o=empty(R, T_, E),
+             wfi_o=empty(R, CU, WF), wfs_o=empty(R, CU, WF),
+             ri0_o=empty(R, CU), rse_o=empty(R, CU), fsel_o=empty(R, CU),
+             eacc_o=empty(R, CU), tacc_o=empty(R), work_o=empty(R, CU),
+             energy_o=empty(R, CU), err_o=empty(R, CU),
+             fidx_o=empty(R, CU, dtype=_I32), tsens_o=empty(R, CU),
+             hit_o=empty(R))
+    args = _EpochArgs(
+        i0r=_ptr(i0r), sr=_ptr(sr), cum_t=_ptr(cum_t), pos=_ptr(pos),
+        eps=_ptr(eps), ti0=_ptr(ti0), tse=_ptr(tse), tcnt=_ptr(tcnt),
+        tid=_ptr(tid), wfi=_ptr(wfi), wfs=_ptr(wfs), ri0=_ptr(ri0),
+        rse=_ptr(rse), fprev=_ptr(fprev), eacc=_ptr(eacc), tacc=_ptr(tacc),
+        F=_ptr(F), scal=_ptr(scal), pw=_ptr(pw_vec), prow=_ptr(prow),
+        Prow=_ptr(Prow), mech=_ptr(mech),
+        **{k: _ptr(v) for k, v in o.items()},
+        P=Pp, Pp=Pp, CU=CU, WF=WF, NF=NF, T=T_, E=E, CPD=CPD, IPB=IPB,
+        OFFB=OFFB, family=_FAMILY_IDS["fork"], fork_est=0, cu_model=-1,
+        lean=int(lean), R=R, n_react=n_react, react_models=packed,
+        pc_mask=pc_mask, id_ctr_pc=ctr)
+    _run_kernel(args, dev, "fork")
+    epoch_fused.fork_rows += R
+    return tuple(o[k] for k in (
+        "pos_o", "ti0_o", "tse_o", "tcnt_o", "wfi_o", "wfs_o", "ri0_o",
+        "rse_o", "fsel_o", "eacc_o", "tacc_o", "work_o", "energy_o", "err_o",
+        "fidx_o", "tsens_o", "hit_o"))
+
+
+def _rows_plain(ins, *, NF, CU, WF, E, T_, ND, CPD, IPB, OFFB, lean,
+                react_models, pc_ids, id_ctr_pc):
+    """:func:`_epoch_math` (family ``fork``) mapped over the rows, one row
+    at a time: each row's bits are those of a one-row call."""
+    (i0r, sr, cum_t, prow, Prow, pos, ti0, tse, tcnt, wfi, wfs, ri0, rse,
+     fprev, eacc, tacc, F, tid, mech, eps, scal, pw_vec) = ins
+    per_row = []
+    for r in range(pos.shape[0]):
+        p = prow[r:r + 1].long()
+        row = (i0r.index_select(0, p)[0], sr.index_select(0, p)[0],
+               cum_t.index_select(0, p)[0], pos[r], ti0[r], tse[r], tcnt[r],
+               wfi[r], wfs[r], ri0[r], rse[r], fprev[r], eacc[r],
+               tacc[r:r + 1], F[r], tid, mech[r], eps[r], scal[r],
+               pw_vec[r])
+        per_row.append(_epoch_math(
+            row, NF=NF, CU=CU, WF=WF, E=E, T_=T_, ND=ND, CPD=CPD, IPB=IPB,
+            OFFB=OFFB, P=Prow[r], family="fork", fork_estimator=False,
+            cu_model=None, lean=lean, react_models=react_models,
+            pc_ids=pc_ids, id_ctr_pc=id_ctr_pc))
+    outs = [torch.stack(col) for col in zip(*per_row)]
+    outs[10] = outs[10].reshape(-1)      # t_acc (R,)
+    outs[16] = outs[16].reshape(-1)      # hit_rate (R,)
+    return tuple(outs)
+
+
+def _fork_out(outs, squeeze: bool) -> EpochOut:
+    (pos_n, ti0, tse, tcnt, wfi, wfs, ri0, rse, f_sel, eacc, tacc, work,
+     energy, err, fidx, tsens, hit) = outs
+    out = EpochOut(pos=pos_n, table=PRED.PCTable(ti0, tse, tcnt), wf_i0=wfi,
+                   wf_sens=wfs, react_i0=ri0, react_sens=rse, f_sel=f_sel,
+                   e_acc=eacc, t_acc=tacc, work=work, energy=energy, err=err,
+                   fidx=fidx, true_sens=tsens, hit_rate=hit)
+    if not squeeze:
+        return out
+    return EpochOut(*(PRED.PCTable(*(x[0] for x in v)) if isinstance(
+        v, PRED.PCTable) else v[0] for v in out))._replace(
+            t_acc=tacc.reshape(1), hit_rate=hit.reshape(1))
+
+
+def _rows_call(engine, i0_rate, sens_rate, cum_t, prog_idx, pos, freqs, eps,
+               f_prev, e_acc, t_acc, *, p_blocks, mech, scal, power, table,
+               tid, wf_i0, wf_sens, react_i0, react_sens, cus_per_domain=1,
+               offset_blocks=4, react_models=(), pc_ids=(), id_ctr_pc=0,
+               block_cu=None, instr_per_block=4, lean=True):
+    R, CU, WF = pos.shape
+    NF = freqs.shape[-1]
+    if CU % cus_per_domain:
+        raise ValueError(f"n_cu={CU} not a multiple of cus_per_domain="
+                         f"{cus_per_domain}")
+    if block_cu is not None and pos.is_cuda:
+        raise NotImplementedError(_K5_TODO)
+    T_, E = table.i0.shape[-2:]
+    operands = (i0_rate, sens_rate, cum_t, prog_idx, p_blocks, pos,
+                table.i0, table.sens, table.count, wf_i0, wf_sens, react_i0,
+                react_sens, f_prev, e_acc, t_acc, freqs, tid, mech, eps, scal,
+                power)
+    return engine(operands, NF=NF, CU=CU, WF=WF, E=E, T_=T_,
+                  ND=CU // cus_per_domain, CPD=cus_per_domain,
+                  IPB=instr_per_block, OFFB=offset_blocks, lean=lean,
+                  react_models=tuple(react_models), pc_ids=tuple(pc_ids),
+                  id_ctr_pc=id_ctr_pc)
+
+
+def _rows_kernel_or_plain(ins, **statics):
+    return (_launch_rows if ins[5].is_cuda else _rows_plain)(ins, **statics)
+
+
+def epoch_fused_rows(i0_rate, sens_rate, cum_t, prog_idx, pos, freqs, eps,
+                     f_prev, e_acc, t_acc, **kw) -> EpochOut:
+    """Step R fork-family rows one epoch: on CUDA tensors ONE launch of the
+    kernel (one CTA per row, counted under ``launches_by_family["fork"]``),
+    on CPU tensors the plain version row by row.
+
+    ``i0_rate``/``sens_rate`` (W, Pp) and ``cum_t`` (W, 3, 2Pp+1) are W
+    programs padded to Pp blocks; row r reads program ``prog_idx[r]``
+    ((R,) int32) with logical block count ``p_blocks[r]`` ((R,) int32,
+    in 1..Pp) and traced id ``mech[r]`` ((R,) int32). Per row: ``pos``,
+    ``eps``, ``wf_i0``, ``wf_sens`` (R, CU, WF); ``f_prev``, ``e_acc``,
+    ``react_i0``, ``react_sens`` (R, CU); ``t_acc`` (R,); ``freqs`` (R, NF)
+    (the row's ladder); ``scal`` (R, 9) the packed sweep scalars
+    [epoch_us, sigma, cap_per_ghz, membw, table_ema, obj0..2, lat_us];
+    ``power`` (R, 11) the packed regime; ``table`` a ``PCTable`` of
+    (R, T, E). ``tid`` (CU,) int32 is shared. ``react_models``,
+    ``pc_ids``, ``id_ctr_pc`` give the id layout (see the module
+    docstring). ``block_cu`` is inert on CPU tensors and raises on CUDA
+    tensors (no CU-tiled kernel yet, ROADMAP K5)."""
+    return _fork_out(_rows_call(_rows_kernel_or_plain, i0_rate, sens_rate,
+                                cum_t, prog_idx, pos, freqs, eps, f_prev,
+                                e_acc, t_acc, **kw), squeeze=False)
+
+
+def epoch_fused_rows_ref(i0_rate, sens_rate, cum_t, prog_idx, pos, freqs,
+                         eps, f_prev, e_acc, t_acc, **kw) -> EpochOut:
+    """:func:`epoch_fused_rows`' plain PyTorch version, on any device."""
+    return _fork_out(_rows_call(_rows_plain, i0_rate, sens_rate, cum_t,
+                                prog_idx, pos, freqs, eps, f_prev, e_acc,
+                                t_acc, **kw), squeeze=False)
+
+
+def _epoch_call(engine, rows_engine, i0_rate, sens_rate, cum_t, pos, freqs,
+                eps, f_prev, e_acc, t_acc, *, p_blocks, epoch_us, sigma,
+                cap_per_ghz, membw, obj, lat_us, power, cus_per_domain=1,
+                table=None, tid=None, wf_i0=None, wf_sens=None,
+                table_ema=0.5, offset_blocks=4, react_i0=None,
+                react_sens=None, mech=None, react_models=(), pc_ids=(),
+                id_ctr_pc=0, block_cu=None, family="pc",
+                fork_estimator=False, cu_model=None, instr_per_block=4,
+                lean=True) -> EpochOut:
+    if family not in ("pc", "reactive", "fork"):
+        raise ValueError(f"family must be 'pc', 'reactive' or 'fork', got "
+                         f"{family!r}")
+    if block_cu is not None and pos.is_cuda:
+        raise NotImplementedError(_K5_TODO)
     CU, WF = pos.shape
     NF = freqs.shape[0]
     if CU % cus_per_domain:
@@ -376,6 +629,28 @@ def _epoch_call(engine, i0_rate, sens_rate, cum_t, pos, freqs, eps, f_prev,
     pw_vec = _pack_power(power, dev)
     tacc = t_acc.reshape(1) if isinstance(t_acc, torch.Tensor) \
         else _as_f32(t_acc, dev).reshape(1)
+    if family == "fork":
+        if mech is None:
+            raise ValueError("family='fork' needs the traced id mech")
+        one = torch.zeros((1,), dtype=_I32, device=dev)
+        outs = _rows_call(
+            rows_engine, i0_rate[None], sens_rate[None], cum_t[None], one,
+            pos[None], freqs[None], eps[None], f_prev[None], e_acc[None],
+            tacc, p_blocks=torch.full((1,), int(p_blocks), dtype=_I32,
+                                      device=dev),
+            mech=torch.as_tensor(mech).to(device=dev,
+                                          dtype=_I32).reshape(1),
+            scal=scal[None], power=pw_vec[None],
+            table=PRED.PCTable(*(x[None] for x in table)), tid=tid,
+            wf_i0=wf_i0[None], wf_sens=wf_sens[None],
+            react_i0=react_i0[None], react_sens=react_sens[None],
+            cus_per_domain=cus_per_domain, offset_blocks=offset_blocks,
+            react_models=react_models, pc_ids=pc_ids, id_ctr_pc=id_ctr_pc,
+            instr_per_block=instr_per_block, lean=lean)
+        return _fork_out(outs, squeeze=True)
+    if mech is not None:
+        raise ValueError(f"mech is the fork family's operand, not "
+                         f"{family!r}'s")
     if family == "pc":
         T_, E = table.i0.shape
         operands = (i0_rate, sens_rate, cum_t, pos, table.i0, table.sens,
@@ -412,7 +687,7 @@ def _kernel_or_plain(ins, **statics):
 
 def epoch_fused(i0_rate, sens_rate, cum_t, pos, freqs, eps, f_prev, e_acc,
                 t_acc, **kw) -> EpochOut:
-    """Run one fused fork--execute epoch (families ``pc``/``reactive``).
+    """Run one fused fork--execute epoch of one simulation.
 
     ``i0_rate``/``sens_rate`` (P,) are the program rates; ``cum_t`` is the
     packed prefix table transposed to ``(3, 2P+1)``; ``eps`` the (CU,WF)
@@ -422,22 +697,30 @@ def epoch_fused(i0_rate, sens_rate, cum_t, pos, freqs, eps, f_prev, e_acc,
     (floats or device tensors), ``power`` (``PowerAxes``/``PowerConfig``),
     ``cus_per_domain``, ``offset_blocks``; ``family='pc'`` needs
     ``table/tid/wf_i0/wf_sens``, ``family='reactive'`` needs
-    ``react_i0/react_sens`` and ``cu_model`` unless ``fork_estimator``.
-    ``lean`` picks the math mode (see the module docstring).
+    ``react_i0/react_sens`` and ``cu_model`` unless ``fork_estimator``;
+    ``family='fork'`` needs both state groups, the traced id ``mech`` and
+    the id layout ``react_models``/``pc_ids``/``id_ctr_pc`` (a one-row
+    :func:`epoch_fused_rows`). ``lean`` picks the math mode (see the
+    module docstring); ``block_cu`` is inert on CPU tensors and raises on
+    CUDA tensors.
 
     On CUDA tensors this launches the kernel (f32 operands, ``tid`` int32,
     all contiguous; WF <= 64, NF <= 32) and never synchronises; on CPU
     tensors it runs the plain version."""
-    return _epoch_call(_kernel_or_plain, i0_rate, sens_rate, cum_t, pos,
-                       freqs, eps, f_prev, e_acc, t_acc, **kw)
+    return _epoch_call(_kernel_or_plain, _rows_kernel_or_plain, i0_rate,
+                       sens_rate, cum_t, pos, freqs, eps, f_prev, e_acc,
+                       t_acc, **kw)
 
 
 epoch_fused.launches = 0
-epoch_fused.launches_by_family = {"pc": 0, "reactive": 0}
+epoch_fused.launches_by_family = {"pc": 0, "reactive": 0, "fork": 0}
+# rows stepped by the fork-family launches (rows per launch = this over
+# launches_by_family["fork"])
+epoch_fused.fork_rows = 0
 
 
 def epoch_fused_ref(i0_rate, sens_rate, cum_t, pos, freqs, eps, f_prev,
                     e_acc, t_acc, **kw) -> EpochOut:
     """:func:`epoch_fused`'s plain PyTorch version, on any device."""
-    return _epoch_call(_epoch_math, i0_rate, sens_rate, cum_t, pos, freqs,
-                       eps, f_prev, e_acc, t_acc, **kw)
+    return _epoch_call(_epoch_math, _rows_plain, i0_rate, sens_rate, cum_t,
+                       pos, freqs, eps, f_prev, e_acc, t_acc, **kw)

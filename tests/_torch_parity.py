@@ -82,8 +82,9 @@ def lockstep_noise(monkeypatch):
         return ctx._replace(eps=eps.astype(jnp.float32))
 
     def t_noise(pos, p_blocks, seed):
+        # pos may carry leading grid-row axes (p_blocks broadcasts)
         return _key_noise(torch, pos.to(torch.int32), p_blocks,
-                          *pos.shape).to(torch.float32)
+                          *pos.shape[-2:]).to(torch.float32)
 
     monkeypatch.setattr(JSIM, "_epoch_context", j_context)
     from repro_torch.core import simulate as TSIM

@@ -16,6 +16,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.core import mechanisms as MECH  # noqa: E402
 from repro_torch.core import power as PWR  # noqa: E402
 from repro_torch.core import predictors as PRED  # noqa: E402
 from repro_torch.core import simulate as SIM  # noqa: E402
@@ -224,3 +225,193 @@ def test_epoch_loop_never_syncs(dev, mech, use_pallas):
         torch.cuda.set_sync_debug_mode(0)
     assert all(torch.isfinite(v.float()).all() for v in ys.values())
 
+
+# ---------------------------------------------------------------------------
+# K4: the fork-family epoch over grid rows, and the sweep layer on the card
+# ---------------------------------------------------------------------------
+
+from _torch_rows import fork_rows_case, one_row, row_fields  # noqa: E402
+from repro_torch.core import sweep as SW  # noqa: E402
+from repro_torch.core.workloads import get_workload  # noqa: E402
+
+FORK_IDS = list(range(7))
+
+
+def _rows_close(got, want, what, args, kw):
+    for k, w in want.items():
+        if k != "true_sens":
+            _close(got[k], w, f"{what} {k}")
+    # true_sens = (fmax total - fmin total) / (dF T) cancels, so it keeps
+    # the rounding of the two fork totals, which the kernel (warp trees)
+    # and the plain version (torch's sums) add in different orders: hold
+    # it at the totals' scale, a CU's committed work, not at its own
+    F, T = args[5].cpu(), kw["scal"][:, 0].cpu()
+    dFT = ((F[:, -1] - F[:, 0]) * T)[:, None]
+    scale = want["work"].abs().amax(-1, keepdim=True)
+    ref = want["true_sens"]
+    tol = ATOL + RTOL * ref.abs() + 2 * RTOL * scale / dFT
+    err = (got["true_sens"] - ref).abs()
+    assert bool((err <= tol).all()), \
+        f"{what} true_sens: max err {float(err.max()):.3e}"
+
+
+@pytest.mark.parametrize("CU,WF,NF,cpd", [(5, 7, 6, 1), (3, 33, 4, 3),
+                                          (40, 64, 32, 8), (70, 1, 2, 2),
+                                          (16, 20, 10, 4)])
+@pytest.mark.parametrize("lean", [True, False], ids=["lean", "exact"])
+@pytest.mark.parametrize("objective", ["ed2p", "edp", "perfcap10",
+                                       "deadline05"])
+def test_fork_rows_kernel_matches_plain(dev, CU, WF, NF, cpd, lean,
+                                        objective):
+    """K4 over 14 mixed rows (every traced id twice, programs of
+    different lengths, per-row scalars and regimes) in ONE launch,
+    against the plain version."""
+    args, kw = fork_rows_case(FORK_IDS * 2, CU, WF, NF=NF, device=dev,
+                              cus_per_domain=cpd, objectives=(objective,),
+                              seed=CU + NF)
+    before = KEF.epoch_fused.launches_by_family["fork"]
+    got = KEF.epoch_fused_rows(*args, **kw, lean=lean)
+    want = KEF.epoch_fused_rows_ref(*args, **kw, lean=lean)
+    torch.cuda.synchronize()
+    assert KEF.epoch_fused.launches_by_family["fork"] == before + 1
+    _rows_close(row_fields(got), row_fields(want), f"cpd={cpd}", args, kw)
+
+
+def test_fork_rows_are_independent_of_the_launch(dev):
+    """A row's bits do not depend on which rows share its launch: 300
+    mixed rows (more than two waves of CTAs) in one launch equal each row
+    launched alone."""
+    ids = [int(i) for i in np.random.default_rng(1).integers(0, 7, 300)]
+    args, kw = fork_rows_case(ids, 16, 24, device=dev, seed=4)
+    batch = row_fields(KEF.epoch_fused_rows(*args, **kw))
+    for r in range(0, 300, 37):
+        a, k = one_row(args, kw, r)
+        alone = row_fields(KEF.epoch_fused_rows(*a, **k), 0)
+        for name, v in alone.items():
+            assert torch.equal(batch[name][r], v), (r, name)
+
+
+@pytest.mark.parametrize("mech", FORK_IDS)
+def test_fork_row_matches_specialised_kernel(dev, mech):
+    """A K4 row with traced id m against K3 run as mechanism m on the
+    same inputs: fidx equal, the live state within tolerance, the dead
+    state group passed through bit for bit."""
+    args, kw = fork_rows_case([mech], 12, 20, device=dev, seed=mech)
+    fork = row_fields(KEF.epoch_fused_rows(*args, **kw), 0)
+    spec = MECH.get(SIM.FORK_MECHS[mech])
+    p = int(args[3][0])
+    scal = kw["scal"][0]
+    single = dict(
+        p_blocks=int(kw["p_blocks"][0]), epoch_us=scal[0], sigma=scal[1],
+        cap_per_ghz=scal[2], membw=scal[3], table_ema=scal[4],
+        obj=scal[5:8], lat_us=scal[8],
+        power=PWR.PowerAxes(*kw["power"][0].unbind(0)),
+        family=spec.family, fork_estimator=spec.fork_estimator,
+        cu_model=spec.cu_model, offset_blocks=kw["offset_blocks"])
+    if spec.family == "pc":
+        single.update(table=PRED.PCTable(*(t[0] for t in kw["table"])),
+                      tid=kw["tid"], wf_i0=kw["wf_i0"][0],
+                      wf_sens=kw["wf_sens"][0])
+        live = ("table.i0", "table.sens", "table.count", "wf_i0", "wf_sens")
+        dead = {"react_i0": kw["react_i0"][0],
+                "react_sens": kw["react_sens"][0]}
+    else:
+        single.update(react_i0=kw["react_i0"][0],
+                      react_sens=kw["react_sens"][0])
+        live = ("react_i0", "react_sens")
+        dead = {"wf_i0": kw["wf_i0"][0], "wf_sens": kw["wf_sens"][0],
+                **{f"table.{k}": t[0] for k, t in
+                   zip(("i0", "sens", "count"), kw["table"])}}
+    k3 = row_fields(KEF.epoch_fused(
+        args[0][p], args[1][p], args[2][p], args[4][0], args[5][0],
+        args[6][0], args[7][0], args[8][0], args[9][0:1], **single))
+    assert torch.equal(fork["fidx"], k3["fidx"])
+    for name in live + ("pos", "work", "energy", "err", "e_acc"):
+        _close(fork[name], k3[name], name)
+    for name, before in dead.items():
+        assert torch.equal(fork[name], before.cpu()), name
+
+
+def test_batched_noise_is_bitwise_the_rows_noise(dev):
+    rng = np.random.default_rng(0)
+    pos = torch.as_tensor(rng.uniform(0, 4000, (5, 9, 7)),
+                          dtype=torch.float32).to(dev)
+    pb = torch.tensor([96, 64, 80, 96, 33], dtype=torch.int32, device=dev)
+    seeds = torch.tensor([0, 3, 70000, -5, 1], dtype=torch.int32,
+                         device=dev)
+    batch = SIM._epoch_noise(pos, pb[:, None, None], seeds[:, None, None])
+    for r in range(5):
+        alone = SIM._epoch_noise(pos[r], int(pb[r]), int(seeds[r]))
+        assert torch.equal(batch[r], alone), r
+
+
+def test_block_cu_raises_on_card(dev):
+    args, kw = fork_rows_case([5, 3], 8, 10, device=dev)
+    with pytest.raises(NotImplementedError, match="K5"):
+        KEF.epoch_fused_rows(*args, **kw, block_cu=4)
+    prog = get_workload("comd", P=128, device=dev)
+    cfg = SIM.SimConfig(n_cu=8, n_wf=10, n_epochs=3, pallas_block_cu=4)
+    with pytest.raises(NotImplementedError, match="K5"):
+        SW.run_suite([prog], cfg, ("pcstall",))
+
+
+def test_grid_dispatch_never_syncs(dev):
+    """GridExecutor.dispatch issues no host-device synchronisation: torch's
+    sync debug mode turns any synchronising call into an error. The
+    traces are read after it is switched off."""
+    progs = [get_workload(n, P=P, device=dev)
+             for n, P in (("comd", 128), ("hacc", 96))]
+    cfg = SIM.SimConfig(n_cu=8, n_wf=12, n_epochs=6)
+    ex = SW.GridExecutor(cfg, ("static17", "crisp", "pcstall", "oracle"),
+                         p_max=128, buckets=(2, 4))
+    jobs = [(p, {"epoch_us": e}) for p in progs for e in (1.0, 10.0)]
+    ex.run(jobs[:1])                         # build the library first
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = ex.dispatch(jobs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    out = pending.traces()
+    assert len(out) == 4
+    assert all(np.isfinite(v).all() for t in out for tr in t.values()
+               for v in tr.values())
+
+
+@pytest.mark.parametrize("use_pallas", [True, False])
+def test_grid_bitwise_contracts_on_card(dev, use_pallas):
+    """On the card, as on the CPU: suite == one-point grid, grid row ==
+    per-point grid, streamed == one-shot, for the kernel family and the
+    vmapped unfused families alike."""
+    progs = {n: get_workload(n, P=P, device=dev)
+             for n, P in (("comd", 128), ("hacc", 96), ("dgemm", 112))}
+    cfg = SIM.SimConfig(n_cu=16, n_wf=20, n_epochs=30,
+                        use_pallas=use_pallas)
+    mechs = ("static17", "crisp", "pcstall", "accpc", "oracle")
+    grid = SW.run_grid(progs, cfg, {"epoch_us": [1.0, 10.0],
+                                    "objective": ["ed2p", "edp"]}, mechs)
+    suite = SW.run_suite(progs, cfg, mechs)
+    one = SW.run_grid(progs, cfg, [{}], mechs)[()]
+    ex = SW.GridExecutor(cfg, mechs, p_max=128, buckets=(2, 4, 8))
+    jobs = [(progs[w], {"epoch_us": e, "objective": o})
+            for w in progs for e in (1.0, 10.0) for o in ("ed2p", "edp")]
+    streamed = []
+    for i in range(0, len(jobs), 3):
+        streamed += ex.dispatch(jobs[i:i + 3]).traces()
+    for w in progs:
+        for m in mechs:
+            for k in one[w][m]:
+                assert np.array_equal(one[w][m][k], suite[w][m][k]), (w, m)
+    for key in grid:
+        pt = dict(zip(("epoch_us", "objective"), key))
+        per = SW.run_grid(progs, cfg, [pt], mechs)[key]
+        for w in progs:
+            for m in mechs:
+                for k in per[w][m]:
+                    assert np.array_equal(per[w][m][k], grid[key][w][m][k]), \
+                        (key, w, m, k)
+    for (prog, ov), tr in zip(jobs, streamed):
+        ref = grid[(ov["epoch_us"], ov["objective"])][prog.name]
+        for m in mechs:
+            for k in ref[m]:
+                assert np.array_equal(tr[m][k], ref[m][k]), (prog.name, m)

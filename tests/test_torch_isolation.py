@@ -47,8 +47,8 @@ def test_port_imports_no_jax_and_no_reference(path):
 
 def test_port_file_list_is_complete():
     names = {p.name for p in PORT_FILES}
-    assert {"simulate.py", "epoch_fused.py", "pc_table.py", "interop.py",
-            "chip_smoke.py"} <= names
+    assert {"simulate.py", "sweep.py", "epoch_fused.py", "pc_table.py",
+            "interop.py", "chip_smoke.py"} <= names
 
 
 def _c_entry_points():

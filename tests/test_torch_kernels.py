@@ -24,6 +24,12 @@ from repro.kernels import epoch_fused as JKEF  # noqa: E402
 from repro.kernels import ops as JOPS  # noqa: E402
 from repro.kernels import pc_table as JKPT  # noqa: E402
 from repro.kernels import ref as JREF  # noqa: E402
+from _torch_rows import fork_rows_case, one_row, row_fields  # noqa: E402
+from repro_torch.core import estimators as EST  # noqa: E402
+from repro_torch.core import mechanisms as TMECH  # noqa: E402
+from repro_torch.core import power as TPWR  # noqa: E402
+from repro_torch.core import predictors as PRED  # noqa: E402
+from repro_torch.core import simulate as TSIM  # noqa: E402
 from repro_torch.kernels import epoch_fused as KEF  # noqa: E402
 from repro_torch.kernels import pc_table as KPT  # noqa: E402
 from repro_torch.kernels import ref as REF  # noqa: E402
@@ -168,11 +174,149 @@ def test_epoch_fused_out_of_range_tid_matches_reference():
 
 
 def test_epoch_fused_rejects_unported_modes():
+    """The fork family runs (it needs its traced id, and ``mech`` belongs
+    to it alone); ``block_cu`` is inert on CPU tensors, as on the
+    reference's interpret engine; an unknown ``cu_model`` still raises."""
     _, _, ta, tk = epoch_case("pc", 5, 7, NF=6, seed=2)
-    for extra in (dict(family="fork"), dict(block_cu=2),
-                  dict(mech=torch.tensor(5))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            KEF.epoch_fused(*ta, **dict(tk, **extra))
+    with pytest.raises(ValueError, match="mech"):
+        KEF.epoch_fused(*ta, **dict(tk, family="fork", react_i0=ta[7],
+                                    react_sens=ta[7], **_LAYOUT))
+    with pytest.raises(ValueError, match="mech"):
+        KEF.epoch_fused(*ta, **dict(tk, mech=torch.tensor(5)))
+    plain = epoch_fields(KEF.epoch_fused(*ta, **tk))
+    tiled = epoch_fields(KEF.epoch_fused(*ta, **dict(tk, block_cu=2)))
+    for k in plain:
+        np.testing.assert_array_equal(tiled[k], plain[k], err_msg=k)
     with pytest.raises(ValueError, match="cu_model"):
         KEF.epoch_fused(*ta, **dict(tk, family="reactive", cu_model="nope",
                                     react_i0=ta[7], react_sens=ta[7]))
+
+
+# ---------------------------------------------------------------------------
+# the fork family (K4's plain version): every traced id, one row and rows
+# ---------------------------------------------------------------------------
+
+_LAYOUT = dict(react_models=TSIM._REACT_MODELS, pc_ids=TSIM._PC_IDS,
+               id_ctr_pc=TSIM._ID_CTR_PC)
+FORK_SPECS = [s for s in TMECH.fork_specs() if s.is_traced]
+
+
+def _fork_case(CU, WF, NF, seed):
+    """A pc-family operand set plus the reactive state group and the id
+    layout, for both packages."""
+    ja, jk, ta, tk = epoch_case("pc", CU, WF, NF=NF, seed=seed)
+    rng = np.random.default_rng(seed + 77)
+    ri0 = rng.uniform(0, 200, CU).astype(np.float32)
+    rse = rng.uniform(0, 100, CU).astype(np.float32)
+    for kw, arr in ((jk, jnp.asarray), (tk, t_)):
+        kw.update(family="fork", react_i0=arr(ri0), react_sens=arr(rse),
+                  **_LAYOUT)
+        del kw["fork_estimator"], kw["cu_model"]
+    return ja, jk, ta, tk
+
+
+@pytest.mark.parametrize("lean", [True, False], ids=["lean", "exact"])
+@pytest.mark.parametrize("mech", [s.traced_id for s in FORK_SPECS],
+                         ids=[s.name for s in FORK_SPECS])
+def test_epoch_fused_fork_matches_reference(mech, lean):
+    """Tier 2: the port's fork family against the reference's
+    ``epoch_fused(family="fork")`` on its interpret engine, for every
+    traced id in both math modes."""
+    ja, jk, ta, tk = _fork_case(5, 7, 6, seed=mech + 3)
+    want = epoch_fields(JKEF.epoch_fused(*ja, **jk, mech=jnp.int32(mech),
+                                         lean=lean))
+    got = epoch_fields(KEF.epoch_fused(*ta, **tk, mech=torch.tensor(mech),
+                                       lean=lean))
+    assert_epoch_close(got, want, rtol=RTOL, atol=ATOL,
+                       what=f"id {mech}/lean={lean}")
+    assert KEF.epoch_fused.launches_by_family["fork"] == 0
+
+
+@pytest.mark.parametrize("spec", FORK_SPECS, ids=lambda s: s.name)
+def test_epoch_fused_fork_matches_specialised(spec):
+    """The port's fork family against its own pc/reactive family on the
+    same carry (the reference's tests/test_kernels.py:292 in the port):
+    the id picks which state group advances, never the math. ``fidx``
+    equal, floats to 1e-5, the other group passed through bit for bit."""
+    _, _, ta, tk = _fork_case(8, 10, 10, seed=31)
+    fork = KEF.epoch_fused(*ta, **tk, mech=torch.tensor(spec.traced_id))
+    skw = {k: v for k, v in tk.items() if k not in _LAYOUT}
+    skw.update(family=spec.family, fork_estimator=spec.fork_estimator,
+               cu_model=spec.cu_model)
+    drop = ("table", "tid", "wf_i0", "wf_sens") \
+        if spec.family == "reactive" else ("react_i0", "react_sens")
+    for k in drop:
+        del skw[k]
+    single = epoch_fields(KEF.epoch_fused(*ta, **skw))
+    got = epoch_fields(fork)
+    np.testing.assert_array_equal(got["fidx"], single["fidx"])
+    for k, v in single.items():
+        if k != "hit_rate" or spec.family == "pc":
+            np.testing.assert_allclose(got[k], v, rtol=RTOL, atol=ATOL,
+                                       err_msg=f"{spec.name}/{k}")
+    carried = {"react_i0": tk["react_i0"], "react_sens": tk["react_sens"]} \
+        if spec.family == "pc" else {
+            "wf_i0": tk["wf_i0"], "wf_sens": tk["wf_sens"],
+            **{f"table.{f}": getattr(tk["table"], f)
+               for f in ("i0", "sens", "count")}}
+    for k, v in carried.items():
+        np.testing.assert_array_equal(got[k], np_(v), err_msg=k)
+    assert got["hit_rate"].shape == (1,)
+
+
+@pytest.mark.parametrize("lean", [True, False], ids=["lean", "exact"])
+def test_epoch_fused_rows_bitwise_equal_single_rows(lean):
+    """The batched plain version is, row for row, bitwise the one-row
+    call: 9 rows mixing every traced id, three programs of different
+    logical lengths padded to one block count, per-row sweep scalars,
+    objectives and power regimes."""
+    ids = [s.traced_id for s in FORK_SPECS] + [5, 1]
+    args, kw = fork_rows_case(ids, 6, 9, NF=7, objectives=("ed2p", "edp",
+                                                           "perfcap10"),
+                              seed=3)
+    rows = KEF.epoch_fused_rows(*args, **kw, lean=lean)
+    batch = row_fields(rows)
+    assert batch["t_acc"].shape == batch["hit_rate"].shape == (len(ids),)
+    for r in range(len(ids)):
+        a, k = one_row(args, kw, r)
+        alone = row_fields(KEF.epoch_fused_rows(*a, **k, lean=lean), 0)
+        for name, v in alone.items():
+            assert torch.equal(batch[name][r], v), (r, name)
+        # and the one-row entry point of the fork family agrees too
+        p = int(args[3][r])
+        sc = kw["scal"][r]
+        single = KEF.epoch_fused(
+            args[0][p], args[1][p], args[2][p], args[4][r], args[5][r],
+            args[6][r], args[7][r], args[8][r], args[9][r], lean=lean,
+            p_blocks=int(kw["p_blocks"][r]), epoch_us=sc[0], sigma=sc[1],
+            cap_per_ghz=sc[2], membw=sc[3], table_ema=sc[4], obj=sc[5:8],
+            lat_us=sc[8], power=TPWR.PowerAxes(*kw["power"][r].unbind(0)),
+            family="fork", mech=kw["mech"][r],
+            table=PRED.PCTable(*(t[r] for t in kw["table"])), tid=kw["tid"],
+            wf_i0=kw["wf_i0"][r], wf_sens=kw["wf_sens"][r],
+            react_i0=kw["react_i0"][r], react_sens=kw["react_sens"][r],
+            offset_blocks=kw["offset_blocks"], **_LAYOUT)
+        for name, v in row_fields(single).items():
+            assert torch.equal(batch[name][r], v.reshape(batch[name][r]
+                                                         .shape)), (r, name)
+    assert KEF.epoch_fused.launches_by_family["fork"] == 0
+
+
+def test_epoch_fused_rows_block_cu_is_inert_on_cpu():
+    args, kw = fork_rows_case([0, 5, 6], 8, 10, seed=8)
+    plain = row_fields(KEF.epoch_fused_rows(*args, **kw))
+    tiled = row_fields(KEF.epoch_fused_rows(*args, **kw, block_cu=4))
+    for name, v in plain.items():
+        assert torch.equal(tiled[name], v), name
+
+
+def test_fork_layout_rejects_what_the_kernel_cannot_encode():
+    with pytest.raises(ValueError, match="react model"):
+        KEF._fork_layout(("stall", "nope"), (5,), 5)
+    with pytest.raises(ValueError, match="range"):
+        KEF._fork_layout(("stall",) * 8, (9,), 9)
+    n_react, packed, mask, ctr = KEF._fork_layout(**_LAYOUT)
+    assert n_react == TSIM._N_REACT and ctr == TSIM._ID_CTR_PC
+    assert mask == sum(1 << i for i in TSIM._PC_IDS)
+    assert [(packed >> 4 * i) & 15 for i in range(n_react - 1)] == \
+        [EST.CU_MODELS.index(m) for m in TSIM._REACT_MODELS]
