@@ -27,8 +27,21 @@ drives the port (never JAX, never ``repro``):
    and mean accuracy beside the JAX reference's;
 7. the sweep's bitwise contracts on the card (suite = one-point grid =
    per-point grid = streamed) and kernel grid against unfused grid;
-8. times (CUDA events after warm-up; device time from ``torch.profiler``
+8. the runtime path: ``DVFSService`` serving ``dvfs_request_stream(32,
+   seed=7)`` at an MI300X-sized ``SimConfig(n_cu=304, n_wf=40,
+   pallas_block_cu=38)`` for 400 epochs (the fork family on the CU-tiled
+   kernel K5, one call per epoch; static17 unfused), jobs per second and
+   latency percentiles, streamed rows bitwise equal to the one-shot
+   ``run_grid``, and the mean report beside the JAX reference's; then
+   ``DVFSManager.for_model`` for llama3-405b and qwen2-moe-a2.7b at its
+   default 16 CUs (K4): ``report`` and a 2 x 2 ``grid_report``;
+9. times (CUDA events after warm-up; device time from ``torch.profiler``
    where it reports one), each beside the card's name and power limit.
+
+Phase 2 also holds K5 against its plain version at 304 x 40 in blocks of
+38 CUs (every traced id, and one call of 8 mixed rows), and against K4 at
+128 x 40, where both fit (bit for bit by design; ``fidx``/``f_sel`` must
+be equal).
 
 Prints a ``{"kernels": [...]}`` line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero without
@@ -38,6 +51,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -56,6 +70,10 @@ from repro_torch.core import predictors as PRED  # noqa: E402
 from repro_torch.core import simulate as SIM  # noqa: E402
 from repro_torch.core import sweep as SW  # noqa: E402
 from repro_torch.core.workloads import get_workload  # noqa: E402
+from repro_torch.configs import TRAIN_4K, get_config  # noqa: E402
+from repro_torch.data.pipeline import dvfs_request_stream  # noqa: E402
+from repro_torch.dvfs_runtime.manager import DVFSManager  # noqa: E402
+from repro_torch.dvfs_runtime.service import DVFSService  # noqa: E402
 from repro_torch.kernels import epoch_fused as KEF  # noqa: E402
 from repro_torch.kernels import pc_table as KPT  # noqa: E402
 from repro_torch.kernels import ref as REF  # noqa: E402
@@ -103,6 +121,21 @@ FIG15_DISPATCH_ROWS = {"grid_forks": 40, "grid_static13": 10,
 EXACT_WORKLOADS = ["comd", "hacc", "dgemm"]
 EXACT_GRID = {"epoch_us": [1.0, 10.0], "objective": ["ed2p", "edp"]}
 EXACT_EPOCHS = 200
+# the runtime path: an AMD MI300X-sized GPU (8 XCDs x 38 CUs = 304 CUs),
+# one XCD per K5 block, 40 WFs per CU and per-CU V/f domains as in the
+# paper; the request stream and service knobs of ROADMAP's runtime slice
+SVC_SIM = SIM.SimConfig(n_cu=304, n_wf=40, pallas_block_cu=38, n_epochs=400)
+SVC_REQUESTS, SVC_SEED, SVC_BATCH, SVC_COALESCE_S = 32, 7, 8, 0.001
+SVC_WORKLOADS = ("comd", "xsbench", "lulesh", "minife")
+# the JAX reference's mean report over the same stream, computed on the CPU
+# by `PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/service_reference.py`
+# (jax 0.9.0); printed beside the port's, not gated (the closed loop is
+# chaotic, and the reference runs its unfused engine)
+REF_SVC = {"ed2p_norm": 0.9187865853309631,
+           "energy_norm": 1.0860943794250488,
+           "delay_norm": 0.9250905513763428,
+           "accuracy": 0.9696191046386957}
+MANAGER_ARCHS = ("llama3-405b", "qwen2-moe-a2.7b")
 
 FAILURES = []
 
@@ -196,11 +229,14 @@ def epoch_case(family, fork_est, model, seed, dev):
     return args, kw
 
 
-def fork_rows_case(ids, names, seed, dev, *, lens=None):
-    """``epoch_fused_rows`` operands at the main shapes: one row per
+def fork_rows_case(ids, names, seed, dev, *, lens=None, cu=CU, wf=WF,
+                   tables=T_TABLES):
+    """``epoch_fused_rows`` operands at the main shapes (or ``cu`` x
+    ``wf`` with ``tables`` tables, CU c on table c % tables): one row per
     traced id in ``ids``, row r on Table II program ``names[r % len]``
     (logical lengths ``lens``, padded to the longest), with per-row sweep
     scalars and power regimes, from a numpy seed."""
+    CU, WF, T_TABLES = cu, wf, tables
     rng = np.random.default_rng(seed)
     R = len(ids)
     lens = lens or [P] * len(names)
@@ -296,24 +332,24 @@ def epoch_bytes(args, kw, out):
     return nbytes(*ins) + nbytes(*outs) + 4 * (9 + 11)
 
 
-def epoch_flops(family):
-    """Floating-point operations of one epoch's function at the main
-    shape, counted from the plain version: ~27 per WF for each of the 11
-    execute rows, ~25 per WF for the selected row's counters and energy,
-    ~10 per WF for the estimator, ~40 per (CU, state) for predict and
-    select, and for pc the lookup (2 per WF) and update (3 per WF + 12 per
-    slot)."""
-    n = CU * WF
-    ops = 27 * (NF + 1) * n + 25 * n + 10 * n + 40 * CU * NF
+def epoch_flops(family, cu=CU, wf=WF, tables=T_TABLES):
+    """Floating-point operations of one epoch's function at a row of ``cu``
+    CUs x ``wf`` WFs, counted from the plain version: ~27 per WF for each
+    of the 11 execute rows, ~25 per WF for the selected row's counters and
+    energy, ~10 per WF for the estimator, ~40 per (CU, state) for predict
+    and select, and for pc the lookup (2 per WF) and update (3 per WF + 12
+    per slot)."""
+    n = cu * wf
+    ops = 27 * (NF + 1) * n + 25 * n + 10 * n + 40 * cu * NF
     if family == "pc":
-        ops += 2 * n + 3 * n + 12 * T_TABLES * ENTRIES
+        ops += 2 * n + 3 * n + 12 * tables * ENTRIES
     return ops
 
 
-def fork_flops(rows):
+def fork_flops(rows, cu=CU, wf=WF, tables=T_TABLES):
     """Operations of ``rows`` fork-family rows: a pc row's epoch plus the
     reactive predictor and the four counter estimators (~20 per WF)."""
-    return rows * (epoch_flops("pc") + 20 * CU * WF)
+    return rows * (epoch_flops("pc", cu, wf, tables) + 20 * cu * wf)
 
 
 def bound_ms(nb, ops):
@@ -343,9 +379,10 @@ def time_events(fn, reps=200, warm=20):
     return a.elapsed_time(b) / reps
 
 
-def device_ms(fn, kernel_name, reps=100):
-    """Device time per launch of the CUDA kernel whose name contains
-    ``kernel_name``, from torch.profiler; None if it reports none."""
+def device_ms(fn, kernel_name, reps=100, split=None):
+    """Device time per call of ``fn`` in the CUDA kernels whose names
+    contain ``kernel_name``, from torch.profiler; None if it reports none.
+    ``split`` (a dict) receives the time per call of each kernel."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -362,9 +399,11 @@ def device_ms(fn, kernel_name, reps=100):
                 t = getattr(ev, "cuda_time_total", 0.0)
             total += t
             count += ev.count
+            if split is not None:
+                split[ev.key] = t / reps / 1e3
     if count == 0 or total <= 0:
         return None
-    return total / count / 1e3
+    return total / reps / 1e3
 
 
 # ---------------------------------------------------------------------------
@@ -390,7 +429,14 @@ def main() -> int:
     print(f"kernel library ready in {time.perf_counter() - t0:.1f} s "
           f"(nvcc build {K.BUILD['seconds']:.1f} s)", flush=True)
     for line in K.BUILD["log"].splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        fn = re.search(r"Function properties for .*?(epoch_fused_kernel|"
+                       r"fork_blocked_pass_a|fork_blocked_pass_b|"
+                       r"fork_blocked_epilogue|pc_table_\w+?_kernel)"
+                       r"(ILi(\d))?", line)
+        if fn:
+            print("  " + fn.group(1) + (f"<{fn.group(3)}>" if fn.group(3)
+                                        else ""))
+        elif "registers" in line or "spill" in line or line.startswith("=="):
             print("  " + line.strip())
 
     # ---- 2. kernels against their plain versions -------------------------
@@ -510,12 +556,73 @@ def main() -> int:
               f"{tag}: dead state {dead[0].split('.')[0]} passed through "
               f"bitwise")
 
+    # ---- 2c. K5: the CU-tiled fork epoch at 304 x 40 / 38 -----------------
+    blk_row = rows.setdefault("epoch_fused[fork_blocked]",
+                              dict(max_abs_err=0.0))
+    blk_cu = SVC_SIM.pallas_block_cu
+    wide = dict(cu=SVC_SIM.n_cu, wf=SVC_SIM.n_wf, tables=SVC_SIM.n_cu)
+
+    def blocked_vs_plain(tag, args, kw):
+        got = out_fields(KEF.epoch_fused_rows(*args, **kw, block_cu=blk_cu))
+        want = out_fields(KEF.epoch_fused_rows_blocked_ref(
+            *args, **kw, block_cu=blk_cu))
+        torch.cuda.synchronize()
+        for field, w in want.items():
+            if field == "true_sens":
+                continue
+            blk_row["max_abs_err"] = max(blk_row["max_abs_err"], compare(
+                f"epoch_fused[fork_blocked,{tag}].{field}", got[field], w))
+        # true_sens = (fmax total - fmin total) / (dF T) keeps the rounding
+        # of the two fork totals, summed in different orders by the kernel
+        # and the plain version: held at the totals' scale
+        dFT = ((args[5][:, -1] - args[5][:, 0]) * kw["scal"][:, 0])[:, None]
+        scale = want["work"].abs().amax(-1, keepdim=True)
+        err = (got["true_sens"] - want["true_sens"]).abs()
+        lim = ATOL + RTOL * want["true_sens"].abs() + 2 * RTOL * scale / dFT
+        check(bool((err <= lim).all()),
+              f"epoch_fused[fork_blocked,{tag}].true_sens: max_abs_err "
+              f"{float(err.max()):.3e} (at the fork totals' scale)")
+        blk_row["max_abs_err"] = max(blk_row["max_abs_err"],
+                                     float(err.max()))
+
+    args, kw = fork_rows_case(ids7, ["comd", "lulesh"], 24, dev, **wide)
+    blocked_vs_plain("ids 0-6", args, kw)
+    mix8 = [0, 1, 2, 3, 4, 5, 6, 5]
+    args8, kw8 = fork_rows_case(mix8, list(SVC_WORKLOADS), 25, dev,
+                                lens=[1024, 768, 896, 512], **wide)
+    n0 = KEF.epoch_fused.launches_by_family["fork_blocked"]
+    blocked_vs_plain("R=8 mixed", args8, kw8)
+    check(KEF.epoch_fused.launches_by_family["fork_blocked"] == n0 + 1,
+          "epoch_fused[fork_blocked]: 8 rows in one call")
+    # K5 against K4 where both fit: 128 x 40 in blocks of 32
+    args, kw = fork_rows_case(ids7, ["comd"], 26, dev, cu=128)
+    k5 = out_fields(KEF.epoch_fused_rows(*args, **kw, block_cu=32))
+    k4 = out_fields(KEF.epoch_fused_rows(*args, **kw))
+    torch.cuda.synchronize()
+    check(torch.equal(k5["fidx"], k4["fidx"])
+          and torch.equal(k5["f_sel"], k4["f_sel"]),
+          "K5 vs K4 at 128 x 40 / 32: fidx and f_sel equal")
+    differ = [f for f in k4 if not torch.equal(k5[f], k4[f])]
+    print("K5 vs K4 at 128 x 40 / 32: " + (
+        "differ in " + ", ".join(differ) if differ
+        else "bitwise equal in every output"), flush=True)
+    for f in differ:
+        compare(f"K5 vs K4 at 128 x 40 / 32: {f}", k5[f], k4[f])
+    try:
+        KEF.epoch_fused_rows(*args8, **kw8)
+        check(False, "K4 at 304 x 40 without block_cu raises")
+    except RuntimeError as e:
+        check("pallas_block_cu" in str(e),
+              "K4 at 304 x 40 without block_cu raises naming "
+              "pallas_block_cu")
+
     # ---- 3. the quickstart path -------------------------------------------
     prog = get_workload("comd", device=dev)
     sim = SIM.SimConfig(n_epochs=N_EPOCHS)
     for fn in (KEF.epoch_fused, KPT.pc_table_predict, KPT.pc_table_update):
         fn.launches = 0
-    KEF.epoch_fused.launches_by_family = {"pc": 0, "reactive": 0, "fork": 0}
+    KEF.epoch_fused.launches_by_family = dict.fromkeys(
+        KEF.epoch_fused.launches_by_family, 0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = SIM.run_workload(prog, sim, mechanisms=("static17", "crisp",
@@ -537,7 +644,8 @@ def main() -> int:
     check(KEF.epoch_fused.launches == 2 * N_EPOCHS,
           f"epoch_fused launches {KEF.epoch_fused.launches} == "
           f"{2 * N_EPOCHS}")
-    check(v2_launches == {"pc": N_EPOCHS, "reactive": N_EPOCHS, "fork": 0},
+    check(v2_launches == {"pc": N_EPOCHS, "reactive": N_EPOCHS, "fork": 0,
+                          "fork_blocked": 0},
           f"epoch_fused launches by family {v2_launches}")
     check(KPT.pc_table_predict.launches == 0
           and KPT.pc_table_update.launches == 0,
@@ -582,7 +690,8 @@ def main() -> int:
     SW.reset_counters()
     for fn in (KEF.epoch_fused, KPT.pc_table_predict, KPT.pc_table_update):
         fn.launches = 0
-    KEF.epoch_fused.launches_by_family = {"pc": 0, "reactive": 0, "fork": 0}
+    KEF.epoch_fused.launches_by_family = dict.fromkeys(
+        KEF.epoch_fused.launches_by_family, 0)
     KEF.epoch_fused.fork_rows = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -623,6 +732,7 @@ def main() -> int:
           f" {fig15_rows / max(fig15_launches['fork'], 1):.0f} rows each "
           f"(40)")
     check(fig15_launches["pc"] == fig15_launches["reactive"] == 0
+          and fig15_launches["fork_blocked"] == 0
           and fig15_k12 == (0, 0),
           f"Fig-15: no K1-K3 launches ({fig15_launches}, {fig15_k12})")
     check(dispatch == FIG15_DISPATCH_ROWS,
@@ -670,7 +780,94 @@ def main() -> int:
         check(worst[k] <= AGG_TOL, f"kernel grid vs unfused grid run-level "
                                    f"{k} rel dev {worst[k]:.3e}")
 
-    # ---- 8. times ----------------------------------------------------------
+    # ---- 8. the runtime path: the 304-CU service stream, the managers -----
+    stream = list(dvfs_request_stream(SVC_REQUESTS, seed=SVC_SEED,
+                                      device=dev))
+    svc_progs = {w: get_workload(w, device=dev) for w in SVC_WORKLOADS}
+    with DVFSService(SVC_SIM, max_batch=SVC_BATCH,
+                     coalesce_s=SVC_COALESCE_S) as svc:
+        for fn in (KEF.epoch_fused, KPT.pc_table_predict,
+                   KPT.pc_table_update):
+            fn.launches = 0
+        KEF.epoch_fused.launches_by_family = dict.fromkeys(
+            KEF.epoch_fused.launches_by_family, 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        served = svc.map(stream)
+        svc_wall = time.perf_counter() - t0
+        svc_stats = svc.stats()
+    svc_launches = dict(KEF.epoch_fused.launches_by_family)
+    svc_k12 = (KPT.pc_table_predict.launches, KPT.pc_table_update.launches)
+    one_shot = SW.run_grid(svc_progs, SVC_SIM, {"epoch_us": [1.0, 10.0]},
+                           ("static17", "pcstall"))
+    same_rows = all(
+        np.array_equal(res["traces"][m][k],
+                       one_shot[(ax["epoch_us"],)][prog.name][m][k])
+        for (prog, ax, _), res in zip(stream, served)
+        for m in ("static17", "pcstall") for k in res["traces"][m])
+    svc_mean = {f: float(np.mean([r["report"][f] for r in served]))
+                for f in REF_SVC}
+    print(f"service: {SVC_REQUESTS} requests at {SVC_SIM.n_cu} x "
+          f"{SVC_SIM.n_wf} x {SVC_SIM.n_epochs} epochs (K5 blocks of "
+          f"{SVC_SIM.pallas_block_cu}): {svc_wall:.2f} s wall, "
+          f"{svc_stats['jobs_per_sec']:.3f} jobs/s, p50 "
+          f"{svc_stats['p50_latency_s']:.3f} s, p99 "
+          f"{svc_stats['p99_latency_s']:.3f} s, {svc_stats['batches']} "
+          f"batches (mean {svc_stats['mean_batch']:.2f}) on {card}",
+          flush=True)
+    for f in REF_SVC:
+        print(f"  mean pcstall {f}: port {svc_mean[f]:.4f}, reference "
+              f"{REF_SVC[f]:.4f} ({svc_mean[f] - REF_SVC[f]:+.4f})")
+    check(svc_stats["jobs"] == SVC_REQUESTS, "service resolved every request")
+    check(svc_launches["fork_blocked"] > 0 and svc_launches["fork"] == 0
+          and svc_launches["pc"] == svc_launches["reactive"] == 0
+          and svc_k12 == (0, 0),
+          f"service: K5 calls {svc_launches['fork_blocked']} > 0, no other "
+          f"epoch kernel ({svc_launches}, {svc_k12})")
+    check(svc_launches["fork_blocked"] == svc_stats["batches"]
+          * SVC_SIM.n_epochs,
+          f"service: one K5 call per epoch per batch "
+          f"({svc_launches['fork_blocked']} == {svc_stats['batches']} x "
+          f"{SVC_SIM.n_epochs})")
+    check(same_rows, "service streamed rows bitwise == one-shot run_grid")
+    check(all(np.isfinite([r["report"][f] for f in REF_SVC]).all()
+              and abs(sum(r["report"]["freq_timeshare"]) - 1.0) < 1e-2
+              for r in served), "service reports finite, residency sums to 1")
+    rows["epoch_fused[fork_blocked]"]["launches"] = \
+        svc_launches["fork_blocked"]
+
+    mgr_reports, mgr_launches = {}, {}
+    for arch in MANAGER_ARCHS:
+        KEF.epoch_fused.launches_by_family = dict.fromkeys(
+            KEF.epoch_fused.launches_by_family, 0)
+        t0 = time.perf_counter()
+        mgr = DVFSManager.for_model(get_config(arch), TRAIN_4K, device=dev)
+        rep = mgr.report()
+        grid_rep = mgr.grid_report(epoch_us=(1.0, 10.0),
+                                   objectives=("ed2p", "edp"))
+        wall = time.perf_counter() - t0
+        mgr_launches[arch] = dict(KEF.epoch_fused.launches_by_family)
+        mgr_reports[arch] = (rep, grid_rep, wall)
+        print(f"manager {arch} (train_4k, {mgr.sim.n_cu} CUs x "
+              f"{mgr.sim.n_wf} WFs x {mgr.sim.n_epochs} epochs): report + "
+              f"2 x 2 grid_report {wall:.2f} s on {card}", flush=True)
+        for key, r in [("report", rep)] + list(grid_rep.items()):
+            print(f"  {key}: ED2P {r['ed2p_norm']:.4f} energy "
+                  f"{r['energy_norm']:.4f} delay {r['delay_norm']:.4f} "
+                  f"accuracy {r['accuracy']:.4f}")
+        check(mgr_launches[arch]["fork"] > 0
+              and mgr_launches[arch]["fork_blocked"] == 0,
+              f"manager {arch}: K4 launches {mgr_launches[arch]['fork']} "
+              f"> 0, no K5")
+        check(all(np.isfinite([r["ed2p_norm"], r["energy_norm"],
+                               r["accuracy"]]).all()
+                  and abs(sum(r["freq_timeshare"]) - 1.0) < 1e-2
+                  for r in [rep] + list(grid_rep.values())),
+              f"manager {arch}: reports finite, residency sums to 1")
+        check(rep["ed2p_norm"] == grid_rep[(1.0, "ed2p")]["ed2p_norm"],
+              f"manager {arch}: report == its grid point")
+
+    # ---- 9. times ----------------------------------------------------------
     times = {}
     times["pc_table_predict"] = (
         lambda: KPT.pc_table_predict(*tbl, tid, idx, *fb, F, **kp),
@@ -707,13 +904,28 @@ def main() -> int:
           f"{(r1_dev if r1_dev is not None else r1_ev) * 1e3:.2f} us "
           f"(device{'' if r1_dev is not None else ' n/a, events'}), "
           f"{r1_ev * 1e3:.2f} us per call (events) on {card}", flush=True)
+    # K5 at the service's layout: 8 rows at 304 x 40 in blocks of 38
+    blk_row["nbytes"] = rows_bytes(args8, kw8, KEF.epoch_fused_rows(
+        *args8, **kw8, block_cu=blk_cu))
+    blk_row["ops"] = fork_flops(8, SVC_SIM.n_cu, SVC_SIM.n_wf, SVC_SIM.n_cu)
+    times["epoch_fused[fork_blocked]"] = (
+        lambda: KEF.epoch_fused_rows(*args8, **kw8, block_cu=blk_cu),
+        lambda: KEF.epoch_fused_rows_blocked_ref(*args8, **kw8,
+                                                 block_cu=blk_cu),
+        "fork_blocked")
+    split = {}
+    device_ms(times["epoch_fused[fork_blocked]"][0], "fork_blocked",
+              split=split)
+    print("time epoch_fused[fork_blocked] R=8 by kernel: " + ", ".join(
+        f"{re.search(r'fork_blocked_\w+', k).group(0)} {v * 1e3:.2f} us"
+        for k, v in split.items()) + f" on {card}", flush=True)
     for key, (kern, plain, kname) in times.items():
         ev = time_events(kern)
         dv = device_ms(kern, kname)
         row = rows[key]
         row["events_ms"] = ev
         row["ms"] = dv if dv is not None else ev
-        row["plain_ms"] = time_events(plain, reps=5 if "fork" in key
+        row["plain_ms"] = time_events(plain, reps=3 if "fork" in key
                                       else 50, warm=1 if "fork" in key
                                       else 5)
         row["bound_ms"], row["bound_by"] = bound_ms(row["nbytes"],
@@ -753,6 +965,7 @@ def main() -> int:
         "epoch_fused[pc]": "src/repro/kernels/epoch_fused.py:748",
         "epoch_fused[reactive]": "src/repro/kernels/epoch_fused.py:748",
         "epoch_fused[fork]": "src/repro/kernels/epoch_fused.py:748",
+        "epoch_fused[fork_blocked]": "src/repro/kernels/epoch_fused.py:648",
     }
     sources = {
         "pc_table_predict": "src/repro_torch/kernels/csrc/pc_table.cu",
@@ -761,6 +974,8 @@ def main() -> int:
         "epoch_fused[reactive]":
             "src/repro_torch/kernels/csrc/epoch_fused.cu",
         "epoch_fused[fork]": "src/repro_torch/kernels/csrc/epoch_fused.cu",
+        "epoch_fused[fork_blocked]":
+            "src/repro_torch/kernels/csrc/epoch_fused.cu",
     }
     kernels = []
     for key in replaces:

@@ -17,7 +17,14 @@ the card's name and power limit, then:
   kernel engine and on the unfused engine, and the device busy share of
   the fork family on the kernel engine: the summed device time of every
   kernel and copy ``torch.profiler`` records over 100 epochs, over the
-  host wall of the same 100 epochs run without the profiler.
+  host wall of the same 100 epochs run without the profiler;
+* with ``--service``: one micro-batch of the 304-CU DVFS service (the
+  first 8 requests of ``dvfs_request_stream(32, seed=7)`` at
+  ``SimConfig(n_cu=304, n_wf=40, pallas_block_cu=38)``, 400 epochs,
+  bucket 8) split into its two dispatch families -- pcstall (the fork
+  family on the CU-tiled kernel) and static17 (unfused, ``vmap``) -- each
+  dispatched alone through a ``GridExecutor``, with each family's device
+  busy share over the same 400 epochs.
 
 The last line is one JSON object with every number.
 """
@@ -109,10 +116,32 @@ def grid_times(n_epochs=800):
     return out
 
 
+def service_times(n_epochs=400):
+    from repro_torch.core import sweep as SW
+    from repro_torch.data.pipeline import dvfs_request_stream
+    sim = SIM.SimConfig(n_cu=304, n_wf=40, pallas_block_cu=38,
+                        n_epochs=n_epochs)
+    jobs = [(p, ax) for p, ax, _ in dvfs_request_stream(8, seed=7)]
+    out = {}
+    for mech in ("pcstall", "static17"):
+        ex = SW.GridExecutor(sim, (mech,), buckets=(8,))
+        ex.run(jobs[:1])                                    # warm-up
+
+        def batch():
+            ex.run(jobs)
+        host = wall(batch)
+        dev = busy_ms(batch)
+        out[mech] = {"s": host, "ms_per_epoch": host / n_epochs * 1e3,
+                     "device_busy_ms": dev,
+                     "busy_share": dev / (host * 1e3)}
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--label", default="")
     ap.add_argument("--grid", action="store_true")
+    ap.add_argument("--service", action="store_true")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("time_sweep: needs a CUDA device")
@@ -121,6 +150,8 @@ def main() -> None:
            "engine_ms_per_epoch": engine_ms(get_workload("comd"))}
     if a.grid:
         res["fig15_families"] = grid_times()
+    if a.service:
+        res["service_families"] = service_times()
     for k, v in res.items():
         print(f"{k}: {v}", flush=True)
     print(json.dumps(res))

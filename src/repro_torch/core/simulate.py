@@ -32,10 +32,10 @@ once after the loop.
   (``run_sim``).
 * :func:`_scan_rows` steps R independent rows together, the batched sweep's
   counterpart of the reference's ``vmap`` over (workload x grid point x
-  seed x mechanism). Each row has its own program, logical block count,
   seed and grid point. The builtin fork mechanisms share one step in which
   the mechanism is a per-row traced id (``FORK_MECHS``): on the fused
-  kernel engine that step is one ``epoch_fused_rows`` launch for all rows;
+  kernel engine that step is one ``epoch_fused_rows`` call for all rows
+  (with ``SimConfig.pallas_block_cu`` on the card, the CU-tiled epoch);
   otherwise, and for the specialised families (statics, the oracle, custom
   hooks), the one-row body is mapped over the rows with
   ``torch.func.vmap``, so custom hooks see per-row views.
@@ -109,8 +109,8 @@ class SimStatic:
     # epoch kernel), True = v2 where the mechanism permits, else v1
     use_pallas: Union[bool, str]
     # fork family on the fused kernel engine: tile the CU axis over blocks
-    # of this many CUs (None = monolithic). No CUDA kernel yet (ROADMAP
-    # K5): inert on the CPU, raises on the card
+    # of this many CUs (None = monolithic), the CU-tiled epoch kernel on
+    # the card (for rows too wide for one CTA); inert on the CPU
     pallas_block_cu: Optional[int]
     power: PWR.PowerStatic
 

@@ -1,6 +1,6 @@
 """Hand-written CUDA kernels of the DVFS engine's hot path (sm_90a).
 
-Four kernels, one shared library:
+Five kernels, one shared library:
 
 * ``pc_table.pc_table_predict`` / ``pc_table.pc_table_update`` — the PC
   table predict/update pair (``csrc/pc_table.cu``);
@@ -8,7 +8,10 @@ Four kernels, one shared library:
   simulation, families ``pc``/``reactive`` (``csrc/epoch_fused.cu``);
 * ``epoch_fused.epoch_fused_rows`` — the same epoch for every row of a
   sweep family at once, mechanism chosen per row by a traced id (family
-  ``fork``; same source, one CTA per row).
+  ``fork``; same source, one CTA per row);
+* ``epoch_fused.epoch_fused_rows(..., block_cu=b)`` — the CU-tiled fork
+  epoch for rows too wide for one CTA (same source, one entry point that
+  launches two passes over CU blocks and an epilogue).
 
 Every wrapper launches its kernel on a CUDA tensor and runs the kernel's
 plain PyTorch version on a CPU tensor; there is no fallback between the
@@ -48,6 +51,7 @@ SIGNATURES = {
     "pc_table_predict_launch": (_CI, [_VP] * 9 + [_CI] * 5 + [_VP] * 2),
     "pc_table_update_launch": (_CI, [_VP] * 10 + [_CI] * 3 + [_VP]),
     "epoch_fused_launch": (_CI, [_VP, _VP]),
+    "epoch_fused_blocked_launch": (_CI, [_VP, _VP]),
     "repro_error_string": (ctypes.c_char_p, [_CI]),
 }
 

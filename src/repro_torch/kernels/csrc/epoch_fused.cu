@@ -1,6 +1,6 @@
 // The fused fork--execute epoch for Hopper (sm_90a): the specialised
-// families "pc" and "reactive" (K3) and the traced-mechanism-id family
-// "fork" (K4), both math modes.
+// families "pc" and "reactive" (K3), the traced-mechanism-id family "fork"
+// (K4), both math modes, and the CU-tiled fork epoch (K5, at the end).
 //
 // Replaces repro/kernels/epoch_fused.py:epoch_fused (body _epoch_kernel ->
 // _epoch_math): K3 for the specialised run_sim families, K4 for the batched
@@ -64,7 +64,10 @@ enum { M_STALL = 0, M_LEAD = 1, M_CRIT = 2, M_CRISP = 3, EST_FORK = 4,
 // tid is one (CU,) vector. Fork rows read their traced id from mech[r];
 // n_react ids predict reactively, react_models packs the counter model of
 // ids 0..n_react-2 four bits each, pc_mask flags the table-maintaining ids
-// and id_ctr_pc is the counter-driven one among them.
+// and id_ctr_pc is the counter-driven one among them. The CU-tiled fork
+// epoch (K5) alone reads block_cu and hands scratch from pass to pass, per
+// row: (NF+1, CU) traffic partials traf, (CU) hit counts hit_cu and each
+// WF's table slot idx (CU, WF).
 struct EpochArgs {
   const float* i0r; const float* sr; const float* cum_t;
   const float* pos; const float* eps;
@@ -81,6 +84,8 @@ struct EpochArgs {
   int P, Pp, CU, WF, NF, T, E, CPD, IPB, OFFB;
   int family, fork_est, cu_model, lean;
   int R, n_react, react_models, pc_mask, id_ctr_pc;
+  float* traf; int* hit_cu; int* idx;
+  int block_cu;
 };
 
 namespace {
@@ -132,6 +137,7 @@ __device__ __forceinline__ EpochArgs row_args(const EpochArgs& G, int r) {
   ROW_OFF(eacc_o, C); ROW_OFF(tacc_o, 1); ROW_OFF(work_o, C);
   ROW_OFF(energy_o, C); ROW_OFF(err_o, C); ROW_OFF(fidx_o, C);
   ROW_OFF(tsens_o, C); ROW_OFF(hit_o, 1);
+  ROW_OFF(traf, (size_t)(G.NF + 1) * C); ROW_OFF(hit_cu, C); ROW_OFF(idx, N);
 #undef ROW_OFF
   return A;
 }
@@ -286,25 +292,14 @@ __device__ Row exec_row(const EpochArgs& A, const Smem& s, int c, float f,
   return r;
 }
 
-template <int FAM>
-__global__ void __launch_bounds__(kThreads)
-epoch_fused_kernel(const EpochArgs G) {
-  constexpr bool kTable = FAM != FAM_REACTIVE;
-  extern __shared__ float smem[];
-  const EpochArgs A = row_args(G, blockIdx.x);
-  const Mech mech = row_mech<FAM>(G, blockIdx.x);
-  const int N = A.CU * A.WF;
-  const Smem s = carve(smem, A.Pp, N, A.CU, A.NF);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int NF = A.NF, WF = A.WF;
-  const float T = A.scal[0], cap = A.scal[2], membw = A.scal[3];
-  const float ema = A.scal[4], w_pbar = A.scal[5], use_rate = A.scal[6];
-  const float capf = A.scal[7], lat = A.scal[8];
-  const Pw pw = {A.pw[0], A.pw[1], A.pw[2], A.pw[3], A.pw[4],
-                 A.pw[5], A.pw[6], A.pw[7], A.pw[8]};
+__device__ __forceinline__ Pw load_pw(const EpochArgs& A) {
+  return Pw{A.pw[0], A.pw[1], A.pw[2], A.pw[3], A.pw[4],
+            A.pw[5], A.pw[6], A.pw[7], A.pw[8]};
+}
 
-  // ---- program rates and cum_t rows into shared memory -----------------
+// The program rates and the three cum_t rows into shared memory.
+__device__ __forceinline__ void load_program(const EpochArgs& A,
+                                             const Smem& s) {
   for (int i = threadIdx.x; i < A.Pp; i += blockDim.x) {
     s.i0r[i] = A.i0r[i];
     s.sr[i] = A.sr[i];
@@ -315,9 +310,19 @@ epoch_fused_kernel(const EpochArgs G) {
     s.c1[i] = A.cum_t[L + i];
     s.c2[i] = A.cum_t[2 * L + i];
   }
-  __syncthreads();
+}
 
-  // ---- context + predict I(f) (warp per CU) ------------------------------
+// Context + predict I(f) for the A.CU CUs of A (warp per CU): each WF's
+// start block and table slot, each CU's table hits and predicted rate
+// over the ladder.
+template <int FAM>
+__device__ __forceinline__ void predict(const EpochArgs& A, const Smem& s,
+                                        const Mech& mech) {
+  constexpr bool kTable = FAM != FAM_REACTIVE;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int NF = A.NF, WF = A.WF;
+  const float T = A.scal[0], cap = A.scal[2];
   for (int c = warp; c < A.CU; c += nwarps) {
     float i0s = 0.f, ss = 0.f;
     int h = 0;
@@ -355,9 +360,18 @@ epoch_fused_kernel(const EpochArgs G) {
       s.ipred[c * NF + lane] = fminf(fmaxf(ip, 0.f), capr);
     }
   }
-  __syncthreads();
+}
 
-  // ---- per-domain select: first argmin of the Lagrangian cost -----------
+// Per-domain select over the A.CU / A.CPD domains of A (warp per domain):
+// the first argmin of the Lagrangian cost.
+__device__ __forceinline__ void select_freq(const EpochArgs& A,
+                                            const Smem& s) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int NF = A.NF, WF = A.WF;
+  const float T = A.scal[0], cap = A.scal[2];
+  const float w_pbar = A.scal[5], use_rate = A.scal[6], capf = A.scal[7];
+  const Pw pw = load_pw(A);
   const int ND = A.CU / A.CPD;
   for (int d = warp; d < ND; d += nwarps) {
     float cost = INFINITY;
@@ -400,28 +414,51 @@ epoch_fused_kernel(const EpochArgs G) {
       }
     }
   }
-  __syncthreads();
+}
 
-  // ---- pass A: every row's allocation -> per-CU traffic partials ---------
+// Pass A: every execute row's allocation -> the per-CU traffic partials
+// of A's CUs, row r of CU c at traf[r * stride + c].
+__device__ __forceinline__ void traffic_partials(const EpochArgs& A,
+                                                 const Smem& s, float* traf,
+                                                 int stride) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
   for (int c = warp; c < A.CU; c += nwarps) {
-    for (int r = 0; r <= NF; ++r) {
-      const bool sel = r == NF;
+    for (int r = 0; r <= A.NF; ++r) {
+      const bool sel = r == A.NF;
       const Row row = exec_row(A, s, c, sel ? s.fsel[c] : A.F[r],
                                A.lean && !sel, lane);
       const float am = warp_sum(row.a[0] * row.m[0] + row.a[1] * row.m[1]);
-      if (lane == 0) s.traf[r * A.CU + c] = am;
+      if (lane == 0) traf[r * stride + c] = am;
     }
   }
-  __syncthreads();
-  if (threadIdx.x <= NF) {
+}
+
+// Each execute row's memory-traffic scale from the partials of n_cu CUs,
+// summed in CU order (one thread per row).
+__device__ __forceinline__ void traffic_scale(const EpochArgs& A,
+                                              const Smem& s, const float* traf,
+                                              int stride, int n_cu) {
+  if (threadIdx.x <= A.NF) {
     const int r = threadIdx.x;
     float traffic = 0.f;
-    for (int c = 0; c < A.CU; ++c) traffic += s.traf[r * A.CU + c];
-    s.scale[r] = fminf(1.f, membw * T / fmaxf(traffic, 1e-6f));
+    for (int c = 0; c < n_cu; ++c) traffic += traf[r * stride + c];
+    s.scale[r] = fminf(1.f, A.scal[3] * A.scal[0] / fmaxf(traffic, 1e-6f));
   }
-  __syncthreads();
+}
 
-  // ---- pass B: steady rows, counters, energy, estimators (warp per CU) ---
+// Pass B for A's CUs (warp per CU): steady rows, counters, energy and the
+// estimators; writes every per-CU output. A pc row leaves its per-WF
+// estimates in s.dem / s.bef (and the outputs) for the table update.
+template <int FAM>
+__device__ __forceinline__ void execute(const EpochArgs& A, const Smem& s,
+                                        const Mech& mech) {
+  constexpr bool kTable = FAM != FAM_REACTIVE;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int NF = A.NF, WF = A.WF;
+  const float T = A.scal[0], cap = A.scal[2], lat = A.scal[8];
+  const Pw pw = load_pw(A);
   const float dF = A.F[NF - 1] - A.F[0];
   for (int c = warp; c < A.CU; c += nwarps) {
     float If0 = 0.f, IfL = 0.f;
@@ -573,29 +610,60 @@ epoch_fused_kernel(const EpochArgs G) {
       A.tsens_o[c] = tsens;
     }
   }
-  if (threadIdx.x == 0) A.tacc_o[0] = A.tacc[0] + T;
+}
+
+// One table slot of a row's table update: the epoch's estimates of the
+// slot's WFs (each WF's slot in idx, its estimates in i0w / sw), walked CU
+// by CU in index order over the CUs mapped to the slot's table, then
+// blended. Out-of-range table ids match no table (dropped).
+__device__ __forceinline__ void slot_update(const EpochArgs& A, int sl,
+                                            const int* idx, const float* i0w,
+                                            const float* sw) {
+  const int t = sl / A.E, e = sl % A.E;
+  float isum = 0.f, ssum = 0.f, cnt = 0.f;
+  for (int c = 0; c < A.CU; ++c) {
+    if (A.tid[c] != t) continue;
+    for (int w = 0; w < A.WF; ++w) {
+      const int n = c * A.WF + w;
+      if (idx[n] == e) {
+        isum += i0w[n];
+        ssum += sw[n];
+        cnt += 1.f;
+      }
+    }
+  }
+  ema_write(A.ti0[sl], A.tse[sl], A.tcnt[sl], isum, ssum, cnt, A.scal[4],
+            A.ti0_o + sl, A.tse_o + sl, A.tcnt_o + sl);
+}
+
+template <int FAM>
+__global__ void __launch_bounds__(kThreads)
+epoch_fused_kernel(const EpochArgs G) {
+  constexpr bool kTable = FAM != FAM_REACTIVE;
+  extern __shared__ float smem[];
+  const EpochArgs A = row_args(G, blockIdx.x);
+  const Mech mech = row_mech<FAM>(G, blockIdx.x);
+  const int N = A.CU * A.WF;
+  const Smem s = carve(smem, A.Pp, N, A.CU, A.NF);
+
+  load_program(A, s);
+  __syncthreads();
+  predict<FAM>(A, s, mech);
+  __syncthreads();
+  select_freq(A, s);
+  __syncthreads();
+  traffic_partials(A, s, s.traf, A.CU);
+  __syncthreads();
+  traffic_scale(A, s, s.traf, A.CU, A.CU);
+  __syncthreads();
+  execute<FAM>(A, s, mech);
+  if (threadIdx.x == 0) A.tacc_o[0] = A.tacc[0] + A.scal[0];
   if (!kTable) return;
   __syncthreads();
 
   if (mech.pc_est != EST_NONE) {
-    // ---- table update: per slot, its CUs' WFs in index order ------------
-    for (int sl = threadIdx.x; sl < A.T * A.E; sl += blockDim.x) {
-      const int t = sl / A.E, e = sl % A.E;
-      float isum = 0.f, ssum = 0.f, cnt = 0.f;
-      for (int c = 0; c < A.CU; ++c) {
-        if (A.tid[c] != t) continue;
-        for (int w = 0; w < WF; ++w) {
-          const int n = c * WF + w;
-          if (s.idx[n] == e) {
-            isum += s.dem[n];
-            ssum += s.bef[n];
-            cnt += 1.f;
-          }
-        }
-      }
-      ema_write(A.ti0[sl], A.tse[sl], A.tcnt[sl], isum, ssum, cnt, ema,
-                A.ti0_o + sl, A.tse_o + sl, A.tcnt_o + sl);
-    }
+    for (int sl = threadIdx.x; sl < A.T * A.E; sl += blockDim.x)
+      slot_update(A, sl, s.idx, s.dem, s.bef);
   } else {  // a fork row off the table passes it through
     for (int sl = threadIdx.x; sl < A.T * A.E; sl += blockDim.x) {
       A.ti0_o[sl] = A.ti0[sl];
@@ -607,6 +675,108 @@ epoch_fused_kernel(const EpochArgs G) {
     int h = 0;
     for (int c = 0; c < A.CU; ++c) h += s.hits[c];
     A.hit_o[0] = (float)h / (float)N;
+  }
+}
+
+// ---- K5: the CU-tiled fork epoch ------------------------------------------
+// Replaces repro/kernels/epoch_fused.py:_fork_blocked (the Pallas pair
+// _fork_blk_a / _fork_blk_b and its jnp epilogue). A row of many CUs does
+// not fit one CTA's shared memory (at 1024 program blocks, 40 WFs and 10
+// states the monolithic kernel holds 189 CUs at most), so the row is cut
+// into blocks of block_cu CUs, one CTA per (block, row):
+//   pass A  predict + select for the block's CUs (each V/f domain lies whole
+//           in a block, so the select is block-local and exact), then the
+//           per-CU traffic partials of the 11 execute rows -> traf scratch;
+//   pass B  the same predict + select (recomputed: same code, same bits),
+//           the traffic scale of each execute row from ALL the row's
+//           partials summed in CU order, then the execute, counters,
+//           energy and estimators of the block's CUs; each WF's table slot
+//           and each CU's hit count -> idx / hit_cu scratch;
+//   epilogue one thread per table slot walks the slot's CUs and WFs in
+//           index order (the per-WF estimates pass B wrote to wf_i0/wf_sens)
+//           and blends; the row's hit rate and time.
+// Every value is computed by the monolithic kernel's own device functions
+// in its order, so a row equals its monolithic row bit for bit. No float
+// atomics; a row's bits depend neither on its batch nor on launch timing.
+// Bound: the same bytes as the monolithic kernel (program, state and table
+// in and out) plus the scratch; like it, latency-bound by the per-CU warp
+// chains, now spread over CU / block_cu CTAs per row.
+
+__device__ __forceinline__ EpochArgs block_args(const EpochArgs& R, int b) {
+  // block b's CUs [b * block_cu, (b + 1) * block_cu) of row args R: every
+  // per-CU pointer at the block's first CU and CU set to the block's width;
+  // the program, the table, the scratch and the per-row scalars stay whole
+  EpochArgs A = R;
+  const int c0 = b * R.block_cu;
+  const size_t n0 = (size_t)c0 * R.WF;
+  A.CU = R.block_cu;
+  A.pos += n0; A.eps += n0; A.wfi += n0; A.wfs += n0;
+  A.pos_o += n0; A.wfi_o += n0; A.wfs_o += n0;
+  A.tid += c0; A.ri0 += c0; A.rse += c0; A.fprev += c0; A.eacc += c0;
+  A.ri0_o += c0; A.rse_o += c0; A.fsel_o += c0; A.eacc_o += c0;
+  A.work_o += c0; A.energy_o += c0; A.err_o += c0; A.fidx_o += c0;
+  A.tsens_o += c0;
+  return A;
+}
+
+__global__ void __launch_bounds__(kThreads)
+fork_blocked_pass_a(const EpochArgs G) {
+  extern __shared__ float smem[];
+  const EpochArgs R = row_args(G, blockIdx.y);
+  const EpochArgs A = block_args(R, blockIdx.x);
+  const Mech mech = row_mech<FAM_FORK>(G, blockIdx.y);
+  const Smem s = carve(smem, A.Pp, A.CU * A.WF, A.CU, A.NF);
+  load_program(A, s);
+  __syncthreads();
+  predict<FAM_FORK>(A, s, mech);
+  __syncthreads();
+  select_freq(A, s);
+  __syncthreads();
+  traffic_partials(A, s, R.traf + blockIdx.x * R.block_cu, R.CU);
+}
+
+__global__ void __launch_bounds__(kThreads)
+fork_blocked_pass_b(const EpochArgs G) {
+  extern __shared__ float smem[];
+  const EpochArgs R = row_args(G, blockIdx.y);
+  const EpochArgs A = block_args(R, blockIdx.x);
+  const Mech mech = row_mech<FAM_FORK>(G, blockIdx.y);
+  const int N = A.CU * A.WF;
+  const Smem s = carve(smem, A.Pp, N, A.CU, A.NF);
+  load_program(A, s);
+  __syncthreads();
+  predict<FAM_FORK>(A, s, mech);
+  __syncthreads();
+  select_freq(A, s);
+  traffic_scale(A, s, R.traf, R.CU, R.CU);
+  __syncthreads();
+  execute<FAM_FORK>(A, s, mech);
+  const int c0 = blockIdx.x * R.block_cu;
+  for (int n = threadIdx.x; n < N; n += blockDim.x)
+    R.idx[(size_t)c0 * A.WF + n] = s.idx[n];
+  for (int c = threadIdx.x; c < A.CU; c += blockDim.x)
+    R.hit_cu[c0 + c] = s.hits[c];
+}
+
+__global__ void __launch_bounds__(256)
+fork_blocked_epilogue(const EpochArgs G) {
+  const EpochArgs A = row_args(G, blockIdx.y);
+  const Mech mech = row_mech<FAM_FORK>(G, blockIdx.y);
+  const int sl = blockIdx.x * blockDim.x + threadIdx.x;
+  if (sl < A.T * A.E) {
+    if (mech.pc_est != EST_NONE) {
+      slot_update(A, sl, A.idx, A.wfi_o, A.wfs_o);
+    } else {  // a fork row off the table passes it through
+      A.ti0_o[sl] = A.ti0[sl];
+      A.tse_o[sl] = A.tse[sl];
+      A.tcnt_o[sl] = A.tcnt[sl];
+    }
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    int h = 0;
+    for (int c = 0; c < A.CU; ++c) h += A.hit_cu[c];
+    A.hit_o[0] = (float)h / (float)(A.CU * A.WF);
+    A.tacc_o[0] = A.tacc[0] + A.scal[0];
   }
 }
 
@@ -631,5 +801,40 @@ extern "C" int epoch_fused_launch(const EpochArgs* args, void* stream) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   kernel<<<A.R, kThreads, bytes, (cudaStream_t)stream>>>(A);
+  return (int)cudaGetLastError();
+}
+
+// K5: passes A and B over (CU / block_cu, R) CTAs, then the epilogue over
+// (ceil(T * E / 256), R) CTAs, in stream order on one stream.
+extern "C" int epoch_fused_blocked_launch(const EpochArgs* args,
+                                          void* stream) {
+  const EpochArgs& A = *args;
+  if (A.family != FAM_FORK || A.mech == nullptr || A.n_react < 1 ||
+      A.n_react > 8 || !A.lean || A.WF < 1 || A.WF > 64 || A.NF < 2 ||
+      A.NF > 32 || A.R < 1 || A.R > 65535 || A.block_cu < 1 ||
+      A.CU % A.block_cu != 0 || A.block_cu % A.CPD != 0 ||
+      A.traf == nullptr || A.hit_cu == nullptr || A.idx == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const size_t bytes =
+      4 * smem_words(A.Pp, A.block_cu * A.WF, A.block_cu, A.NF);
+  if (bytes > (size_t)kMaxSmem) return (int)cudaErrorInvalidConfiguration;
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = cudaFuncSetAttribute(
+      fork_blocked_pass_a, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(fork_blocked_pass_b,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(A.CU / A.block_cu, A.R);
+  fork_blocked_pass_a<<<grid, kThreads, bytes, st>>>(A);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  fork_blocked_pass_b<<<grid, kThreads, bytes, st>>>(A);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const dim3 egrid((A.T * A.E + 255) / 256, A.R);
+  fork_blocked_epilogue<<<egrid, 256, 0, st>>>(A);
   return (int)cudaGetLastError();
 }

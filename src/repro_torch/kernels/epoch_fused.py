@@ -38,19 +38,32 @@ power regime): on CUDA tensors it is **one** kernel launch, one CTA per
 row; on CPU tensors it runs :func:`_epoch_math` row by row.
 :func:`epoch_fused` is the one-row call of every family.
 
+``block_cu`` selects the CU-tiled fork epoch (the reference's
+``_fork_blocked``), for rows too wide for one CTA's shared memory: on
+CUDA tensors one call of the C entry point launches a pass A
+(predict, select, per-CU traffic partials) over a (CU / block_cu, R)
+grid, a pass B (execute, counters, state advance) over the same grid,
+and an epilogue (table sums and EMA blend, hit rate, time). Its
+arithmetic is the monolithic kernel's, so its rows equal the monolithic
+kernel's bit for bit wherever both fit. On CPU tensors ``block_cu`` is
+inert, as on the reference's interpret engine: the monolithic plain
+version runs. :func:`_fork_blocked_math` is the plain version of the
+reference's blocked pair (lean math; traffic, hits and raw table sums
+accumulated block by block in index order), reached through
+:func:`epoch_fused_blocked_ref` and :func:`epoch_fused_rows_blocked_ref`.
+
 On a CUDA tensor the wrappers launch the CUDA kernel (counted in
-``epoch_fused.launches`` and ``epoch_fused.launches_by_family``); on a CPU
+``epoch_fused.launches`` and ``epoch_fused.launches_by_family``, where
+``"fork_blocked"`` counts calls of the tiled entry point); on a CPU
 tensor they run :func:`_epoch_math`. :func:`epoch_fused_ref` and
 :func:`epoch_fused_rows_ref` run :func:`_epoch_math` on any device.
-
-Not ported yet: the CU-blocked fork variant (``block_cu``, the
-reference's ``_fork_blocked``, ROADMAP queue B item K5). On CPU tensors
-``block_cu`` is inert, as on the reference's interpret engine; on CUDA
-tensors it raises.
+A row too wide for one CTA raises (``RuntimeError`` naming
+``pallas_block_cu``); nothing falls back.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -67,8 +80,8 @@ _N_SCAL = 9
 _N_PW = len(PWR.PowerAxes._fields)
 _CU_MODEL_IDS = {m: i for i, m in enumerate(EST.CU_MODELS)}
 _FAMILY_IDS = {"pc": 0, "reactive": 1, "fork": 2}
-_K5_TODO = ("block_cu (the CU-tiled fork epoch, the reference's "
-            "_fork_blocked) has no CUDA kernel yet: ROADMAP queue B item K5")
+# a CTA's shared memory on an H100 (csrc/epoch_fused.cu: kMaxSmem)
+_MAX_SMEM = 232448
 
 
 class EpochOut(NamedTuple):
@@ -92,6 +105,25 @@ class EpochOut(NamedTuple):
     fidx: torch.Tensor                   # (CU,) int32 ladder index
     true_sens: torch.Tensor              # (CU,) fork-exact CU sensitivity
     hit_rate: Optional[torch.Tensor]     # (1,) table hit fraction (pc)
+
+
+def _select(I_pred, eacc, tacc, F, pw, T, cap, w_pbar, use_rate, capf, *,
+            WF, ND, CPD):
+    """Per-domain frequency select (op order == ``_select_freq``): the
+    first argmin of the Lagrangian cost over the ladder, for ND domains of
+    CPD CUs. Returns (fidx, f_sel), each (ND * CPD,)."""
+    NF = F.shape[0]
+    pbar = (eacc / torch.clamp(tacc[0], min=1e-3)).reshape(ND, CPD).sum(1)
+    I_dom = I_pred.reshape(ND, CPD, NF)
+    act = I_pred / (cap * F[None, :] * T * WF)
+    p_cu = PWR.power(F[None, :], act, pw)
+    P_dom = p_cu.reshape(ND, CPD, NF).sum(1)
+    I_sum = torch.clamp(I_dom.sum(1), min=1e-3)
+    denom = torch.where(use_rate > 0.0, I_sum, 1.0)
+    infeasible = I_sum < capf * I_sum[:, -1:]
+    cost = (P_dom + w_pbar * pbar[:, None]) / denom + 1e9 * infeasible
+    fidx = torch.argmin(cost, dim=-1)[:, None].expand(ND, CPD).reshape(-1)
+    return fidx, F[fidx]
 
 
 def _epoch_math(ins, *, NF, CU, WF, E, T_, ND, CPD, IPB, OFFB, P, family,
@@ -153,18 +185,8 @@ def _epoch_math(ins, *, NF, CU, WF, E, T_, ND, CPD, IPB, OFFB, P, family,
         I_pred = (i0_cu[:, None] + s_cu[:, None] * F[None, :]) * T
         I_pred = clip(I_pred, 0.0, capr)
 
-    # ---- per-domain frequency select (op order == _select_freq) ----------
-    pbar = (eacc / torch.clamp(tacc[0], min=1e-3)).reshape(ND, CPD).sum(1)
-    I_dom = I_pred.reshape(ND, CPD, NF)
-    act = I_pred / (cap * F[None, :] * T * WF)
-    p_cu = PWR.power(F[None, :], act, pw)
-    P_dom = p_cu.reshape(ND, CPD, NF).sum(1)
-    I_sum = torch.clamp(I_dom.sum(1), min=1e-3)
-    denom = torch.where(use_rate > 0.0, I_sum, 1.0)
-    infeasible = I_sum < capf * I_sum[:, -1:]
-    cost = (P_dom + w_pbar * pbar[:, None]) / denom + 1e9 * infeasible
-    fidx = torch.argmin(cost, dim=-1)[:, None].expand(ND, CPD).reshape(-1)
-    f_sel = F[fidx]
+    fidx, f_sel = _select(I_pred, eacc, tacc, F, pw, T, cap, w_pbar,
+                          use_rate, capf, WF=WF, ND=ND, CPD=CPD)
 
     # ---- 11-way batched execute (op order == _steady_parts) --------------
     F_rows = F[:, None].expand(NF, CU)
@@ -296,6 +318,155 @@ def _epoch_math(ins, *, NF, CU, WF, E, T_, ND, CPD, IPB, OFFB, P, family,
     return outs
 
 
+def _check_blocks(CU: int, block_cu: int, cus_per_domain: int,
+                  lean: bool) -> None:
+    """The blocked epoch's tiling (whole blocks of whole domains) and math
+    mode (lean only, as the reference's blocked pair)."""
+    if block_cu < 1 or CU % block_cu or block_cu % cus_per_domain:
+        raise ValueError(f"block_cu={block_cu} must divide n_cu={CU} and be "
+                         f"a multiple of cus_per_domain={cus_per_domain}")
+    if not lean:
+        raise ValueError("the blocked fork epoch implements lean math only")
+
+
+def _fork_blocked_math(ins, *, NF, CU, WF, E, T_, CPD, IPB, OFFB, P,
+                       block_cu, react_models, pc_ids, id_ctr_pc, **_):
+    """The reference's blocked fork epoch (``_fork_blk_a``, ``_fork_blk_b``
+    and the ``_fork_blocked`` epilogue) on tensors, one row, in the
+    operand/output order of :func:`_epoch_math` (family ``fork``).
+
+    Blocks of ``block_cu`` CUs run in index order. Pass A predicts and
+    selects per block (each domain lies whole inside one block, so the
+    select is exact) and accumulates the global traffic of the 11 execute
+    rows and the hit count; pass B re-derives each block's execute, applies
+    the global traffic scale, advances the block's state and accumulates
+    the raw per-table (i0, sens, count) sums; the epilogue blends the
+    sums into the table. Every execute row, the selected one included,
+    runs the lean math (the reference's blocked pair implements no other).
+    The remaining keywords of :func:`_epoch_math` are accepted and
+    unused."""
+    (i0r, sr, cum_t, pos, ti0, tse, tcnt, wfi, wfs, ri0, rse, fprev, eacc,
+     tacc, F, tid, mech, eps, scal, pw_vec) = ins
+    pw = PWR.PowerAxes(*pw_vec.unbind(0))
+    T, sigma, cap, membw, ema, w_pbar, use_rate, capf, lat = scal.unbind(0)
+    c_i0, c_se, c_mf = cum_t[0], cum_t[1], cum_t[2]
+    n_react = len(react_models) + 1
+    blocks = [slice(b, b + block_cu) for b in range(0, CU, block_cu)]
+    no_tf32()
+    L = torch.tril(torch.ones((WF, WF), dtype=_F32, device=pos.device))
+
+    def execute(b, f_sel):
+        """Block ``b``'s 11-way execute in lean math, down to the
+        allocation (the same code in both passes, as in the reference)."""
+        blk = torch.remainder(torch.div(pos[b].to(torch.int32), IPB,
+                                        rounding_mode="floor"), P).long()
+        i0_l, s_l = i0r[blk], sr[blk]
+        lo_i0, lo_se, lo_mf = c_i0[blk], c_se[blk], c_mf[blk]
+        f_all = torch.cat([F[:, None].expand(NF, block_cu), f_sel[None]], 0)
+        f_b = f_all[..., :, None]
+        est_instr = (i0_l + s_l * f_b) * T
+        nblk = clamp_blocks((est_instr / IPB).to(torch.int32) + 1, P).long()
+        gi = blk + nblk
+        nb = nblk.to(_F32)
+        dci = c_i0[gi] - lo_i0
+        dcs = c_se[gi] - lo_se
+        mfw = (c_mf[gi] - lo_mf) / nb
+        demand = (dci + dcs * f_b) * ((T * (1.0 + sigma * eps[b])) / nb)
+        C = cap * f_all * T
+        before = torch.matmul(demand, L.T) - demand
+        alloc = clip(C[..., :, None] - before, 0.0, demand)
+        return blk, dict(alloc=alloc, demand=demand, mfw=mfw, i0w=dci / nb,
+                         sw=dcs / nb, am=alloc * mfw)
+
+    # ---- pass A: predict + select per block, global traffic and hits ----
+    capr = cap * F[None, :] * T * WF
+    traffic = torch.zeros(NF + 1, dtype=_F32, device=pos.device)
+    hit_sum = torch.zeros(1, dtype=_F32, device=pos.device)
+    sel = []
+    for b in blocks:
+        blk = torch.remainder(torch.div(pos[b].to(torch.int32), IPB,
+                                        rounding_mode="floor"), P).long()
+        idx_lu = PRED.table_index(blk, E, OFFB)
+        t = tid[b].long().clamp(0, T_ - 1)[:, None]
+        hit = tcnt[t, idx_lu] > 0
+        i0_pc = torch.where(hit, ti0[t, idx_lu], wfi[b]).sum(-1)
+        s_pc = torch.where(hit, tse[t, idx_lu], wfs[b]).sum(-1)
+        I_pc = clip((i0_pc[:, None] + s_pc[:, None] * F[None, :]) * T, 0.0,
+                    capr)
+        I_react = clip((ri0[b][:, None] + rse[b][:, None] * F[None, :]) * T,
+                       0.0, capr)
+        I_pred = torch.where(mech < n_react, I_react, I_pc)
+        fidx, f_sel = _select(I_pred, eacc[b], tacc, F, pw, T, cap, w_pbar,
+                              use_rate, capf, WF=WF, ND=block_cu // CPD,
+                              CPD=CPD)
+        _, ex = execute(b, f_sel)
+        traffic = traffic + ex["am"].sum(dim=(-2, -1))
+        hit_sum = hit_sum + hit.to(_F32).sum().reshape(1)
+        sel.append((fidx, f_sel, torch.gather(I_pred, 1,
+                                              fidx[:, None])[:, 0]))
+
+    # ---- pass B: execute + counters + state per block, raw table sums ----
+    scale = torch.clamp(membw * T / torch.clamp(traffic, min=1e-6), max=1.0)
+    plen = prog_len(P, IPB)
+    pc_now = any_id(mech, pc_ids)
+    agg = [torch.zeros((T_, E), dtype=_F32, device=pos.device)
+           for _ in range(3)]
+    outs = []
+    for b, (fidx, f_sel, I_at_sel) in zip(blocks, sel):
+        blk, ex = execute(b, f_sel)
+        alloc, demand, mfw = ex["alloc"], ex["demand"], ex["mfw"]
+        i0w, sw = ex["i0w"], ex["sw"]
+        steady = alloc - ex["am"] * (1.0 - scale[..., None, None])
+        c_f = steady[:NF]
+        I_f = c_f.sum(-1).T
+        st_sel = steady[NF]
+        q = alloc[NF] / torch.clamp(demand[NF], min=1e-6)
+        tentative = pos[b] + st_sel
+        boundary = (torch.floor(tentative.amin(-1) / plen) + 1.0) * plen
+        committed = torch.minimum(
+            st_sel, torch.clamp(boundary[:, None] - pos[b], min=0.0))
+        core_frac = sw[NF] * f_sel[:, None] \
+            / torch.clamp(i0w[NF] + sw[NF] * f_sel[:, None], min=1e-6)
+        trans = f_sel != fprev[b]
+        committed = committed * (1.0 - lat / T * trans[:, None])
+        I_actual = st_sel.sum(-1)
+        work = committed.sum(-1)
+        err = torch.abs(I_at_sel - I_actual) \
+            / torch.clamp(I_actual, min=1e-3)
+        act_w = work / (cap * f_sel * T * WF)
+        energy = PWR.power(f_sel, act_w, pw) * T \
+            + PWR.transition_energy(fprev[b], f_sel, pw) * trans
+        ctrs = {"committed": st_sel, "steady": st_sel,
+                "core_frac": core_frac, "issue_q": q, "mem_frac": mfw[NF]}
+        tsens = (I_f[:, -1] - I_f[:, 0]) / ((F[-1] - F[0]) * T)
+        cu_ests = [EST.cu_estimate(ctrs, f_sel, m) for m in react_models]
+        i0_ar = I_f[:, 0] / T - tsens * F[0]
+        r_i0 = select_id(mech, [e[0] / T for e in cu_ests] + [i0_ar], ri0[b])
+        r_se = select_id(mech, [e[1] / T for e in cu_ests] + [tsens], rse[b])
+        i0_est, s_est = EST.wf_stall_estimate(ctrs, f_sel)
+        s_tr = (c_f[-1] - c_f[0]) / (F[-1] - F[0])
+        i0_tr = c_f[0] - s_tr * F[0]
+        i0_wf = torch.where(mech == id_ctr_pc, i0_est, i0_tr) / T
+        s_wf = torch.where(mech == id_ctr_pc, s_est, s_tr) / T
+        sums = PRED.slot_sums(tid[b], PRED.table_index(blk, E, OFFB), i0_wf,
+                              s_wf, T_, E)
+        agg = [a + x for a, x in zip(agg, sums)]
+        outs.append((pos[b] + committed, torch.where(pc_now, i0_wf, wfi[b]),
+                     torch.where(pc_now, s_wf, wfs[b]), r_i0, r_se, f_sel,
+                     eacc[b] + energy, work, energy, err, fidx.to(_I32),
+                     tsens))
+
+    # ---- epilogue: EMA blend of the global sums, pc gate, accumulators ---
+    tbl0 = PRED.PCTable(ti0, tse, tcnt)
+    tbl = [torch.where(pc_now, a, b)
+           for a, b in zip(PRED.ema_blend(tbl0, *agg, ema), tbl0)]
+    (pos_n, wfi_n, wfs_n, r_i0, r_se, f_sel, eacc_n, work, energy, err, fidx,
+     tsens) = (torch.cat(col) for col in zip(*outs))
+    return (pos_n, *tbl, wfi_n, wfs_n, r_i0, r_se, f_sel, eacc_n,
+            (tacc + T).reshape(1), work, energy, err, fidx, tsens,
+            (hit_sum / (CU * WF)).reshape(1))
+
+
 class _EpochArgs(ctypes.Structure):
     """Mirror of ``struct EpochArgs`` in ``csrc/epoch_fused.cu``."""
     _fields_ = [(n, ctypes.c_void_p) for n in (
@@ -307,7 +478,32 @@ class _EpochArgs(ctypes.Structure):
             (n, ctypes.c_int) for n in (
                 "P", "Pp", "CU", "WF", "NF", "T", "E", "CPD", "IPB", "OFFB",
                 "family", "fork_est", "cu_model", "lean", "R", "n_react",
-                "react_models", "pc_mask", "id_ctr_pc")]
+                "react_models", "pc_mask", "id_ctr_pc")] + [
+            (n, ctypes.c_void_p) for n in ("traf", "hit_cu", "idx")] + [
+            ("block_cu", ctypes.c_int)]
+
+
+def _smem_bytes(Pp: int, CU: int, WF: int, NF: int) -> int:
+    """Shared memory of one CTA holding ``CU`` CUs of a row (mirror of
+    ``smem_words`` in ``csrc/epoch_fused.cu``)."""
+    N = CU * WF
+    return 4 * (2 * Pp + 3 * (2 * Pp + 1) + 6 * N + CU * NF + 3 * CU
+                + (NF + 1) * CU + NF + 1)
+
+
+def _require_fits(Pp: int, CU: int, WF: int, NF: int, fork: bool) -> None:
+    """Raise before a launch that one CTA's shared memory cannot hold."""
+    need = _smem_bytes(Pp, CU, WF, NF)
+    if need > _MAX_SMEM:
+        how = ("tile the row over CTAs with block_cu (SimConfig."
+               "pallas_block_cu), which runs the CU-tiled fork epoch"
+               if fork else "the CU-tiled epoch (SimConfig.pallas_block_cu) "
+               "serves the fork family only; run this family unfused "
+               "(use_pallas=False) or through the sweep")
+        raise RuntimeError(
+            f"a row of {CU} CUs x {WF} WFs over {Pp} program blocks needs "
+            f"{need} B of shared memory, over the {_MAX_SMEM} B one CTA may "
+            f"use: {how}")
 
 
 def _ptr(t):
@@ -315,12 +511,16 @@ def _ptr(t):
 
 
 def _run_kernel(args: _EpochArgs, dev: torch.device, family: str) -> None:
-    """Launch the kernel once on ``dev``'s current stream and count it."""
-    code = library().epoch_fused_launch(ctypes.addressof(args),
-                                        stream_ptr_of(dev))
+    """Call the C entry point of ``family`` once on ``dev``'s current
+    stream and count it (``"fork_blocked"``: the CU-tiled entry point,
+    three kernel launches per call)."""
+    lib = library()
+    entry = lib.epoch_fused_blocked_launch if family == "fork_blocked" \
+        else lib.epoch_fused_launch
+    code = entry(ctypes.addressof(args), stream_ptr_of(dev))
     epoch_fused.launches += 1
     epoch_fused.launches_by_family[family] += 1
-    check(code, "epoch_fused")
+    check(code, f"epoch_fused[{family}]")
 
 
 def _launch(ins, *, NF, CU, WF, E, T_, ND, CPD, IPB, OFFB, P, family,
@@ -343,6 +543,7 @@ def _launch(ins, *, NF, CU, WF, E, T_, ND, CPD, IPB, OFFB, P, family,
     Pp = i0r.shape[0]
     if not 1 <= P <= Pp:
         raise ValueError(f"p_blocks={P} outside the program's {Pp} blocks")
+    _require_fits(Pp, CU, WF, NF, fork=False)
     checks = [("i0_rate", i0r, _F32, (Pp,)), ("sens_rate", sr, _F32, (Pp,)),
               ("cum_t", cum_t, _F32, (3, 2 * Pp + 1)),
               ("pos", pos, _F32, (CU, WF)), ("eps", eps, _F32, (CU, WF)),
@@ -438,9 +639,11 @@ def _fork_layout(react_models, pc_ids, id_ctr_pc):
 
 
 def _launch_rows(ins, *, NF, CU, WF, E, T_, ND, CPD, IPB, OFFB, lean,
-                 react_models, pc_ids, id_ctr_pc):
-    """Check the operands of R fork rows and launch the kernel ONCE (one
-    CTA per row); same outputs as :func:`_rows_plain`."""
+                 react_models, pc_ids, id_ctr_pc, block_cu=None):
+    """Check the operands of R fork rows and launch: without ``block_cu``
+    the monolithic kernel ONCE (one CTA per row), with it the CU-tiled
+    entry point ONCE (passes A and B over (CU / block_cu, R) CTAs, then
+    the epilogue). Same outputs as :func:`_rows_plain`."""
     (i0r, sr, cum_t, prow, Prow, pos, ti0, tse, tcnt, wfi, wfs, ri0, rse,
      fprev, eacc, tacc, F, tid, mech, eps, scal, pw_vec) = ins
     if WF > 64 or NF > 32:
@@ -467,6 +670,11 @@ def _launch_rows(ins, *, NF, CU, WF, E, T_, ND, CPD, IPB, OFFB, lean,
               ("power", pw_vec, _F32, (R, _N_PW))]
     for name, t, dt, shp in checks:
         require(t, name, dt, shp, dev)
+    if block_cu is None:
+        _require_fits(Pp, CU, WF, NF, fork=True)
+    else:
+        _check_blocks(CU, block_cu, CPD, lean)
+        _require_fits(Pp, block_cu, WF, NF, fork=True)
     n_react, packed, pc_mask, ctr = _fork_layout(react_models, pc_ids,
                                                  id_ctr_pc)
 
@@ -481,6 +689,11 @@ def _launch_rows(ins, *, NF, CU, WF, E, T_, ND, CPD, IPB, OFFB, lean,
              energy_o=empty(R, CU), err_o=empty(R, CU),
              fidx_o=empty(R, CU, dtype=_I32), tsens_o=empty(R, CU),
              hit_o=empty(R))
+    # the tiled passes hand over per-CU traffic partials, per-CU hit
+    # counts and the table slot of every WF through these scratch buffers
+    scratch = {} if block_cu is None else dict(
+        traf=empty(R, NF + 1, CU), hit_cu=empty(R, CU, dtype=_I32),
+        idx=empty(R, CU, WF, dtype=_I32))
     args = _EpochArgs(
         i0r=_ptr(i0r), sr=_ptr(sr), cum_t=_ptr(cum_t), pos=_ptr(pos),
         eps=_ptr(eps), ti0=_ptr(ti0), tse=_ptr(tse), tcnt=_ptr(tcnt),
@@ -489,12 +702,16 @@ def _launch_rows(ins, *, NF, CU, WF, E, T_, ND, CPD, IPB, OFFB, lean,
         F=_ptr(F), scal=_ptr(scal), pw=_ptr(pw_vec), prow=_ptr(prow),
         Prow=_ptr(Prow), mech=_ptr(mech),
         **{k: _ptr(v) for k, v in o.items()},
+        **{k: _ptr(v) for k, v in scratch.items()},
         P=Pp, Pp=Pp, CU=CU, WF=WF, NF=NF, T=T_, E=E, CPD=CPD, IPB=IPB,
         OFFB=OFFB, family=_FAMILY_IDS["fork"], fork_est=0, cu_model=-1,
         lean=int(lean), R=R, n_react=n_react, react_models=packed,
-        pc_mask=pc_mask, id_ctr_pc=ctr)
-    _run_kernel(args, dev, "fork")
-    epoch_fused.fork_rows += R
+        pc_mask=pc_mask, id_ctr_pc=ctr, block_cu=block_cu or 0)
+    if block_cu is None:
+        _run_kernel(args, dev, "fork")
+        epoch_fused.fork_rows += R
+    else:
+        _run_kernel(args, dev, "fork_blocked")
     return tuple(o[k] for k in (
         "pos_o", "ti0_o", "tse_o", "tcnt_o", "wfi_o", "wfs_o", "ri0_o",
         "rse_o", "fsel_o", "eacc_o", "tacc_o", "work_o", "energy_o", "err_o",
@@ -502,11 +719,18 @@ def _launch_rows(ins, *, NF, CU, WF, E, T_, ND, CPD, IPB, OFFB, lean,
 
 
 def _rows_plain(ins, *, NF, CU, WF, E, T_, ND, CPD, IPB, OFFB, lean,
-                react_models, pc_ids, id_ctr_pc):
-    """:func:`_epoch_math` (family ``fork``) mapped over the rows, one row
-    at a time: each row's bits are those of a one-row call."""
+                react_models, pc_ids, id_ctr_pc, block_cu=None,
+                blocked=False):
+    """The one-row plain version mapped over the rows, one row at a time:
+    each row's bits are those of a one-row call. ``blocked`` runs
+    :func:`_fork_blocked_math` (tiles of ``block_cu`` CUs), else
+    :func:`_epoch_math` (family ``fork``; ``block_cu`` inert)."""
     (i0r, sr, cum_t, prow, Prow, pos, ti0, tse, tcnt, wfi, wfs, ri0, rse,
      fprev, eacc, tacc, F, tid, mech, eps, scal, pw_vec) = ins
+    math = _epoch_math
+    if blocked:
+        _check_blocks(CU, block_cu, CPD, lean)
+        math = functools.partial(_fork_blocked_math, block_cu=block_cu)
     per_row = []
     for r in range(pos.shape[0]):
         p = prow[r:r + 1].long()
@@ -515,7 +739,7 @@ def _rows_plain(ins, *, NF, CU, WF, E, T_, ND, CPD, IPB, OFFB, lean,
                wfi[r], wfs[r], ri0[r], rse[r], fprev[r], eacc[r],
                tacc[r:r + 1], F[r], tid, mech[r], eps[r], scal[r],
                pw_vec[r])
-        per_row.append(_epoch_math(
+        per_row.append(math(
             row, NF=NF, CU=CU, WF=WF, E=E, T_=T_, ND=ND, CPD=CPD, IPB=IPB,
             OFFB=OFFB, P=Prow[r], family="fork", fork_estimator=False,
             cu_model=None, lean=lean, react_models=react_models,
@@ -524,6 +748,10 @@ def _rows_plain(ins, *, NF, CU, WF, E, T_, ND, CPD, IPB, OFFB, lean,
     outs[10] = outs[10].reshape(-1)      # t_acc (R,)
     outs[16] = outs[16].reshape(-1)      # hit_rate (R,)
     return tuple(outs)
+
+
+def _rows_blocked_plain(ins, **statics):
+    return _rows_plain(ins, blocked=True, **statics)
 
 
 def _fork_out(outs, squeeze: bool) -> EpochOut:
@@ -550,8 +778,6 @@ def _rows_call(engine, i0_rate, sens_rate, cum_t, prog_idx, pos, freqs, eps,
     if CU % cus_per_domain:
         raise ValueError(f"n_cu={CU} not a multiple of cus_per_domain="
                          f"{cus_per_domain}")
-    if block_cu is not None and pos.is_cuda:
-        raise NotImplementedError(_K5_TODO)
     T_, E = table.i0.shape[-2:]
     operands = (i0_rate, sens_rate, cum_t, prog_idx, p_blocks, pos,
                 table.i0, table.sens, table.count, wf_i0, wf_sens, react_i0,
@@ -561,7 +787,7 @@ def _rows_call(engine, i0_rate, sens_rate, cum_t, prog_idx, pos, freqs, eps,
                   ND=CU // cus_per_domain, CPD=cus_per_domain,
                   IPB=instr_per_block, OFFB=offset_blocks, lean=lean,
                   react_models=tuple(react_models), pc_ids=tuple(pc_ids),
-                  id_ctr_pc=id_ctr_pc)
+                  id_ctr_pc=id_ctr_pc, block_cu=block_cu)
 
 
 def _rows_kernel_or_plain(ins, **statics):
@@ -585,8 +811,10 @@ def epoch_fused_rows(i0_rate, sens_rate, cum_t, prog_idx, pos, freqs, eps,
     ``power`` (R, 11) the packed regime; ``table`` a ``PCTable`` of
     (R, T, E). ``tid`` (CU,) int32 is shared. ``react_models``,
     ``pc_ids``, ``id_ctr_pc`` give the id layout (see the module
-    docstring). ``block_cu`` is inert on CPU tensors and raises on CUDA
-    tensors (no CU-tiled kernel yet, ROADMAP K5)."""
+    docstring). ``block_cu`` (a divisor of CU, a multiple of
+    ``cus_per_domain``) launches the CU-tiled epoch on CUDA tensors
+    (counted under ``launches_by_family["fork_blocked"]``) and is inert
+    on CPU tensors."""
     return _fork_out(_rows_call(_rows_kernel_or_plain, i0_rate, sens_rate,
                                 cum_t, prog_idx, pos, freqs, eps, f_prev,
                                 e_acc, t_acc, **kw), squeeze=False)
@@ -594,10 +822,23 @@ def epoch_fused_rows(i0_rate, sens_rate, cum_t, prog_idx, pos, freqs, eps,
 
 def epoch_fused_rows_ref(i0_rate, sens_rate, cum_t, prog_idx, pos, freqs,
                          eps, f_prev, e_acc, t_acc, **kw) -> EpochOut:
-    """:func:`epoch_fused_rows`' plain PyTorch version, on any device."""
+    """:func:`epoch_fused_rows`' plain PyTorch version, on any device
+    (``block_cu`` inert)."""
     return _fork_out(_rows_call(_rows_plain, i0_rate, sens_rate, cum_t,
                                 prog_idx, pos, freqs, eps, f_prev, e_acc,
                                 t_acc, **kw), squeeze=False)
+
+
+def epoch_fused_rows_blocked_ref(i0_rate, sens_rate, cum_t, prog_idx, pos,
+                                 freqs, eps, f_prev, e_acc, t_acc, *,
+                                 block_cu: int, **kw) -> EpochOut:
+    """The CU-tiled fork epoch's plain version (the reference's blocked
+    pair, :func:`_fork_blocked_math`) over R rows, on any device; the
+    operands of :func:`epoch_fused_rows`."""
+    return _fork_out(_rows_call(_rows_blocked_plain, i0_rate, sens_rate,
+                                cum_t, prog_idx, pos, freqs, eps, f_prev,
+                                e_acc, t_acc, block_cu=block_cu, **kw),
+                     squeeze=False)
 
 
 def _epoch_call(engine, rows_engine, i0_rate, sens_rate, cum_t, pos, freqs,
@@ -612,8 +853,6 @@ def _epoch_call(engine, rows_engine, i0_rate, sens_rate, cum_t, pos, freqs,
     if family not in ("pc", "reactive", "fork"):
         raise ValueError(f"family must be 'pc', 'reactive' or 'fork', got "
                          f"{family!r}")
-    if block_cu is not None and pos.is_cuda:
-        raise NotImplementedError(_K5_TODO)
     CU, WF = pos.shape
     NF = freqs.shape[0]
     if CU % cus_per_domain:
@@ -646,7 +885,7 @@ def _epoch_call(engine, rows_engine, i0_rate, sens_rate, cum_t, pos, freqs,
             react_i0=react_i0[None], react_sens=react_sens[None],
             cus_per_domain=cus_per_domain, offset_blocks=offset_blocks,
             react_models=react_models, pc_ids=pc_ids, id_ctr_pc=id_ctr_pc,
-            instr_per_block=instr_per_block, lean=lean)
+            block_cu=block_cu, instr_per_block=instr_per_block, lean=lean)
         return _fork_out(outs, squeeze=True)
     if mech is not None:
         raise ValueError(f"mech is the fork family's operand, not "
@@ -700,9 +939,9 @@ def epoch_fused(i0_rate, sens_rate, cum_t, pos, freqs, eps, f_prev, e_acc,
     ``react_i0/react_sens`` and ``cu_model`` unless ``fork_estimator``;
     ``family='fork'`` needs both state groups, the traced id ``mech`` and
     the id layout ``react_models``/``pc_ids``/``id_ctr_pc`` (a one-row
-    :func:`epoch_fused_rows`). ``lean`` picks the math mode (see the
-    module docstring); ``block_cu`` is inert on CPU tensors and raises on
-    CUDA tensors.
+    :func:`epoch_fused_rows`; ``block_cu`` launches the CU-tiled epoch on
+    CUDA tensors and is inert on CPU tensors). ``lean`` picks the math
+    mode (see the module docstring).
 
     On CUDA tensors this launches the kernel (f32 operands, ``tid`` int32,
     all contiguous; WF <= 64, NF <= 32) and never synchronises; on CPU
@@ -713,7 +952,8 @@ def epoch_fused(i0_rate, sens_rate, cum_t, pos, freqs, eps, f_prev, e_acc,
 
 
 epoch_fused.launches = 0
-epoch_fused.launches_by_family = {"pc": 0, "reactive": 0, "fork": 0}
+epoch_fused.launches_by_family = {"pc": 0, "reactive": 0, "fork": 0,
+                                  "fork_blocked": 0}
 # rows stepped by the fork-family launches (rows per launch = this over
 # launches_by_family["fork"])
 epoch_fused.fork_rows = 0
@@ -724,3 +964,15 @@ def epoch_fused_ref(i0_rate, sens_rate, cum_t, pos, freqs, eps, f_prev,
     """:func:`epoch_fused`'s plain PyTorch version, on any device."""
     return _epoch_call(_epoch_math, _rows_plain, i0_rate, sens_rate, cum_t,
                        pos, freqs, eps, f_prev, e_acc, t_acc, **kw)
+
+
+def epoch_fused_blocked_ref(i0_rate, sens_rate, cum_t, pos, freqs, eps,
+                            f_prev, e_acc, t_acc, *, block_cu: int,
+                            **kw) -> EpochOut:
+    """The CU-tiled fork epoch's plain version for one row, on any device:
+    the operands of :func:`epoch_fused` with ``family="fork"``."""
+    if kw.get("family") != "fork":
+        raise ValueError("the blocked epoch is the fork family's")
+    return _epoch_call(_epoch_math, _rows_blocked_plain, i0_rate, sens_rate,
+                       cum_t, pos, freqs, eps, f_prev, e_acc, t_acc,
+                       block_cu=block_cu, **kw)

@@ -147,6 +147,24 @@ def epoch_case(family, CU, WF, *, seed=0, NF=10, T=3, E=16, tid=None,
     return j_args, j_kw, t_args, t_kw
 
 
+def fork_case(CU, WF, NF, seed):
+    """A pc-family operand set of :func:`epoch_case` plus the reactive
+    state group and the registry's id layout: the fork family's operands,
+    for both packages."""
+    from repro_torch.core import simulate as TSIM
+    ja, jk, ta, tk = epoch_case("pc", CU, WF, NF=NF, seed=seed)
+    rng = np.random.default_rng(seed + 77)
+    ri0 = rng.uniform(0, 200, CU).astype(np.float32)
+    rse = rng.uniform(0, 100, CU).astype(np.float32)
+    layout = dict(react_models=TSIM._REACT_MODELS, pc_ids=TSIM._PC_IDS,
+                  id_ctr_pc=TSIM._ID_CTR_PC)
+    for kw, arr in ((jk, jnp.asarray), (tk, t_)):
+        kw.update(family="fork", react_i0=arr(ri0), react_sens=arr(rse),
+                  **layout)
+        del kw["fork_estimator"], kw["cu_model"]
+    return ja, jk, ta, tk
+
+
 def epoch_fields(out):
     """An ``EpochOut`` of either package as {name: numpy array}."""
     res = {}

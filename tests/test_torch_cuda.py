@@ -11,6 +11,8 @@ checked by ``chip_smoke.py``. Tolerance as there: discrete outputs equal,
 floats within 1e-4 + 1e-5 |ref| (the kernels reduce in warp-tree and
 fixed block order, torch in its own).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -345,14 +347,123 @@ def test_batched_noise_is_bitwise_the_rows_noise(dev):
         assert torch.equal(batch[r], alone), r
 
 
-def test_block_cu_raises_on_card(dev):
-    args, kw = fork_rows_case([5, 3], 8, 10, device=dev)
-    with pytest.raises(NotImplementedError, match="K5"):
-        KEF.epoch_fused_rows(*args, **kw, block_cu=4)
-    prog = get_workload("comd", P=128, device=dev)
-    cfg = SIM.SimConfig(n_cu=8, n_wf=10, n_epochs=3, pallas_block_cu=4)
-    with pytest.raises(NotImplementedError, match="K5"):
+# the CU-tiled fork epoch (K5): (CU, WF, block_cu, cus_per_domain, table
+# map) at the widths it exists for, past the monolithic kernel's 189 CUs;
+# "mod" spreads each table over CUs of every block, "triples" maps three
+# neighbouring CUs to a table so tables straddle block boundaries
+BLOCKED_SHAPES = [(256, 40, 64, 1, "mod"), (256, 40, 64, 2, "mod"),
+                  (304, 40, 38, 1, "own"), (304, 40, 38, 2, "own"),
+                  (304, 40, 38, 1, "triples"), (96, 64, 32, 1, "mod")]
+
+
+def _tid(CU, layout):
+    if layout == "own":
+        return np.arange(CU), CU
+    if layout == "triples":
+        return np.arange(CU) // 3, CU // 3 + 1
+    return np.arange(CU) % 48, 48
+
+
+@pytest.mark.parametrize("CU,WF,block_cu,cpd,layout", BLOCKED_SHAPES)
+def test_blocked_kernel_matches_plain(dev, CU, WF, block_cu, cpd, layout):
+    """K5 over every traced id against its plain version (the reference's
+    blocked pair): fidx and f_sel equal, floats within the kernels'
+    tolerance (the plain version runs the selected row in lean math, the
+    kernel in the monolithic kernel's exact order)."""
+    tid, T = _tid(CU, layout)
+    args, kw = fork_rows_case(FORK_IDS, CU, WF, T=T, E=128, tid=tid,
+                              Ps=(1024, 768), offset_blocks=8, device=dev,
+                              cus_per_domain=cpd, seed=CU + cpd)
+    before = dict(KEF.epoch_fused.launches_by_family)
+    got = row_fields(KEF.epoch_fused_rows(*args, **kw, block_cu=block_cu))
+    want = row_fields(KEF.epoch_fused_rows_blocked_ref(*args, **kw,
+                                                       block_cu=block_cu))
+    torch.cuda.synchronize()
+    after = KEF.epoch_fused.launches_by_family
+    assert after["fork_blocked"] == before["fork_blocked"] + 1
+    assert after["fork"] == before["fork"]
+    assert torch.equal(got["f_sel"], want["f_sel"])
+    _rows_close(got, want, f"{CU}x{WF}/{block_cu} cpd={cpd} {layout}",
+                args, kw)
+
+
+def test_blocked_kernel_mixed_rows_are_independent(dev):
+    """One K5 call of 8 rows mixing ids, programs of 1024/768/512 blocks,
+    objectives and power regimes at 304 x 40 / 38 (the service's shape):
+    against the plain version, and each row bitwise equal to the row
+    called alone."""
+    ids = FORK_IDS + [5]
+    args, kw = fork_rows_case(ids, 304, 40, T=304, E=128,
+                              tid=np.arange(304), Ps=(1024, 768, 512),
+                              objectives=("ed2p", "edp", "perfcap10"),
+                              offset_blocks=8, device=dev, seed=13)
+    got = row_fields(KEF.epoch_fused_rows(*args, **kw, block_cu=38))
+    want = row_fields(KEF.epoch_fused_rows_blocked_ref(*args, **kw,
+                                                       block_cu=38))
+    torch.cuda.synchronize()
+    _rows_close(got, want, "R=8 mixed", args, kw)
+    for r in (0, 3, 5, 7):
+        a, k = one_row(args, kw, r)
+        alone = row_fields(KEF.epoch_fused_rows(*a, **k, block_cu=38), 0)
+        for name, v in alone.items():
+            assert torch.equal(got[name][r], v), (r, name)
+
+
+@pytest.mark.parametrize("cpd", [1, 2])
+def test_blocked_kernel_is_bitwise_the_monolithic_kernel(dev, cpd):
+    """Where both fit (128 x 40), K5 in blocks of 32 CUs equals K4 bit for
+    bit in every output: the same device functions in the same order, the
+    traffic partials summed over all CUs in CU order, each table slot's
+    WFs walked in index order."""
+    args, kw = fork_rows_case(FORK_IDS, 128, 40, T=64, E=128, Ps=(1024,),
+                              offset_blocks=8, device=dev,
+                              cus_per_domain=cpd, seed=7 + cpd)
+    k5 = row_fields(KEF.epoch_fused_rows(*args, **kw, block_cu=32))
+    k4 = row_fields(KEF.epoch_fused_rows(*args, **kw))
+    for name, v in k4.items():
+        assert torch.equal(k5[name], v), name
+
+
+def test_monolithic_kernel_refuses_rows_past_shared_memory(dev):
+    """K4 holds a whole row in one CTA; a 304 x 40 row over 1024 blocks
+    does not fit and raises naming pallas_block_cu (no launch, no
+    fallback), in the kernel wrapper and through the sweep."""
+    args, kw = fork_rows_case([5, 3], 304, 40, T=304, E=128,
+                              tid=np.arange(304), Ps=(1024,), device=dev)
+    before = dict(KEF.epoch_fused.launches_by_family)
+    with pytest.raises(RuntimeError, match="pallas_block_cu"):
+        KEF.epoch_fused_rows(*args, **kw)
+    assert KEF.epoch_fused.launches_by_family == before
+    prog = get_workload("comd", device=dev)
+    cfg = SIM.SimConfig(n_cu=304, n_epochs=2)
+    with pytest.raises(RuntimeError, match="pallas_block_cu"):
         SW.run_suite([prog], cfg, ("pcstall",))
+    with pytest.raises(ValueError, match="block_cu"):
+        KEF.epoch_fused_rows(*args, **kw, block_cu=39)
+
+
+def test_block_cu_steps_the_sweep_on_k5(dev):
+    """SimConfig.pallas_block_cu sends the traced family to K5 (one call
+    per epoch, no K4 launch), and over 40 closed-loop epochs its grid
+    equals the monolithic kernel's bit for bit."""
+    progs = {n: get_workload(n, P=P, device=dev)
+             for n, P in (("comd", 128), ("hacc", 96))}
+    cfg = SIM.SimConfig(n_cu=16, n_wf=20, n_epochs=40)
+    mechs = ("crisp", "accreac", "pcstall", "accpc")
+    grid = {"epoch_us": [1.0, 10.0]}
+    before = dict(KEF.epoch_fused.launches_by_family)
+    tiled = SW.run_grid(progs, dataclasses.replace(cfg, pallas_block_cu=4),
+                        grid, mechs)
+    after = dict(KEF.epoch_fused.launches_by_family)
+    assert after["fork_blocked"] - before["fork_blocked"] == 40
+    assert after["fork"] == before["fork"]
+    mono = SW.run_grid(progs, cfg, grid, mechs)
+    for key in mono:
+        for w in progs:
+            for m in mechs:
+                for k, v in mono[key][w][m].items():
+                    assert np.array_equal(tiled[key][w][m][k], v), \
+                        (key, w, m, k)
 
 
 def test_grid_dispatch_never_syncs(dev):
@@ -415,3 +526,37 @@ def test_grid_bitwise_contracts_on_card(dev, use_pallas):
         for m in mechs:
             for k in ref[m]:
                 assert np.array_equal(tr[m][k], ref[m][k]), (prog.name, m)
+
+
+def test_service_on_card_bitwise_and_dispatch_never_syncs(dev):
+    """The runtime on the card with the fork family on K5 (two blocks of
+    38 CUs): an executor dispatch at the service's configuration issues no
+    host-device synchronisation (sync debug mode), and the service's
+    streamed rows equal the one-shot ``run_grid`` bit for bit."""
+    from repro_torch.dvfs_runtime.service import DVFSService
+    progs = {n: get_workload(n, P=P, device=dev)
+             for n, P in (("comd", 1024), ("xsbench", 512))}
+    cfg = SIM.SimConfig(n_cu=76, n_wf=40, pallas_block_cu=38, n_epochs=12)
+    mechs = ("static17", "pcstall")
+    jobs = [(progs[w], {"epoch_us": e}) for w in progs for e in (1.0, 10.0)]
+    ex = SW.GridExecutor(cfg, mechs, buckets=(4,))
+    ex.run(jobs[:1])                         # build the library first
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = ex.dispatch(jobs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert len(pending.traces()) == 4
+    ref = SW.run_grid(progs, cfg, {"epoch_us": [1.0, 10.0]}, mechs)
+    before = KEF.epoch_fused.launches_by_family["fork_blocked"]
+    with DVFSService(cfg, max_batch=2, coalesce_s=0.01) as svc:
+        results = svc.map(jobs)
+    assert KEF.epoch_fused.launches_by_family["fork_blocked"] > before
+    for (prog, ov), res in zip(jobs, results):
+        want = ref[(ov["epoch_us"],)][prog.name]
+        for m in mechs:
+            for k, v in want[m].items():
+                assert np.array_equal(res["traces"][m][k], v), \
+                    (prog.name, ov, m, k)
+        assert np.isfinite(res["report"]["ed2p_norm"])

@@ -46,9 +46,15 @@ def test_port_imports_no_jax_and_no_reference(path):
 
 
 def test_port_file_list_is_complete():
-    names = {p.name for p in PORT_FILES}
-    assert {"simulate.py", "sweep.py", "epoch_fused.py", "pc_table.py",
-            "interop.py", "chip_smoke.py"} <= names
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    port = "src/repro_torch/"
+    assert {port + f for f in (
+        "core/simulate.py", "core/sweep.py", "kernels/epoch_fused.py",
+        "kernels/pc_table.py", "interop.py", "configs/__init__.py",
+        "configs/base.py", "configs/llama3_405b.py",
+        "configs/granite_moe_1b_a400m.py", "dvfs_runtime/telemetry.py",
+        "dvfs_runtime/manager.py", "dvfs_runtime/service.py",
+        "data/pipeline.py")} | {"chip_smoke.py"} <= names
 
 
 def _c_entry_points():
@@ -68,6 +74,7 @@ def _c_entry_points():
 def test_ctypes_signatures_match_c_sources():
     c = _c_entry_points()
     assert set(c) == set(K.SIGNATURES)
+    assert {"epoch_fused_launch", "epoch_fused_blocked_launch"} <= set(c)
     for name, (_, argtypes) in K.SIGNATURES.items():
         kinds = ["ptr" if t is ctypes.c_void_p else "int" for t in argtypes]
         assert kinds == c[name], name
@@ -87,3 +94,22 @@ def test_epoch_args_struct_matches_c_source():
     py = [(n, "ptr" if t is ctypes.c_void_p else "int")
           for n, t in KEF._EpochArgs._fields_]
     assert py == fields
+
+
+def test_shared_memory_mirror_matches_c_source():
+    """The wrappers refuse a row one CTA cannot hold before launching it,
+    from a Python mirror of the C sizing (``smem_words``, ``kMaxSmem``)."""
+    src = (CSRC / "epoch_fused.cu").read_text()
+    expr = re.search(r"smem_words\(int Pp, int N, int CU, int NF\) \{\s*"
+                     r"return (.*?);", src, re.S).group(1)
+    expr = " ".join(expr.replace("(size_t)", "").split())
+    limit = int(re.search(r"kMaxSmem = (\d+);", src).group(1))
+    assert KEF._MAX_SMEM == limit
+    for Pp, CU, WF, NF in ((1024, 64, 40, 10), (1024, 38, 40, 10),
+                           (96, 5, 7, 6), (1024, 304, 40, 10)):
+        words = eval(expr, {}, dict(Pp=Pp, N=CU * WF, CU=CU, NF=NF))
+        assert KEF._smem_bytes(Pp, CU, WF, NF) == 4 * words
+    # the monolithic kernel's widest row at 40 WFs over 1024 blocks
+    fits = [cu for cu in range(1, 400)
+            if KEF._smem_bytes(1024, cu, 40, 10) <= limit]
+    assert max(fits) == 189

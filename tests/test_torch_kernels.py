@@ -19,7 +19,7 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from _torch_parity import (EPOCH_FAMS, assert_epoch_close,  # noqa: E402
-                           epoch_case, epoch_fields, np_, t_)
+                           epoch_case, epoch_fields, fork_case, np_, t_)
 from repro.kernels import epoch_fused as JKEF  # noqa: E402
 from repro.kernels import ops as JOPS  # noqa: E402
 from repro.kernels import pc_table as JKPT  # noqa: E402
@@ -201,20 +201,6 @@ _LAYOUT = dict(react_models=TSIM._REACT_MODELS, pc_ids=TSIM._PC_IDS,
 FORK_SPECS = [s for s in TMECH.fork_specs() if s.is_traced]
 
 
-def _fork_case(CU, WF, NF, seed):
-    """A pc-family operand set plus the reactive state group and the id
-    layout, for both packages."""
-    ja, jk, ta, tk = epoch_case("pc", CU, WF, NF=NF, seed=seed)
-    rng = np.random.default_rng(seed + 77)
-    ri0 = rng.uniform(0, 200, CU).astype(np.float32)
-    rse = rng.uniform(0, 100, CU).astype(np.float32)
-    for kw, arr in ((jk, jnp.asarray), (tk, t_)):
-        kw.update(family="fork", react_i0=arr(ri0), react_sens=arr(rse),
-                  **_LAYOUT)
-        del kw["fork_estimator"], kw["cu_model"]
-    return ja, jk, ta, tk
-
-
 @pytest.mark.parametrize("lean", [True, False], ids=["lean", "exact"])
 @pytest.mark.parametrize("mech", [s.traced_id for s in FORK_SPECS],
                          ids=[s.name for s in FORK_SPECS])
@@ -222,7 +208,7 @@ def test_epoch_fused_fork_matches_reference(mech, lean):
     """Tier 2: the port's fork family against the reference's
     ``epoch_fused(family="fork")`` on its interpret engine, for every
     traced id in both math modes."""
-    ja, jk, ta, tk = _fork_case(5, 7, 6, seed=mech + 3)
+    ja, jk, ta, tk = fork_case(5, 7, 6, seed=mech + 3)
     want = epoch_fields(JKEF.epoch_fused(*ja, **jk, mech=jnp.int32(mech),
                                          lean=lean))
     got = epoch_fields(KEF.epoch_fused(*ta, **tk, mech=torch.tensor(mech),
@@ -238,7 +224,7 @@ def test_epoch_fused_fork_matches_specialised(spec):
     same carry (the reference's tests/test_kernels.py:292 in the port):
     the id picks which state group advances, never the math. ``fidx``
     equal, floats to 1e-5, the other group passed through bit for bit."""
-    _, _, ta, tk = _fork_case(8, 10, 10, seed=31)
+    _, _, ta, tk = fork_case(8, 10, 10, seed=31)
     fork = KEF.epoch_fused(*ta, **tk, mech=torch.tensor(spec.traced_id))
     skw = {k: v for k, v in tk.items() if k not in _LAYOUT}
     skw.update(family=spec.family, fork_estimator=spec.fork_estimator,
