@@ -48,6 +48,9 @@ namespace {
 
 constexpr int kThreads = 512;
 constexpr int kMaxSmem = 232448;  // 227 KB: a CTA's share of an H100 SM
+// returned, before any launch, when one CTA's shared memory cannot hold
+// a row (or a block of one); not a cudaError_t value
+constexpr int kRowTooWide = -1;
 
 enum { FAM_PC = 0, FAM_REACTIVE = 1, FAM_FORK = 2 };
 // estimator of a row: the counter CU models, the fork-exact model, none
@@ -792,7 +795,7 @@ extern "C" int epoch_fused_launch(const EpochArgs* args, void* stream) {
       (A.mech == nullptr || A.n_react < 1 || A.n_react > 8))
     return (int)cudaErrorInvalidValue;
   const size_t bytes = 4 * smem_words(A.Pp, A.CU * A.WF, A.CU, A.NF);
-  if (bytes > (size_t)kMaxSmem) return (int)cudaErrorInvalidConfiguration;
+  if (bytes > (size_t)kMaxSmem) return kRowTooWide;
   void (*kernel)(const EpochArgs) =
       A.family == FAM_PC ? epoch_fused_kernel<FAM_PC>
       : A.family == FAM_REACTIVE ? epoch_fused_kernel<FAM_REACTIVE>
@@ -817,7 +820,7 @@ extern "C" int epoch_fused_blocked_launch(const EpochArgs* args,
     return (int)cudaErrorInvalidValue;
   const size_t bytes =
       4 * smem_words(A.Pp, A.block_cu * A.WF, A.block_cu, A.NF);
-  if (bytes > (size_t)kMaxSmem) return (int)cudaErrorInvalidConfiguration;
+  if (bytes > (size_t)kMaxSmem) return kRowTooWide;
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err = cudaFuncSetAttribute(
       fork_blocked_pass_a, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -80,8 +80,10 @@ _N_SCAL = 9
 _N_PW = len(PWR.PowerAxes._fields)
 _CU_MODEL_IDS = {m: i for i, m in enumerate(EST.CU_MODELS)}
 _FAMILY_IDS = {"pc": 0, "reactive": 1, "fork": 2}
-# a CTA's shared memory on an H100 (csrc/epoch_fused.cu: kMaxSmem)
-_MAX_SMEM = 232448
+# what the C entry points return, before any launch, for a row (or a
+# block of one) that one CTA's shared memory cannot hold
+# (csrc/epoch_fused.cu: kRowTooWide)
+_ROW_TOO_WIDE = -1
 
 
 class EpochOut(NamedTuple):
@@ -483,27 +485,16 @@ class _EpochArgs(ctypes.Structure):
             ("block_cu", ctypes.c_int)]
 
 
-def _smem_bytes(Pp: int, CU: int, WF: int, NF: int) -> int:
-    """Shared memory of one CTA holding ``CU`` CUs of a row (mirror of
-    ``smem_words`` in ``csrc/epoch_fused.cu``)."""
-    N = CU * WF
-    return 4 * (2 * Pp + 3 * (2 * Pp + 1) + 6 * N + CU * NF + 3 * CU
-                + (NF + 1) * CU + NF + 1)
-
-
-def _require_fits(Pp: int, CU: int, WF: int, NF: int, fork: bool) -> None:
-    """Raise before a launch that one CTA's shared memory cannot hold."""
-    need = _smem_bytes(Pp, CU, WF, NF)
-    if need > _MAX_SMEM:
-        how = ("tile the row over CTAs with block_cu (SimConfig."
-               "pallas_block_cu), which runs the CU-tiled fork epoch"
-               if fork else "the CU-tiled epoch (SimConfig.pallas_block_cu) "
-               "serves the fork family only; run this family unfused "
-               "(use_pallas=False) or through the sweep")
-        raise RuntimeError(
-            f"a row of {CU} CUs x {WF} WFs over {Pp} program blocks needs "
-            f"{need} B of shared memory, over the {_MAX_SMEM} B one CTA may "
-            f"use: {how}")
+_UNTILED = ("the CU-tiled epoch (SimConfig.pallas_block_cu) serves the fork "
+            "family only; run this family unfused (use_pallas=False) or "
+            "through the sweep")
+# what to do about a row too wide for one CTA, by family
+_TOO_WIDE_HINT = {
+    "pc": _UNTILED, "reactive": _UNTILED,
+    "fork": "tile the row over CTAs with block_cu (SimConfig."
+            "pallas_block_cu), which runs the CU-tiled fork epoch",
+    "fork_blocked": "choose a smaller block_cu (SimConfig.pallas_block_cu)",
+}
 
 
 def _ptr(t):
@@ -518,9 +509,15 @@ def _run_kernel(args: _EpochArgs, dev: torch.device, family: str) -> None:
     entry = lib.epoch_fused_blocked_launch if family == "fork_blocked" \
         else lib.epoch_fused_launch
     code = entry(ctypes.addressof(args), stream_ptr_of(dev))
+    if code == _ROW_TOO_WIDE:
+        cus = args.block_cu if family == "fork_blocked" else args.CU
+        raise RuntimeError(
+            f"epoch_fused[{family}]: {cus} CUs x {args.WF} WFs over "
+            f"{args.Pp} program blocks do not fit one CTA's shared memory: "
+            f"{_TOO_WIDE_HINT[family]}")
+    check(code, f"epoch_fused[{family}]")
     epoch_fused.launches += 1
     epoch_fused.launches_by_family[family] += 1
-    check(code, f"epoch_fused[{family}]")
 
 
 def _launch(ins, *, NF, CU, WF, E, T_, ND, CPD, IPB, OFFB, P, family,
@@ -543,7 +540,6 @@ def _launch(ins, *, NF, CU, WF, E, T_, ND, CPD, IPB, OFFB, P, family,
     Pp = i0r.shape[0]
     if not 1 <= P <= Pp:
         raise ValueError(f"p_blocks={P} outside the program's {Pp} blocks")
-    _require_fits(Pp, CU, WF, NF, fork=False)
     checks = [("i0_rate", i0r, _F32, (Pp,)), ("sens_rate", sr, _F32, (Pp,)),
               ("cum_t", cum_t, _F32, (3, 2 * Pp + 1)),
               ("pos", pos, _F32, (CU, WF)), ("eps", eps, _F32, (CU, WF)),
@@ -670,11 +666,8 @@ def _launch_rows(ins, *, NF, CU, WF, E, T_, ND, CPD, IPB, OFFB, lean,
               ("power", pw_vec, _F32, (R, _N_PW))]
     for name, t, dt, shp in checks:
         require(t, name, dt, shp, dev)
-    if block_cu is None:
-        _require_fits(Pp, CU, WF, NF, fork=True)
-    else:
+    if block_cu is not None:
         _check_blocks(CU, block_cu, CPD, lean)
-        _require_fits(Pp, block_cu, WF, NF, fork=True)
     n_react, packed, pc_mask, ctr = _fork_layout(react_models, pc_ids,
                                                  id_ctr_pc)
 

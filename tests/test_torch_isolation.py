@@ -7,6 +7,9 @@
   entry point's parameter count and kinds, and the field order of the
   fused epoch kernel's argument struct. A mismatch would not fail to
   build; it would hand the kernel garbage pointers on the card.
+* A row too wide for one CTA's shared memory: the code the C entry points
+  return for it is the one the wrapper turns into an error naming
+  ``pallas_block_cu``.
 """
 import ast
 import ctypes
@@ -96,20 +99,31 @@ def test_epoch_args_struct_matches_c_source():
     assert py == fields
 
 
-def test_shared_memory_mirror_matches_c_source():
-    """The wrappers refuse a row one CTA cannot hold before launching it,
-    from a Python mirror of the C sizing (``smem_words``, ``kMaxSmem``)."""
+def test_row_too_wide_code_matches_c_source():
+    """Both epoch entry points refuse a row (or block) one CTA cannot hold
+    with the code the wrapper maps to its error, before any launch."""
     src = (CSRC / "epoch_fused.cu").read_text()
-    expr = re.search(r"smem_words\(int Pp, int N, int CU, int NF\) \{\s*"
-                     r"return (.*?);", src, re.S).group(1)
-    expr = " ".join(expr.replace("(size_t)", "").split())
-    limit = int(re.search(r"kMaxSmem = (\d+);", src).group(1))
-    assert KEF._MAX_SMEM == limit
-    for Pp, CU, WF, NF in ((1024, 64, 40, 10), (1024, 38, 40, 10),
-                           (96, 5, 7, 6), (1024, 304, 40, 10)):
-        words = eval(expr, {}, dict(Pp=Pp, N=CU * WF, CU=CU, NF=NF))
-        assert KEF._smem_bytes(Pp, CU, WF, NF) == 4 * words
-    # the monolithic kernel's widest row at 40 WFs over 1024 blocks
-    fits = [cu for cu in range(1, 400)
-            if KEF._smem_bytes(1024, cu, 40, 10) <= limit]
-    assert max(fits) == 189
+    code = int(re.search(r"kRowTooWide = (-?\d+);", src).group(1))
+    assert KEF._ROW_TOO_WIDE == code
+    assert len(re.findall(r"if \(bytes > \(size_t\)kMaxSmem\) return "
+                          r"kRowTooWide;", src)) == 2
+
+
+@pytest.mark.parametrize("family", ["pc", "reactive", "fork",
+                                    "fork_blocked"])
+def test_row_too_wide_raises_naming_pallas_block_cu(monkeypatch, family):
+    """The entry point's refusal becomes a RuntimeError that names
+    ``pallas_block_cu`` with the family's remedy, and counts no launch."""
+    class Lib:
+        def epoch_fused_launch(self, *a):
+            return KEF._ROW_TOO_WIDE
+        epoch_fused_blocked_launch = epoch_fused_launch
+    monkeypatch.setattr(KEF, "library", Lib)
+    monkeypatch.setattr(KEF, "stream_ptr_of", lambda dev: 0)
+    before = dict(KEF.epoch_fused.launches_by_family)
+    args = KEF._EpochArgs(CU=304, WF=40, Pp=1024, block_cu=304)
+    with pytest.raises(RuntimeError, match="pallas_block_cu") as err:
+        KEF._run_kernel(args, None, family)
+    assert "304 CUs x 40 WFs over 1024 program blocks" in str(err.value)
+    assert KEF._TOO_WIDE_HINT[family] in str(err.value)
+    assert KEF.epoch_fused.launches_by_family == before

@@ -11,7 +11,7 @@
   10 WFs: the runs agree per epoch until the first PC-loop wrap and then
   part (``tests/test_torch_sweep.py``), so reports are held to the
   whole-run bound ``AGG_TOL`` of run-level work and energy, compounded
-  as ED^2P compounds them (see ``REPORT_TOL``);
+  field by field as each report field compounds them (``REPORT_TOL``);
 * inside the port: ``DVFSService`` streamed rows bitwise equal to the
   one-shot ``run_grid``, the service's lifecycle, bad requests and
   ``stats()``, and the manager's reports.
@@ -45,10 +45,13 @@ CELLS = [(a, s.name) for a in JCFG.ARCH_IDS
          for s in JCFG.shapes_for(JCFG.get_config(a))]
 # whole-run bound of run-level work and energy (tests/test_torch_sweep.py)
 AGG_TOL = 2e-3
-# a report's ratios compound it: E * D^2 over E0 * D0^2 moves by up to
-# (1 + 2 + 1 + 2) AGG_TOL; accuracy is a mean over epochs of a clipped
-# error, held to the same bound
-REPORT_TOL = 6 * AGG_TOL
+# each report field compounds it as it is built: energy_norm = E / E0 and
+# delay_norm = D / D0 are ratios of two run-level quantities, each within
+# AGG_TOL, so (1 + 1) AGG_TOL; ed2p_norm = E D^2 / (E0 D0^2) moves by up to
+# (1 + 2 + 1 + 2) AGG_TOL; accuracy = 1 - mean(clip(err)) is a run-level
+# mean of a relative error (predicted over measured), so (1 + 1) AGG_TOL
+REPORT_TOL = {"energy_norm": 2 * AGG_TOL, "delay_norm": 2 * AGG_TOL,
+              "ed2p_norm": 6 * AGG_TOL, "accuracy": 2 * AGG_TOL}
 # the manager cases' SimConfig: 64 table entries and 80 epochs make a
 # SimStatic no other test traces under the swapped noise
 MGR_SIM = dict(n_cu=8, n_wf=10, n_epochs=80, entries=64)
@@ -151,8 +154,8 @@ def test_request_stream_matches_reference():
 
 def _assert_report_close(got, want, what):
     assert got.keys() == want.keys()
-    for k in ("energy_norm", "delay_norm", "ed2p_norm", "accuracy"):
-        assert abs(got[k] - want[k]) <= REPORT_TOL * abs(want[k]), \
+    for k, tol in REPORT_TOL.items():
+        assert abs(got[k] - want[k]) <= tol * abs(want[k]), \
             (what, k, got[k], want[k])
     assert got["step_time"] == want["step_time"]
     assert len(got["freq_timeshare"]) == len(want["freq_timeshare"])
