@@ -37,10 +37,25 @@ drives the port (never JAX, never ``repro``):
    ``run_grid``, and the mean report beside the JAX reference's; then
    ``DVFSManager.for_model`` for llama3-405b and qwen2-moe-a2.7b at its
    default 16 CUs (K4): ``report`` and a 2 x 2 ``grid_report``;
-9. times (CUDA events after warm-up; device time from ``torch.profiler``
+9. the LM serving path: ``launch.serve.serve`` of glm4-9b and rwkv6-3b
+   at their published widths and depths (random weights from a seed),
+   batch 4, a 2048-token prompt, 32 greedy tokens, telemetry streamed to
+   ``DVFSService.for_model`` (K4 at 16 CUs): prefill seconds, decode ms
+   per token, K6 (flash attention) 40 and K7 (chunked WKV) 32 launches
+   per prefill, finite logits, the DVFS report; the same serve without
+   the DVFS stream; then per model a token-by-token decode of 256 tokens
+   against the prefill's logits, the model in f32 to 2e-2 (as the
+   reference's tests hold it) and in bf16 to twice the bf16 arithmetic's
+   own spread (the same prefill in a batch of 4 against alone), and where
+   the device time of a prefill and of a decode step goes (K6/K7, matrix
+   products, the rest);
+10. times (CUDA events after warm-up; device time from ``torch.profiler``
    where it reports one), each beside the card's name and power limit.
 
-Phase 2 also holds K5 against its plain version at 304 x 40 in blocks of
+Phase 2 also holds K6 against its plain version at the glm4-9b prefill
+(B 4, S 2048, 32 query heads over 2 KV heads of 128; bf16 and f32) and
+K7 at the rwkv6-3b prefill (B 4, T 2048, 40 heads of 64, chunks of 128),
+and K5 against its plain version at 304 x 40 in blocks of
 38 CUs (every traced id, and one call of 8 mixed rows), and against K4 at
 128 x 40, where both fit (bit for bit by design; ``fidx``/``f_sel`` must
 be equal).
@@ -78,6 +93,10 @@ from repro_torch.dvfs_runtime.manager import DVFSManager  # noqa: E402
 from repro_torch.dvfs_runtime.service import DVFSService  # noqa: E402
 from repro_torch.dvfs_runtime.telemetry import arch_program  # noqa: E402
 from repro_torch.kernels import epoch_fused as KEF  # noqa: E402
+from repro_torch.kernels import flash_attention as FA  # noqa: E402
+from repro_torch.kernels import rwkv_chunk as RC  # noqa: E402
+from repro_torch.launch.serve import serve  # noqa: E402
+from repro_torch.models import model as LM  # noqa: E402
 from repro_torch.kernels import pc_table as KPT  # noqa: E402
 from repro_torch.kernels import ref as REF  # noqa: E402
 
@@ -140,6 +159,24 @@ REF_SVC = {"ed2p_norm": 0.9187865853309631,
            "accuracy": 0.9696191046386957}
 MANAGER_ARCHS = ("llama3-405b", "qwen2-moe-a2.7b")
 MANAGER_CU = 16  # DVFSManager.for_model's default
+# the LM serving path: both models at their published widths and depths,
+# batch 4, a prompt of 2048 tokens (it takes both kernels' paths in the
+# reference: the chunked WKV needs S > 128, the block-pair attention
+# S > 1024), 32 greedy tokens, telemetry to DVFSService.for_model
+SERVE_ARCHS = ("glm4-9b", "rwkv6-3b")
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 2048, 32
+# decode token by token against the prefill's logits, as the reference's
+# tests/test_models.py holds it (rtol = atol = 2e-2; the model in f32)
+DECODE_S, DECODE_TOL = 256, 2e-2
+# K6 against its plain version: f32 to 2e-5 (the two sum in different
+# orders); bf16 at the output's rounding (one bf16 ulp, 2^-7 relative,
+# between two f32 results that round apart). K7 to 1e-4, the reference's
+# bound for its chunked kernel against the exact scan.
+K6_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2.0 ** -7, 1e-5)}
+K7_TOL = 1e-4
+BF16_FLOP_PER_S = 989e12
+# cuBLAS's matrix-product kernels by name (nvjet: CUDA 12.8's Hopper GEMMs)
+GEMM_NAMES = ("gemm", "gemv", "nvjet", "cutlass", "xmma")
 
 FAILURES = []
 
@@ -363,11 +400,95 @@ def fork_flops(rows, cu=CU, wf=WF, tables=T_TABLES):
     return rows * (epoch_flops("pc", cu, wf, tables) + 20 * cu * wf)
 
 
-def bound_ms(nb, ops):
+def bound_ms(nb, ops, flop_rate=F32_FLOP_PER_S):
     t_bytes = nb / HBM_BYTES_PER_S
-    t_ops = ops / F32_FLOP_PER_S
+    t_ops = ops / flop_rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def attention_flops(B, S, H, hd):
+    """Operations of causal attention: the two products over the kept
+    (query, key) pairs, S (S + 1) / 2 of them, 2 x hd each."""
+    return 4 * B * H * hd * (S * (S + 1) // 2)
+
+
+def rwkv_flops(BH, T, hd, C):
+    """Operations of the chunked WKV per (batch, head) and chunk: the
+    strict lower triangle of A and of A v (2 C (C - 1) / 2 hd each), the
+    state's two (C, hd) x (hd, hd) products, its decay (2 hd^2), and ~12
+    per token and channel for the logs, exps, prefix and u bonus."""
+    per = 2 * C * (C - 1) * hd + 4 * C * hd * hd + 2 * hd * hd \
+        + 12 * C * hd
+    return BH * (T // C) * per
+
+
+def lm_cases(dev):
+    """K6 at the glm4-9b prefill (bf16 and f32) and K7 at the rwkv6-3b
+    prefill, from numpy seeds."""
+    glm, rwkv = get_config("glm4-9b"), get_config("rwkv6-3b")
+    rng = np.random.default_rng(41)
+    B, S = SERVE_BATCH, SERVE_PROMPT
+    hd = glm.resolved_head_dim
+    qkv = [rng.standard_normal(s).astype(np.float32)
+           for s in ((B, S, glm.n_heads, hd), (B, S, glm.n_kv_heads, hd),
+                     (B, S, glm.n_kv_heads, hd))]
+    k6 = {dt: [torch.as_tensor(a).to(dev, dt) for a in qkv]
+          for dt in (torch.bfloat16, torch.float32)}
+    hd = rwkv.resolved_head_dim
+    H = rwkv.d_model // hd
+    rk = [rng.standard_normal((B, S, H, hd)).astype(np.float32) * 0.5
+          for _ in range(3)]
+    # the model's decays sit near exp(-exp(-1)) ~ 0.69; this covers more
+    rk.append(rng.uniform(0.6, 0.999, (B, S, H, hd)).astype(np.float32))
+    rk.append(rng.standard_normal((H, hd)).astype(np.float32) * 0.1)
+    k7 = [torch.as_tensor(a).to(dev) for a in rk]
+    return k6, k7
+
+
+def lm_counts():
+    return (FA.flash_attention_bshd.launches, RC.rwkv_chunked_bthd.launches,
+            dict(KEF.epoch_fused.launches_by_family))
+
+
+def reset_lm_counts():
+    FA.flash_attention_bshd.launches = 0
+    RC.rwkv_chunked_bthd.launches = 0
+    KEF.epoch_fused.launches_by_family = dict.fromkeys(
+        KEF.epoch_fused.launches_by_family, 0)
+
+
+def kernel_split(fn, reps=1):
+    """Device time of ``fn`` by kernel class from one torch.profiler run:
+    {"K6", "K7", "gemm", "other"} in ms per call, None if it reports no
+    device time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(("K6", "K7", "gemm", "other"), 0.0)
+    for ev in prof.key_averages():
+        t = getattr(ev, "device_time_total", None)
+        if t is None:
+            t = getattr(ev, "cuda_time_total", 0.0)
+        if not t or ev.device_type is None or \
+                "cuda" not in str(ev.device_type).lower():
+            continue
+        name = ev.key.lower()
+        if "flash_attention_kernel" in name:
+            out["K6"] += t
+        elif "rwkv_chunk_kernel" in name:
+            out["K7"] += t
+        elif any(g in name for g in GEMM_NAMES):
+            out["gemm"] += t
+        else:
+            out["other"] += t
+    if sum(out.values()) <= 0:
+        return None
+    return {k: v / reps / 1e3 for k, v in out.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -442,11 +563,14 @@ def main() -> int:
     for line in K.BUILD["log"].splitlines():
         fn = re.search(r"Function properties for .*?(epoch_fused_kernel|"
                        r"fork_blocked_pass_a|fork_blocked_pass_b|"
-                       r"fork_blocked_epilogue|pc_table_\w+?_kernel)"
-                       r"(ILi(\d))?", line)
+                       r"fork_blocked_epilogue|pc_table_\w+?_kernel|"
+                       r"flash_attention_kernel|rwkv_chunk_kernel)"
+                       r"(ILi(\d)|I(13__nv_bfloat16|f)Li(\d+))?", line)
         if fn:
-            print("  " + fn.group(1) + (f"<{fn.group(3)}>" if fn.group(3)
-                                        else ""))
+            tmpl = fn.group(3) or (fn.group(4) and (
+                ("bf16" if fn.group(4) != "f" else "f32")
+                + f", {fn.group(5)}"))
+            print("  " + fn.group(1) + (f"<{tmpl}>" if tmpl else ""))
         elif "registers" in line or "spill" in line or line.startswith("=="):
             print("  " + line.strip())
 
@@ -633,6 +757,35 @@ def main() -> int:
         check("pallas_block_cu" in str(e),
               "K4 at 304 x 40 without block_cu raises naming "
               "pallas_block_cu")
+
+    # ---- 2d. K6 and K7 at the LM prefill shapes ---------------------------
+    k6_in, k7_in = lm_cases(dev)
+    k6_row = rows.setdefault("flash_attention", dict(max_abs_err=0.0))
+    for dt, (q, k, v) in k6_in.items():
+        got = FA.flash_attention_bshd(q, k, v, causal=True)
+        want = FA.flash_attention_bshd_ref(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        rtol, atol = K6_TOL[dt]
+        k6_row["max_abs_err"] = max(k6_row["max_abs_err"], compare(
+            f"flash_attention[{str(dt).split('.')[-1]}, B {SERVE_BATCH} S "
+            f"{SERVE_PROMPT} H 32 Hkv 2 hd 128]", got.float(), want.float(),
+            rtol=rtol, atol=atol))
+    q, k, v = k6_in[torch.bfloat16]
+    k6_row["nbytes"] = nbytes(q, k, v, q)
+    k6_row["ops"] = attention_flops(SERVE_BATCH, SERVE_PROMPT, q.shape[2],
+                                    q.shape[3])
+    k7_row = rows.setdefault("rwkv_chunked", dict(max_abs_err=0.0))
+    got, S_got = RC.rwkv_chunked_bthd(*k7_in, return_state=True)
+    want, S_want = RC.rwkv_chunked_bthd_ref(*k7_in, return_state=True)
+    torch.cuda.synchronize()
+    k7_row["max_abs_err"] = max(
+        compare(f"rwkv_chunked[B {SERVE_BATCH} T {SERVE_PROMPT} H 40 hd 64 "
+                f"C 128].y", got, want, rtol=K7_TOL, atol=K7_TOL),
+        compare("rwkv_chunked[...].S_T", S_got, S_want, rtol=K7_TOL,
+                atol=K7_TOL))
+    B7, T7, H7, hd7 = k7_in[0].shape
+    k7_row["nbytes"] = nbytes(*k7_in, got)
+    k7_row["ops"] = rwkv_flops(B7 * H7, T7, hd7, 128)
 
     # ---- 3. the quickstart path -------------------------------------------
     prog = get_workload("comd", device=dev)
@@ -885,7 +1038,128 @@ def main() -> int:
         check(rep["ed2p_norm"] == grid_rep[(1.0, "ed2p")]["ed2p_norm"],
               f"manager {arch}: report == its grid point")
 
-    # ---- 9. times ----------------------------------------------------------
+    # ---- 9. the LM serving path: glm4-9b (K6) and rwkv6-3b (K7) ----------
+    for arch in SERVE_ARCHS:
+        cfg = get_config(arch)
+        kernel = "K6" if cfg.family == "dense" else "K7"
+        torch.cuda.empty_cache()
+        reset_lm_counts()
+        t0 = time.perf_counter()
+        rep = serve(cfg, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+                    gen=SERVE_GEN, seed=0, dvfs=True, device=dev)
+        wall = time.perf_counter() - t0
+        n6, n7, fams = lm_counts()
+        d = rep["dvfs"]
+        print(f"serve {arch} ({cfg.n_layers} layers x d {cfg.d_model}, "
+              f"batch {SERVE_BATCH}, prompt {SERVE_PROMPT}, gen "
+              f"{SERVE_GEN}, dvfs): prefill {rep['prefill_s']:.4f} s, "
+              f"decode {rep['decode_s_per_tok'] * 1e3:.3f} ms/token, "
+              f"{wall:.2f} s wall incl. init and DVFS on {card}",
+              flush=True)
+        print(f"  launches per prefill: K6 {n6}, K7 {n7}; K4 {fams['fork']}"
+              f"; DVFS ED2P {d['ed2p_norm']:.4f} energy "
+              f"{d['energy_norm']:.4f} delay {d['delay_norm']:.4f} accuracy"
+              f" {d['accuracy']:.4f}, {rep['dvfs_requests']} requests, "
+              f"steps {d['step_time']['n_steps']}", flush=True)
+        want6, want7 = (cfg.n_layers, 0) if kernel == "K6" \
+            else (0, cfg.n_layers)
+        check((n6, n7) == (want6, want7),
+              f"serve {arch}: K6 {n6} == {want6}, K7 {n7} == {want7} "
+              f"launches (one per layer of the one prefill)")
+        check(fams["fork"] > 0 and fams["fork_blocked"] == 0
+              and fams["pc"] == fams["reactive"] == 0,
+              f"serve {arch}: DVFSService.for_model ran K4 "
+              f"({fams['fork']} launches, no other epoch kernel)")
+        check(bool(torch.isfinite(rep["prefill_logits"]).all())
+              and bool(torch.isfinite(rep["last_logits"]).all())
+              and tuple(rep["prefill_logits"].shape)
+              == (SERVE_BATCH, cfg.vocab)
+              and tuple(rep["tokens"].shape)
+              == (SERVE_BATCH, SERVE_GEN + 1),
+              f"serve {arch}: logits finite, shapes")
+        check(all(np.isfinite([d["ed2p_norm"], d["energy_norm"],
+                               d["accuracy"]]))
+              and abs(sum(d["freq_timeshare"]) - 1.0) < 1e-2,
+              f"serve {arch}: DVFS report finite, residency sums to 1")
+        rows["flash_attention" if kernel == "K6" else "rwkv_chunked"][
+            "launches"] = n6 if kernel == "K6" else n7
+        del rep
+
+        # decode without the DVFS stream: the same loop, no service threads
+        # beside it
+        torch.cuda.empty_cache()
+        rep = serve(cfg, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+                    gen=SERVE_GEN, seed=0, dvfs=False, device=dev)
+        print(f"serve {arch} without dvfs: prefill {rep['prefill_s']:.4f} s, "
+              f"decode {rep['decode_s_per_tok'] * 1e3:.3f} ms/token on "
+              f"{card}", flush=True)
+        del rep
+
+        # each kernel inside the model: decode 256 tokens one by one from an
+        # empty cache and land on the prefill's logits. The model in f32 is
+        # held to 2e-2. In bf16 the arithmetic alone moves the logits by
+        # ~0.3 at full width: the same sequence prefilled in a batch of 4
+        # against alone differs that much, only cuBLAS's summation order
+        # changing (scripts/decode_gap_probe.py). The bf16 decode is held
+        # to twice that floor, measured here on the same weights.
+        for dtype in ("bfloat16", "float32"):
+            dcfg = dataclasses.replace(cfg, dtype=dtype)
+            torch.cuda.empty_cache()
+            params = LM.init_params(dcfg, 1, dev)
+            toks = torch.as_tensor(np.random.default_rng(8).integers(
+                0, cfg.vocab, (SERVE_BATCH, DECODE_S))).to(dev)
+            n0 = lm_counts()[:2]
+            full = LM.prefill(params, dcfg, {"tokens": toks[:1]})
+            check(lm_counts()[:2] == (n0[0] + want6, n0[1] + want7),
+                  f"{arch} {dtype} prefill at S {DECODE_S}: one {kernel} "
+                  f"launch per layer")
+            cache = LM.init_cache(dcfg, 1, DECODE_S, device=dev)
+            for i in range(DECODE_S):
+                logits, cache = LM.decode_step(params, dcfg, cache,
+                                               toks[:1, i])
+            del cache
+            tag = f"{arch} {dtype} decode x {DECODE_S} vs prefill logits"
+            if dtype == "float32":
+                compare(tag, logits, full, rtol=DECODE_TOL, atol=DECODE_TOL)
+            else:
+                four = LM.prefill(params, dcfg, {"tokens": toks})
+                gap = float((logits.double() - full.double()).abs().max())
+                floor = float((four[:1].double() - full.double()).abs().max())
+                agree = torch.equal(logits.argmax(-1), full.argmax(-1))
+                check(gap <= 2 * floor,
+                      f"{tag}: max_abs_err {gap:.3e} <= 2 x the bf16 floor "
+                      f"{floor:.3e} (the prefill in a batch of 4 against "
+                      f"alone); max |logit| {float(full.abs().max()):.3f}, "
+                      f"argmax {'agrees' if agree else 'differs'}")
+                del four
+                # where a prefill's and a decode step's device time goes,
+                # in the served dtype
+                ptoks = torch.as_tensor(np.random.default_rng(9).integers(
+                    0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT))).to(dev)
+                LM.prefill(params, dcfg, {"tokens": ptoks})
+                split = kernel_split(lambda: LM.prefill(
+                    params, dcfg, {"tokens": ptoks}))
+                dcache = LM.init_cache(dcfg, SERVE_BATCH,
+                                       SERVE_PROMPT + SERVE_GEN,
+                                       fill=SERVE_PROMPT, device=dev)
+                dsplit = kernel_split(lambda: LM.decode_step(
+                    params, dcfg, dcache, ptoks[:, 0]), reps=8)
+                del dcache
+                for what, sp in (("prefill", split),
+                                 ("decode step", dsplit)):
+                    if sp is None:
+                        print(f"  {arch} {what}: profiler reported no "
+                              f"device time")
+                        continue
+                    tot = sum(sp.values())
+                    print(f"  {arch} {what} device time {tot:.3f} ms: "
+                          + ", ".join(f"{k} {v:.3f} ms ({v / tot:.1%})"
+                                      for k, v in sp.items())
+                          + f" on {card}", flush=True)
+            del params
+        torch.cuda.empty_cache()
+
+    # ---- 10. times ---------------------------------------------------------
     times = {}
     times["pc_table_predict"] = (
         lambda: KPT.pc_table_predict(*tbl, tid, idx, *fb, F, **kp),
@@ -939,6 +1213,28 @@ def main() -> int:
     print("time epoch_fused[fork_blocked] R=8 by kernel: " + ", ".join(
         f"{re.search(r'fork_blocked_\w+', k).group(0)} {v * 1e3:.2f} us"
         for k, v in split.items()) + f" on {card}", flush=True)
+    # K6 at the glm4-9b prefill in bf16 (the served dtype), K7 at the
+    # rwkv6-3b prefill
+    q, k, v = k6_in[torch.bfloat16]
+    times["flash_attention"] = (
+        lambda: FA.flash_attention_bshd(q, k, v, causal=True),
+        lambda: FA.flash_attention_bshd_ref(q, k, v, causal=True),
+        "flash_attention_kernel")
+    times["rwkv_chunked"] = (
+        lambda: RC.rwkv_chunked_bthd(*k7_in),
+        lambda: RC.rwkv_chunked_bthd_ref(*k7_in), "rwkv_chunk_kernel")
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    k6_row["library_ms"] = time_events(
+        lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), reps=50,
+        warm=5)
+    lib_err = (sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+               .transpose(1, 2).float()
+               - FA.flash_attention_bshd(q, k, v).float()).abs().max()
+    print(f"library scaled_dot_product_attention (bf16, causal, GQA) at the "
+          f"glm4-9b prefill: {k6_row['library_ms'] * 1e3:.2f} us per call, "
+          f"max |K6 - library| {float(lib_err):.3e} on {card}", flush=True)
+    rates = {"flash_attention": BF16_FLOP_PER_S}
     for key, (kern, plain, kname) in times.items():
         ev = time_events(kern)
         dv = blk_dev if key == "epoch_fused[fork_blocked]" \
@@ -946,11 +1242,11 @@ def main() -> int:
         row = rows[key]
         row["events_ms"] = ev
         row["ms"] = dv if dv is not None else ev
-        row["plain_ms"] = time_events(plain, reps=3 if "fork" in key
-                                      else 50, warm=1 if "fork" in key
-                                      else 5)
-        row["bound_ms"], row["bound_by"] = bound_ms(row["nbytes"],
-                                                    row["ops"])
+        slow = "fork" in key or key in rates or key == "rwkv_chunked"
+        row["plain_ms"] = time_events(plain, reps=3 if slow else 50,
+                                      warm=1 if slow else 5)
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            row["nbytes"], row["ops"], rates.get(key, F32_FLOP_PER_S))
         print(f"time {key}: kernel {row['ms'] * 1e3:.2f} us (device"
               f"{'' if dv is not None else ' n/a, events'}), "
               f"{ev * 1e3:.2f} us per call (events), plain "
@@ -987,6 +1283,8 @@ def main() -> int:
         "epoch_fused[reactive]": "src/repro/kernels/epoch_fused.py:748",
         "epoch_fused[fork]": "src/repro/kernels/epoch_fused.py:748",
         "epoch_fused[fork_blocked]": "src/repro/kernels/epoch_fused.py:648",
+        "flash_attention": "src/repro/kernels/flash_attention.py:73",
+        "rwkv_chunked": "src/repro/kernels/rwkv_chunk.py:79",
     }
     sources = {
         "pc_table_predict": "src/repro_torch/kernels/csrc/pc_table.cu",
@@ -997,8 +1295,14 @@ def main() -> int:
         "epoch_fused[fork]": "src/repro_torch/kernels/csrc/epoch_fused.cu",
         "epoch_fused[fork_blocked]":
             "src/repro_torch/kernels/csrc/epoch_fused.cu",
+        "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "rwkv_chunked": "src/repro_torch/kernels/csrc/rwkv_chunk.cu",
     }
     kernels = []
+    f32_bound, _ = bound_ms(k6_row["nbytes"], k6_row["ops"])
+    print(f"flash_attention bound at the f32 rate outside the tensor cores: "
+          f"{f32_bound * 1e3:.2f} us (the table's bound is the bf16 tensor-"
+          f"core rate's)", flush=True)
     for key in replaces:
         r = rows[key]
         check(r.get("launches", 0) > 0, f"{key} launched on its path")
@@ -1007,7 +1311,8 @@ def main() -> int:
             "replaces": replaces[key], "launches": r.get("launches", 0),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": None})
+            "bound_by": r["bound_by"],
+            "library_ms": r.get("library_ms")})
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed:",
               file=sys.stderr)

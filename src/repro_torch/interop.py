@@ -127,3 +127,35 @@ def sim_axes_rows_from_numpy(scal, pw_vec, n_ep,
         table_ema=s[:, 4].clone(), obj=s[:, 5:8].clone(),
         n_ep=_t(n_ep, device, torch.int32).reshape(R),
         power=PWR.PowerAxes(*(c.clone() for c in pw.unbind(1))))
+
+
+def _leaf(a) -> torch.Tensor:
+    """A numpy array as a CPU tensor with its bits; a bfloat16 array
+    (numpy's extension dtype) is reinterpreted through int16."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def params_from_numpy(cfg, tree) -> dict:
+    """The port's state dict (``models.model.init_params``'s names) from the
+    reference's params tree with numpy leaves, the per-layer leaves stacked
+    on a leading layer axis. Load it with ``params.load_state_dict``."""
+    out = {}
+
+    def walk(node, prefix, layer=None):
+        for key, val in node.items():
+            if isinstance(val, dict):
+                walk(val, f"{prefix}{key}.", layer)
+            else:
+                out[prefix + key] = _leaf(val if layer is None
+                                          else np.asarray(val)[layer])
+
+    for key, val in tree.items():
+        if key == "layers":
+            for i in range(cfg.n_layers):
+                walk(val, f"layers.{i}.", i)
+        else:
+            out[key] = _leaf(val)
+    return out

@@ -1,6 +1,6 @@
-"""Hand-written CUDA kernels of the DVFS engine's hot path (sm_90a).
+"""Hand-written CUDA kernels of the port (sm_90a).
 
-Five kernels, one shared library:
+Seven kernels, one shared library. The DVFS engine's hot path:
 
 * ``pc_table.pc_table_predict`` / ``pc_table.pc_table_update`` — the PC
   table predict/update pair (``csrc/pc_table.cu``);
@@ -12,6 +12,15 @@ Five kernels, one shared library:
 * ``epoch_fused.epoch_fused_rows(..., block_cu=b)`` — the CU-tiled fork
   epoch for rows too wide for one CTA (same source, one entry point that
   launches two passes over CU blocks and an epilogue).
+
+The LM model zoo's prefill (``ops.py`` holds the reference's public
+wrappers):
+
+* ``flash_attention.flash_attention_bshd`` — K6, online-softmax attention
+  with causal and sliding-window masks over grouped KV heads
+  (``csrc/flash_attention.cu``);
+* ``rwkv_chunk.rwkv_chunked_bthd`` — K7, the chunked RWKV6 WKV with the
+  state carried over the chunks (``csrc/rwkv_chunk.cu``).
 
 Every wrapper launches its kernel on a CUDA tensor and runs the kernel's
 plain PyTorch version on a CPU tensor; there is no fallback between the
@@ -52,6 +61,8 @@ SIGNATURES = {
     "pc_table_update_launch": (_CI, [_VP] * 10 + [_CI] * 3 + [_VP]),
     "epoch_fused_launch": (_CI, [_VP, _VP]),
     "epoch_fused_blocked_launch": (_CI, [_VP, _VP]),
+    "flash_attention_launch": (_CI, [_VP] * 4 + [_CI] * 9 + [_VP]),
+    "rwkv_chunk_launch": (_CI, [_VP] * 7 + [_CI] * 7 + [_VP]),
     "repro_error_string": (ctypes.c_char_p, [_CI]),
 }
 

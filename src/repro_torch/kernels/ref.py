@@ -1,7 +1,10 @@
-"""Plain PyTorch versions of the PC-table kernel pair (device-agnostic).
+"""Plain PyTorch oracles of the kernels (device-agnostic).
 
-They are what ``pc_table.pc_table_predict``/``pc_table_update`` run on a
-CPU tensor, and what the CUDA kernels are held against on the card.
+The PC-table pair: what ``pc_table.pc_table_predict``/``pc_table_update``
+run on a CPU tensor, and what their CUDA kernels are held against on the
+card. ``attention_ref`` (full softmax) and ``rwkv_chunk_ref`` (the exact
+token scan) are the ground truths of the flash-attention and chunked-WKV
+kernels, as ``repro/kernels/ref.py``'s are of the Pallas ones.
 """
 from __future__ import annotations
 
@@ -47,3 +50,38 @@ def pc_table_update_ref(table_i0: torch.Tensor, table_sens: torch.Tensor,
     return tuple(PRED.ema_blend(
         PRED.PCTable(table_i0, table_sens, table_count), isum, ssum, cnt,
         ema))
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Full-softmax attention in f32. q (B,S,H,hd), k/v (B,S,Hkv,hd) with
+    H % Hkv == 0. Returns (B,S,H,hd) in q's dtype."""
+    B, S, H, hd = q.shape
+    Hkv = k.shape[2]
+    rep = H // Hkv
+    qg = q.reshape(B, S, Hkv, rep, hd).float()
+    scores = torch.einsum("bqhrd,bkhd->bhrqk", qg, k.float())
+    scores = scores / (hd ** 0.5)
+    qi = torch.arange(S, device=q.device)[:, None]
+    kj = torch.arange(S, device=q.device)[None, :]
+    mask = kj <= qi if causal else torch.ones((S, S), dtype=torch.bool,
+                                              device=q.device)
+    if window:
+        mask = mask & (kj > qi - window)
+    scores = scores.masked_fill(~mask, float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhrqk,bkhd->bqhrd", probs, v.float())
+    return out.reshape(B, S, H, hd).to(q.dtype)
+
+
+def rwkv_chunk_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   w: torch.Tensor, u: torch.Tensor, S0: torch.Tensor):
+    """Exact RWKV6 recurrence, token by token, one head. r,k,v,w (T,hd)
+    f32; u (hd,); S0 (hd,hd). Returns (y (T,hd), S_T)."""
+    S = S0
+    ys = []
+    for t in range(r.shape[0]):
+        a = torch.outer(k[t], v[t])
+        ys.append(r[t] @ (S + u[:, None] * a))
+        S = w[t][:, None] * S + a
+    return torch.stack(ys), S

@@ -1,0 +1,8 @@
+"""The LM model zoo (port of ``repro.models``): families dense and ssm."""
+from repro_torch.models.model import (  # noqa: F401
+    backbone,
+    decode_step,
+    init_cache,
+    init_params,
+    prefill,
+)

@@ -560,3 +560,187 @@ def test_service_on_card_bitwise_and_dispatch_never_syncs(dev):
                 assert np.array_equal(res["traces"][m][k], v), \
                     (prog.name, ov, m, k)
         assert np.isfinite(res["report"]["ed2p_norm"])
+
+
+# ---------------------------------------------------------------------------
+# K6 (flash attention) and K7 (chunked RWKV6 WKV)
+# ---------------------------------------------------------------------------
+
+# K6 in f32 to 2e-5 (the kernel and the plain version sum the products and
+# the softmax denominator in different orders); in bf16 to the output's
+# rounding: the two f32 results round to bf16 values at most one ulp
+# (2^-7 relative) apart. K7 to 1e-4, the reference's own bound for its
+# chunked kernel against the exact scan.
+K6_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2.0 ** -7, 1e-5)}
+K7_TOL = 1e-4
+
+
+def _qkv(B, S, H, Hkv, hd, dtype, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.as_tensor(rng.standard_normal(s).astype(np.float32))
+            .to(dev, dtype) for s in ((B, S, H, hd), (B, S, Hkv, hd),
+                                      (B, S, Hkv, hd))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,S,H,Hkv,hd,causal,window", [
+    (1, 128, 2, 2, 64, True, 0),
+    (2, 256, 4, 2, 64, True, 0),
+    (1, 256, 4, 1, 128, True, 0),      # MQA
+    (2, 512, 2, 2, 32, True, 0),
+    (1, 64, 4, 2, 16, True, 0),        # S < blk
+    (1, 32, 2, 1, 128, True, 0),       # S < one staged sub-tile
+    (1, 256, 2, 2, 64, True, 32),
+    (1, 256, 2, 2, 64, True, 128),
+    (1, 384, 2, 1, 64, False, 0),
+    (1, 384, 2, 1, 64, False, 100),
+    (2, 1024, 8, 2, 128, True, 0),
+])
+def test_flash_attention_kernel_matches_plain(dev, dtype, B, S, H, Hkv, hd,
+                                              causal, window):
+    from repro_torch.kernels import flash_attention as FA
+    q, k, v = _qkv(B, S, H, Hkv, hd, dtype, dev)
+    n0 = FA.flash_attention_bshd.launches
+    got = FA.flash_attention_bshd(q, k, v, causal=causal, window=window)
+    assert FA.flash_attention_bshd.launches == n0 + 1
+    want = FA.flash_attention_bshd_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    rtol, atol = K6_TOL[dtype]
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.parametrize("blk", [32, 64, 256])
+def test_flash_attention_kernel_key_blocks(dev, blk):
+    from repro_torch.kernels import flash_attention as FA
+    q, k, v = _qkv(1, 512, 4, 2, 64, torch.float32, dev, seed=3)
+    got = FA.flash_attention_bshd(q, k, v, blk_q=blk, blk_k=blk)
+    want = FA.flash_attention_bshd_ref(q, k, v, blk_q=blk, blk_k=blk)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=2e-5, atol=2e-5)
+
+
+def test_flash_attention_bhsd_counts_one_launch(dev):
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
+    q, k, v = (t[:, :, 0] for t in _qkv(3, 128, 1, 1, 64, torch.float32,
+                                        dev, seed=4))
+    n0 = FA.flash_attention_bshd.launches
+    got = FA.flash_attention_bhsd(q, k, v)
+    assert FA.flash_attention_bshd.launches == n0 + 1
+    want = FA.flash_attention_ref(q, k, v)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=2e-5, atol=2e-5)
+    q4, k4, v4 = _qkv(1, 128, 4, 2, 64, torch.float32, dev)
+    ops.flash_attention(q4, k4, v4)
+    assert FA.flash_attention_bshd.launches == n0 + 2
+
+
+def test_flash_attention_kernel_refuses_bad_operands(dev):
+    from repro_torch.kernels import flash_attention as FA
+    q, k, v = _qkv(1, 128, 2, 2, 48, torch.float32, dev)
+    with pytest.raises(ValueError, match="head dim"):
+        FA.flash_attention_bshd(q, k, v)
+    q, k, v = _qkv(1, 128, 2, 2, 64, torch.float16, dev)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        FA.flash_attention_bshd(q, k, v)
+    q, k, v = _qkv(1, 128, 2, 2, 64, torch.float32, dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        FA.flash_attention_bshd(q, k.transpose(1, 2).contiguous()
+                                .transpose(1, 2), v)
+
+
+def _rwkv_case(B, T, H, hd, lo, hi, dev, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32)).to(dev)
+    r, k, v = (f32(rng.standard_normal((B, T, H, hd)) * 0.5)
+               for _ in range(3))
+    w = f32(rng.uniform(lo, hi, (B, T, H, hd)))
+    u = f32(rng.standard_normal((H, hd)) * 0.1)
+    return r, k, v, w, u
+
+
+@pytest.mark.parametrize("B,T,H,hd,chunk,lo,hi", [
+    (2, 256, 3, 64, 128, 0.6, 0.999),
+    (1, 512, 2, 64, 128, 0.9, 0.999),
+    (2, 256, 2, 32, 64, 0.6, 0.999),
+    (1, 128, 4, 32, 32, 0.6, 0.95),
+    (1, 96, 1, 64, 128, 0.8, 0.999),      # T < chunk: one chunk of T
+])
+def test_rwkv_chunk_kernel_matches_plain(dev, B, T, H, hd, chunk, lo, hi):
+    from repro_torch.kernels import rwkv_chunk as RC
+    r, k, v, w, u = _rwkv_case(B, T, H, hd, lo, hi, dev)
+    n0 = RC.rwkv_chunked_bthd.launches
+    y, S = RC.rwkv_chunked_bthd(r, k, v, w, u, chunk=chunk,
+                                return_state=True)
+    assert RC.rwkv_chunked_bthd.launches == n0 + 1
+    yw, Sw = RC.rwkv_chunked_bthd_ref(r, k, v, w, u, chunk=chunk,
+                                      return_state=True)
+    torch.cuda.synchronize()
+    for got, want in ((y, yw), (S, Sw)):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=K7_TOL, atol=K7_TOL)
+
+
+def test_rwkv_chunked_bhsd_layout_counts_one_launch(dev):
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rwkv_chunk as RC
+    rng = np.random.default_rng(5)
+    BH, T, hd = 3, 256, 64
+    r, k, v = (torch.as_tensor(rng.standard_normal((BH, T, hd)) * 0.5,
+                               dtype=torch.float32).to(dev)
+               for _ in range(3))
+    w = torch.as_tensor(rng.uniform(0.8, 0.999, (BH, T, hd)),
+                        dtype=torch.float32).to(dev)
+    u = torch.as_tensor(rng.standard_normal((BH, hd)) * 0.1,
+                        dtype=torch.float32).to(dev)
+    n0 = RC.rwkv_chunked_bthd.launches
+    got = ops.rwkv_chunked(r, k, v, w, u, chunk=128)
+    assert RC.rwkv_chunked_bthd.launches == n0 + 1
+    want = RC.rwkv_chunked_ref(r, k, v, w, u, chunk=128)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=K7_TOL, atol=K7_TOL)
+
+
+def test_rwkv_chunk_kernel_refuses_state_and_large_chunks(dev):
+    from repro_torch.kernels import rwkv_chunk as RC
+    r, k, v, w, u = _rwkv_case(1, 256, 2, 64, 0.8, 0.999, dev)
+    with pytest.raises(ValueError, match="zero state"):
+        RC.rwkv_chunked_bthd(r, k, v, w, u,
+                             S0=torch.zeros((1, 2, 64, 64), device=dev))
+    n0 = RC.rwkv_chunked_bthd.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        RC.rwkv_chunked_bthd(r, k, v, w, u, chunk=256)
+    assert RC.rwkv_chunked_bthd.launches == n0
+
+
+@pytest.mark.parametrize("arch", ["glm4-9b", "rwkv6-3b"])
+def test_prefill_runs_one_kernel_per_layer_and_decode_agrees(dev, arch):
+    """A smoke config in f32 on the card: the prefill of 256 tokens
+    launches K6 (glm4) or K7 (rwkv6) once per layer, and a token-by-token
+    decode of the same tokens ends at the prefill's logits."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import rwkv_chunk as RC
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    params = M.init_params(cfg, 0, dev)
+    S = 256
+    toks = torch.as_tensor(np.random.default_rng(6).integers(
+        0, cfg.vocab, (1, S))).to(dev)
+    counter = FA.flash_attention_bshd if arch == "glm4-9b" \
+        else RC.rwkv_chunked_bthd
+    n0 = counter.launches
+    full = M.prefill(params, cfg, {"tokens": toks})
+    assert counter.launches == n0 + cfg.n_layers
+    cache = M.init_cache(cfg, 1, S, device=dev)
+    for i in range(S):
+        logits, cache = M.decode_step(params, cfg, cache, toks[:, i])
+    assert counter.launches == n0 + cfg.n_layers
+    np.testing.assert_allclose(logits.cpu().numpy(), full.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)

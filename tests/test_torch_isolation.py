@@ -5,7 +5,7 @@
   in the AST.
 * The ctypes declarations of the kernel library match the C sources: each
   entry point's parameter count and kinds, and the field order of the
-  fused epoch kernel's argument struct. A mismatch would not fail to
+  fused epoch kernel's argument struct (K1-K7). A mismatch would not fail to
   build; it would hand the kernel garbage pointers on the card.
 * A row too wide for one CTA's shared memory: the code the C entry points
   return for it is the one the wrapper turns into an error naming
@@ -57,7 +57,10 @@ def test_port_file_list_is_complete():
         "configs/base.py", "configs/llama3_405b.py",
         "configs/granite_moe_1b_a400m.py", "dvfs_runtime/telemetry.py",
         "dvfs_runtime/manager.py", "dvfs_runtime/service.py",
-        "data/pipeline.py")} | {"chip_smoke.py"} <= names
+        "data/pipeline.py", "kernels/flash_attention.py",
+        "kernels/rwkv_chunk.py", "kernels/ops.py", "models/layers.py",
+        "models/rwkv.py", "models/model.py", "models/__init__.py",
+        "launch/serve.py")} | {"chip_smoke.py"} <= names
 
 
 def _c_entry_points():
@@ -77,7 +80,8 @@ def _c_entry_points():
 def test_ctypes_signatures_match_c_sources():
     c = _c_entry_points()
     assert set(c) == set(K.SIGNATURES)
-    assert {"epoch_fused_launch", "epoch_fused_blocked_launch"} <= set(c)
+    assert {"epoch_fused_launch", "epoch_fused_blocked_launch",
+            "flash_attention_launch", "rwkv_chunk_launch"} <= set(c)
     for name, (_, argtypes) in K.SIGNATURES.items():
         kinds = ["ptr" if t is ctypes.c_void_p else "int" for t in argtypes]
         assert kinds == c[name], name
@@ -127,3 +131,23 @@ def test_row_too_wide_raises_naming_pallas_block_cu(monkeypatch, family):
     assert "304 CUs x 40 WFs over 1024 program blocks" in str(err.value)
     assert KEF._TOO_WIDE_HINT[family] in str(err.value)
     assert KEF.epoch_fused.launches_by_family == before
+
+
+def test_rwkv_too_large_code_matches_c_source():
+    """K7's entry point refuses a chunk one CTA cannot hold with the code
+    the wrapper turns into its error."""
+    from repro_torch.kernels import rwkv_chunk as RC
+    src = (CSRC / "rwkv_chunk.cu").read_text()
+    assert RC._TOO_LARGE == int(
+        re.search(r"kTooLarge = (-?\d+);", src).group(1))
+
+
+def test_flash_attention_limits_match_c_source():
+    """The head dims K6 is instantiated for and its largest key block, as
+    the wrapper checks them before a launch."""
+    from repro_torch.kernels import flash_attention as FA
+    src = (CSRC / "flash_attention.cu").read_text()
+    assert FA.HEAD_DIMS == tuple(int(x) for x in
+                                 re.findall(r"case (\d+):", src))
+    assert FA.MAX_BLK_K == int(re.search(r"kMaxBlkK = (\d+);", src)
+                               .group(1))
