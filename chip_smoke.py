@@ -168,6 +168,15 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 2048, 32
 # decode token by token against the prefill's logits, as the reference's
 # tests/test_models.py holds it (rtol = atol = 2e-2; the model in f32)
 DECODE_S, DECODE_TOL = 256, 2e-2
+# the same check with the models in bf16, as they are served, holds the
+# largest |decode - prefill| logit gap to a fixed limit. In bf16 at full
+# width the arithmetic alone moves the logits: on an H100 80GB HBM3 at
+# 700 W scripts/decode_gap_probe.py reads 0.359 (glm4-9b) and 0.319
+# (rwkv6-3b), and the same prefill in a batch of 4 against alone, where
+# only cuBLAS's summation order changes, 0.319 and 0.289. The limit is
+# ~1.4x the largest sound reading; a fault in a kernel or a cache moves
+# logits of max |logit| 4.5-6.3 by their own size.
+BF16_DECODE_TOL = 0.5
 # K6 against its plain version: f32 to 2e-5 (the two sum in different
 # orders); bf16 at the output's rounding (one bf16 ulp, 2^-7 relative,
 # between two f32 results that round apart). K7 to 1e-4, the reference's
@@ -413,14 +422,13 @@ def attention_flops(B, S, H, hd):
     return 4 * B * H * hd * (S * (S + 1) // 2)
 
 
-def rwkv_flops(BH, T, hd, C):
-    """Operations of the chunked WKV per (batch, head) and chunk: the
-    strict lower triangle of A and of A v (2 C (C - 1) / 2 hd each), the
-    state's two (C, hd) x (hd, hd) products, its decay (2 hd^2), and ~12
-    per token and channel for the logs, exps, prefix and u bonus."""
-    per = 2 * C * (C - 1) * hd + 4 * C * hd * hd + 2 * hd * hd \
-        + 12 * C * hd
-    return BH * (T // C) * per
+def rwkv_flops(BH, T, hd):
+    """Operations the WKV needs, counted from the exact token recurrence
+    (the least of its forms): per (batch, head) and token, r . S (2 hd^2),
+    the decay w * S and the outer product k v^T with their sum (3 hd^2),
+    and the u bonus (r u k) v (5 hd). The chunked form K7 computes does
+    more (the (C, C) intra-chunk weights, the logs and exps)."""
+    return BH * T * (5 * hd * hd + 5 * hd)
 
 
 def lm_cases(dev):
@@ -785,7 +793,7 @@ def main() -> int:
                 atol=K7_TOL))
     B7, T7, H7, hd7 = k7_in[0].shape
     k7_row["nbytes"] = nbytes(*k7_in, got)
-    k7_row["ops"] = rwkv_flops(B7 * H7, T7, hd7, 128)
+    k7_row["ops"] = rwkv_flops(B7 * H7, T7, hd7)
 
     # ---- 3. the quickstart path -------------------------------------------
     prog = get_workload("comd", device=dev)
@@ -1096,12 +1104,9 @@ def main() -> int:
         del rep
 
         # each kernel inside the model: decode 256 tokens one by one from an
-        # empty cache and land on the prefill's logits. The model in f32 is
-        # held to 2e-2. In bf16 the arithmetic alone moves the logits by
-        # ~0.3 at full width: the same sequence prefilled in a batch of 4
-        # against alone differs that much, only cuBLAS's summation order
-        # changing (scripts/decode_gap_probe.py). The bf16 decode is held
-        # to twice that floor, measured here on the same weights.
+        # empty cache and land on the prefill's logits, in f32 to 2e-2 and
+        # in bf16 to BF16_DECODE_TOL. The bf16 prefill in a batch of 4
+        # against alone is printed beside it as a reading, not a limit.
         for dtype in ("bfloat16", "float32"):
             dcfg = dataclasses.replace(cfg, dtype=dtype)
             torch.cuda.empty_cache()
@@ -1124,13 +1129,14 @@ def main() -> int:
             else:
                 four = LM.prefill(params, dcfg, {"tokens": toks})
                 gap = float((logits.double() - full.double()).abs().max())
-                floor = float((four[:1].double() - full.double()).abs().max())
+                spread = float((four[:1].double() - full.double()).abs().max())
                 agree = torch.equal(logits.argmax(-1), full.argmax(-1))
-                check(gap <= 2 * floor,
-                      f"{tag}: max_abs_err {gap:.3e} <= 2 x the bf16 floor "
-                      f"{floor:.3e} (the prefill in a batch of 4 against "
-                      f"alone); max |logit| {float(full.abs().max()):.3f}, "
-                      f"argmax {'agrees' if agree else 'differs'}")
+                check(gap <= BF16_DECODE_TOL,
+                      f"{tag}: max_abs_err {gap:.3e} <= {BF16_DECODE_TOL} "
+                      f"(prefill in a batch of 4 against alone: "
+                      f"{spread:.3e}); max |logit| "
+                      f"{float(full.abs().max()):.3f}, argmax "
+                      f"{'agrees' if agree else 'differs'}")
                 del four
                 # where a prefill's and a decode step's device time goes,
                 # in the served dtype

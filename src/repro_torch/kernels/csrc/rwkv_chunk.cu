@@ -7,11 +7,13 @@
 // shared memory, starting from zero.
 //
 // Bound on this card: at the rwkv6-3b prefill (B 4 x H 40 heads of 64,
-// T 2048, chunks of 128) the function is ~12-16 GFLOP (~0.18-0.24 ms at
-// the f32 rate outside the tensor cores; it needs f32) and moves ~0.42 GB
-// (four f32 inputs and y: ~0.125 ms). With 160 CTAs of one (batch, head)
-// each and a sequential chunk loop, this first kernel uses one CTA per SM
-// and is far from that bound.
+// T 2048) the function moves ~0.42 GB (four f32 inputs and y: ~0.125 ms)
+// and needs ~6.8 GFLOP, counted from the exact token recurrence (5 hd^2
+// + 5 hd per token and head: ~0.10 ms at the f32 rate outside the tensor
+// cores; it needs f32), so it is bound by its bytes. The chunked form
+// below does more operations than that. With 160 CTAs of one (batch,
+// head) each and a sequential chunk loop, this first kernel uses one CTA
+// per SM and is far from that bound.
 //
 // Per chunk of C tokens, in the reference's exp-log form:
 //   load     r, k, v (C x hd) and w (C x (hd + 1)) from the (B,T,H,hd)

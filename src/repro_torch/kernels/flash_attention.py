@@ -10,7 +10,10 @@ and the final ``acc / max(l, 1e-20)`` in the query's dtype.
 :func:`flash_attention_ref` is the plain PyTorch version, step for step
 the Pallas kernel's (scale, mask to -1e30, ``m_new``, ``p`` zeroed where
 masked, ``alpha = exp(max(m_prev - m_new, -80))``), over all query rows
-at once: a row's result does not depend on ``blk_q``.
+at once: a row's result does not depend on ``blk_q``. ``blk_q`` stays in
+every signature for the reference's, and neither version reads it: K6
+always tiles 64 queries per CTA. ``blk_k`` sets the key blocks the online
+softmax walks, and S must be a multiple of ``min(blk_k, S)``.
 
 On a CUDA tensor :func:`flash_attention_bshd` launches K6 on the current
 stream (counted in ``flash_attention_bshd.launches``): it reads q as
@@ -31,12 +34,12 @@ MAX_BLK_K = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _blocks(S: int, blk_q: int, blk_k: int):
-    blk_q, blk_k = min(blk_q, S), min(blk_k, S)
-    if S % blk_q or S % blk_k:
-        raise ValueError(f"sequence {S} is not a multiple of the blocks "
-                         f"({blk_q}, {blk_k})")
-    return blk_q, blk_k
+def _key_block(S: int, blk_k: int) -> int:
+    blk_k = min(blk_k, S)
+    if S % blk_k:
+        raise ValueError(f"sequence {S} is not a multiple of the key block "
+                         f"{blk_k}")
+    return blk_k
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -45,7 +48,7 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Plain version of K6 on any device. q/k/v (BH,S,hd), k/v already
     expanded to q's heads. Returns (BH,S,hd) in q's dtype."""
     BH, S, hd = q.shape
-    _, blk_k = _blocks(S, blk_q, blk_k)
+    blk_k = _key_block(S, blk_k)
     scale = 1.0 / (hd ** 0.5)
     qf = q.float()
     m = torch.full((BH, S), NEG_INF, dtype=torch.float32, device=q.device)
@@ -102,7 +105,7 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Hkv = k.shape[2]
     if H % Hkv:
         raise ValueError(f"{H} query heads over {Hkv} KV heads")
-    _, bk = _blocks(S, blk_q, blk_k)
+    bk = _key_block(S, blk_k)
     if not q.is_cuda:
         return flash_attention_bshd_ref(q, k, v, causal=causal,
                                         window=window, blk_q=blk_q,

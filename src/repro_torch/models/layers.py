@@ -59,7 +59,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     S = q.shape[1]
     blk = min(128, S) if S % min(128, S) == 0 else math.gcd(S, 128)
     return ops.flash_attention(q, k, v, causal=causal, window=window,
-                               blk_q=blk, blk_k=blk)
+                               blk_k=blk)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

@@ -174,7 +174,8 @@ def _layer_fwd(x, lp, cfg: ModelConfig, positions):
         hd = cfg.resolved_head_dim
         zeros = torch.zeros((B, 1, d), dtype=x.dtype, device=x.device)
         h = L.rms_norm(x, lp["norm1"], cfg.norm_eps)
-        y, _, _ = RWKV.time_mix_chunked(h, zeros, None, lp["tm"], d // hd, hd)
+        y, _, _ = RWKV.time_mix_chunked(h, zeros, None, lp["tm"], d // hd,
+                                        hd, return_state=False)
         x = x + y
         h = L.rms_norm(x, lp["norm2"], cfg.norm_eps)
         y, _ = RWKV.channel_mix(h, zeros, lp["cm"])

@@ -78,13 +78,17 @@ def time_mix(x: torch.Tensor, x_prev: torch.Tensor, S0: torch.Tensor, p,
 
 def time_mix_chunked(x: torch.Tensor, x_prev: torch.Tensor,
                      S0: Optional[torch.Tensor], p, n_heads: int,
-                     head_dim: int, chunk: int = 128
-                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                     head_dim: int, chunk: int = 128,
+                     return_state: bool = True
+                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                                torch.Tensor]:
     """The same time-mix with the WKV in chunks (K7), when ``S > chunk``
     and ``chunk`` divides S; the token scan otherwise, as the reference.
     ``S0`` None is the zero state. On a CUDA tensor the chunked WKV runs
-    K7, which starts from zero (a state tensor raises) and writes the final
-    state it holds as ``S_out``."""
+    K7, which starts from zero (a state tensor raises) and, with
+    ``return_state``, writes the final state it holds as ``S_out``;
+    without it the chunked branch returns ``S_out`` None (the prefill
+    discards the state)."""
     B, S, D = x.shape
     H, hd = n_heads, head_dim
     if S % chunk or S <= chunk:
@@ -94,10 +98,11 @@ def time_mix_chunked(x: torch.Tensor, x_prev: torch.Tensor,
         return time_mix(x, x_prev, S0, p, H, hd)
     r, k, v, w, g = _rkvwg(x, x_prev, p)
     hs = (B, S, H, hd)
-    y, S_out = RC.rwkv_chunked_bthd(
+    out = RC.rwkv_chunked_bthd(
         r.reshape(hs), k.reshape(hs), v.reshape(hs), w.reshape(hs),
         p["u"].reshape(H, hd).float(), chunk=chunk, S0=S0,
-        return_state=True)
+        return_state=return_state)
+    y, S_out = out if return_state else (out, None)
     return _out(y.reshape(B, S, D), g, x, p, H, hd), S_out, x[:, -1:]
 
 

@@ -623,6 +623,20 @@ def test_flash_attention_kernel_key_blocks(dev, blk):
                                rtol=2e-5, atol=2e-5)
 
 
+def test_flash_attention_kernel_ignores_blk_q(dev):
+    """K6 tiles 64 queries whatever ``blk_q`` says: a query block that
+    does not divide S is accepted and changes nothing."""
+    from repro_torch.kernels import flash_attention as FA
+    q, k, v = _qkv(1, 96, 2, 1, 32, torch.float32, dev, seed=5)
+    got = FA.flash_attention_bshd(q, k, v, blk_q=64, blk_k=32)
+    torch.testing.assert_close(
+        got, FA.flash_attention_bshd(q, k, v, blk_q=32, blk_k=32),
+        rtol=0, atol=0)
+    want = FA.flash_attention_bshd_ref(q, k, v, blk_k=32)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=2e-5, atol=2e-5)
+
+
 def test_flash_attention_bhsd_counts_one_launch(dev):
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ops
@@ -685,6 +699,18 @@ def test_rwkv_chunk_kernel_matches_plain(dev, B, T, H, hd, chunk, lo, hi):
     for got, want in ((y, yw), (S, Sw)):
         np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                    rtol=K7_TOL, atol=K7_TOL)
+
+
+def test_rwkv_chunk_kernel_without_state(dev):
+    """Without ``return_state`` (the prefill's call) K7 writes y alone,
+    the same y as with the state."""
+    from repro_torch.kernels import rwkv_chunk as RC
+    r, k, v, w, u = _rwkv_case(2, 256, 2, 64, 0.6, 0.999, dev, seed=2)
+    n0 = RC.rwkv_chunked_bthd.launches
+    y = RC.rwkv_chunked_bthd(r, k, v, w, u)
+    assert RC.rwkv_chunked_bthd.launches == n0 + 1
+    y_s, _ = RC.rwkv_chunked_bthd(r, k, v, w, u, return_state=True)
+    torch.testing.assert_close(y, y_s, rtol=0, atol=0)
 
 
 def test_rwkv_chunked_bhsd_layout_counts_one_launch(dev):

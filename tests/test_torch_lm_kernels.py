@@ -97,6 +97,18 @@ def test_flash_attention_plain_rejects_ragged_blocks():
         TOPS.flash_attention(q, q, q)
 
 
+def test_flash_attention_plain_ignores_blk_q():
+    """``blk_q`` is kept for the reference's signature and changes
+    nothing: a query block that does not divide S is accepted and gives
+    the result of the reference's dividing one."""
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(1, 96, 2, 1, 32, "float32", seed=2)
+    got = TOPS.flash_attention(tq, tk, tv, blk_q=64, blk_k=32)
+    np.testing.assert_array_equal(
+        _np(got), _np(TOPS.flash_attention(tq, tk, tv, blk_q=32, blk_k=32)))
+    want = JOPS.flash_attention(jq, jk, jv, blk_q=32, blk_k=32)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=2e-5, atol=2e-5)
+
+
 def _rwkv(BH, Tn, hd, lo=0.8, hi=0.999, scale=0.5, seed=0):
     rng = np.random.default_rng(seed)
     arrs = [rng.standard_normal((BH, Tn, hd)).astype(np.float32) * scale

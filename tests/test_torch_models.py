@@ -181,6 +181,27 @@ def test_time_mix_chunked_from_zero_state():
     np.testing.assert_allclose(_np(St), _np(Sj), rtol=1e-4, atol=1e-5)
 
 
+def test_time_mix_chunked_without_state():
+    """``return_state=False`` (the prefill's call) leaves the chunked
+    branch's ``S_out`` None and ``y`` unchanged; the token-scan branch
+    still returns its state."""
+    cfg, _, lt = _rwkv_layer()
+    hd = cfg.resolved_head_dim
+    H = cfg.d_model // hd
+    x = _t(np.random.default_rng(9).standard_normal(
+        (1, 256, cfg.d_model)).astype(np.float32))
+    xp = torch.zeros((1, 1, cfg.d_model))
+    y, S_out, last = TR.time_mix_chunked(x, xp, None, lt["tm"], H, hd,
+                                         return_state=False)
+    y2, S2, _ = TR.time_mix_chunked(x, xp, None, lt["tm"], H, hd)
+    assert S_out is None and S2.shape == (1, H, hd, hd)
+    torch.testing.assert_close(y, y2, rtol=0, atol=0)
+    torch.testing.assert_close(last, x[:, -1:], rtol=0, atol=0)
+    _, S_scan, _ = TR.time_mix_chunked(x[:, :32], xp, None, lt["tm"], H, hd,
+                                       return_state=False)
+    assert S_scan.shape == (1, H, hd, hd)
+
+
 def test_channel_mix_matches_reference():
     cfg, lj, lt = _rwkv_layer()
     rng = np.random.default_rng(7)
