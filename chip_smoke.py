@@ -50,10 +50,14 @@ drives the port (never JAX, never ``repro``):
    the device time of a prefill and of a decode step goes (K6/K7, matrix
    products, the rest);
 10. times (CUDA events after warm-up; device time from ``torch.profiler``
-   where it reports one), each beside the card's name and power limit.
+   where it reports one), each beside the card's name and power limit;
+   for K6, bf16 against its bound, f32 against the f32 rate's bound, and
+   bf16 against ``scaled_dot_product_attention``, and a check that a
+   bf16 call runs only the tensor-core kernel.
 
 Phase 2 also holds K6 against its plain version at the glm4-9b prefill
-(B 4, S 2048, 32 query heads over 2 KV heads of 128; bf16 and f32) and
+(B 4, S 2048, 32 query heads over 2 KV heads of 128; bf16 on the tensor
+cores and f32 on the CUDA cores) and
 K7 at the rwkv6-3b prefill (B 4, T 2048, 40 heads of 64, chunks of 128),
 and K5 against its plain version at 304 x 40 in blocks of
 38 CUs (every traced id, and one call of 8 mixed rows), and against K4 at
@@ -522,7 +526,9 @@ def time_events(fn, reps=200, warm=20):
 def device_ms(fn, kernel_name, reps=100, split=None):
     """Device time per call of ``fn`` in the CUDA kernels whose names
     contain ``kernel_name``, from torch.profiler; None if it reports none.
-    ``split`` (a dict) receives the time per call of each kernel."""
+    A call launches each such kernel once; its time is the mean over the
+    launches the trace recorded (a trace may miss some). ``split`` (a
+    dict) receives the time per call of each kernel."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -533,17 +539,17 @@ def device_ms(fn, kernel_name, reps=100, split=None):
         torch.cuda.synchronize()
     total, count = 0.0, 0
     for ev in prof.key_averages():
-        if kernel_name in ev.key:
+        if kernel_name in ev.key and ev.count:
             t = getattr(ev, "device_time_total", None)
             if t is None:
                 t = getattr(ev, "cuda_time_total", 0.0)
-            total += t
+            total += t / ev.count / 1e3
             count += ev.count
             if split is not None:
-                split[ev.key] = t / reps / 1e3
+                split[ev.key] = t / ev.count / 1e3
     if count == 0 or total <= 0:
         return None
-    return total / reps / 1e3
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -572,8 +578,9 @@ def main() -> int:
         fn = re.search(r"Function properties for .*?(epoch_fused_kernel|"
                        r"fork_blocked_pass_a|fork_blocked_pass_b|"
                        r"fork_blocked_epilogue|pc_table_\w+?_kernel|"
+                       r"flash_attention_kernel_wgmma|"
                        r"flash_attention_kernel|rwkv_chunk_kernel)"
-                       r"(ILi(\d)|I(13__nv_bfloat16|f)Li(\d+))?", line)
+                       r"(ILi(\d+)E|I(13__nv_bfloat16|f)Li(\d+))?", line)
         if fn:
             tmpl = fn.group(3) or (fn.group(4) and (
                 ("bf16" if fn.group(4) != "f" else "f32")
@@ -1241,10 +1248,12 @@ def main() -> int:
           f"glm4-9b prefill: {k6_row['library_ms'] * 1e3:.2f} us per call, "
           f"max |K6 - library| {float(lib_err):.3e} on {card}", flush=True)
     rates = {"flash_attention": BF16_FLOP_PER_S}
+    k6_split = {}
     for key, (kern, plain, kname) in times.items():
         ev = time_events(kern)
+        k6s = k6_split if key == "flash_attention" else None
         dv = blk_dev if key == "epoch_fused[fork_blocked]" \
-            else device_ms(kern, kname)
+            else device_ms(kern, kname, split=k6s)
         row = rows[key]
         row["events_ms"] = ev
         row["ms"] = dv if dv is not None else ev
@@ -1304,11 +1313,34 @@ def main() -> int:
         "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "rwkv_chunked": "src/repro_torch/kernels/csrc/rwkv_chunk.cu",
     }
+    # a bf16 call runs the tensor-core kernel and no other K6 kernel
+    check(bool(k6_split) and all("flash_attention_kernel_wgmma" in k
+                                 for k in k6_split),
+          f"K6 bf16 ran only the tensor-core kernel: {sorted(k6_split)}")
     kernels = []
-    f32_bound, _ = bound_ms(k6_row["nbytes"], k6_row["ops"])
-    print(f"flash_attention bound at the f32 rate outside the tensor cores: "
-          f"{f32_bound * 1e3:.2f} us (the table's bound is the bf16 tensor-"
-          f"core rate's)", flush=True)
+    # K6 in bf16 against its bound and the library, and in f32 (the
+    # CUDA-core kernel) against the f32 rate's bound
+    qf, kf, vf = k6_in[torch.float32]
+    f32_call = lambda: FA.flash_attention_bshd(  # noqa: E731
+        qf, kf, vf, causal=True)
+    f32_dev = device_ms(f32_call, "flash_attention_kernel<", reps=10)
+    f32_ms = f32_dev if f32_dev is not None else time_events(
+        f32_call, reps=10, warm=2)
+    f32_bound, _ = bound_ms(nbytes(qf, kf, vf, qf), k6_row["ops"])
+    print(f"K6 bf16 (tensor cores, flash_attention_kernel_wgmma): "
+          f"{k6_row['ms'] * 1e3:.2f} us against its bound "
+          f"{k6_row['bound_ms'] * 1e3:.2f} us (bf16 tensor-core rate), "
+          f"{k6_row['ms'] / k6_row['bound_ms']:.2f}x, on {card}",
+          flush=True)
+    print(f"K6 f32 (CUDA cores, flash_attention_kernel): "
+          f"{f32_ms * 1e3:.2f} us (device"
+          f"{'' if f32_dev is not None else ' n/a, events'}) against its "
+          f"bound {f32_bound * 1e3:.2f} us (f32 rate outside the tensor "
+          f"cores), {f32_ms / f32_bound:.2f}x, on {card}", flush=True)
+    print(f"K6 bf16 against scaled_dot_product_attention: "
+          f"{k6_row['ms'] * 1e3:.2f} / {k6_row['library_ms'] * 1e3:.2f} us "
+          f"= {k6_row['ms'] / k6_row['library_ms']:.2f}x, on {card}",
+          flush=True)
     for key in replaces:
         r = rows[key]
         check(r.get("launches", 0) > 0, f"{key} launched on its path")

@@ -18,7 +18,8 @@ wrappers):
 
 * ``flash_attention.flash_attention_bshd`` — K6, online-softmax attention
   with causal and sliding-window masks over grouped KV heads
-  (``csrc/flash_attention.cu``);
+  (``csrc/flash_attention.cu``): bf16 on the tensor cores (``wgmma``,
+  TMA-staged K/V, p split into two bf16 terms), f32 on the CUDA cores;
 * ``rwkv_chunk.rwkv_chunked_bthd`` — K7, the chunked RWKV6 WKV with the
   state carried over the chunks (``csrc/rwkv_chunk.cu``).
 

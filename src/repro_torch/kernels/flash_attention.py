@@ -12,14 +12,21 @@ the Pallas kernel's (scale, mask to -1e30, ``m_new``, ``p`` zeroed where
 masked, ``alpha = exp(max(m_prev - m_new, -80))``), over all query rows
 at once: a row's result does not depend on ``blk_q``. ``blk_q`` stays in
 every signature for the reference's, and neither version reads it: K6
-always tiles 64 queries per CTA. ``blk_k`` sets the key blocks the online
-softmax walks, and S must be a multiple of ``min(blk_k, S)``.
+tiles its own query rows per CTA (64 in f32, 128 in bf16). ``blk_k`` sets
+the key blocks the online softmax walks, and S must be a multiple of
+``min(blk_k, S)``.
 
 On a CUDA tensor :func:`flash_attention_bshd` launches K6 on the current
 stream (counted in ``flash_attention_bshd.launches``): it reads q as
 (B,S,H,hd) and K/V by KV head ``h // (H // Hkv)``, so the GQA expansion
-is never materialised. On a CPU tensor it runs the plain version on the
-reference's expanded (B*H,S,hd) layout.
+is never materialised. bf16 (the served dtype) runs on the tensor cores
+(``wgmma``, K/V staged by TMA); both products take bf16 operands with f32
+sums, and p is split into two bf16 terms, ``p_hi + p_lo``, so the p V
+product keeps p to 2^-17 where one bf16 rounding would keep 2^-9 (the
+reference's Pallas kernel and the plain version keep p in f32). f32 runs
+on the CUDA cores in f32 (the tensor cores would take it only as TF32).
+On a CPU tensor it runs the plain version on the reference's expanded
+(B*H,S,hd) layout.
 """
 from __future__ import annotations
 

@@ -20,7 +20,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     blk_k: int = 128) -> torch.Tensor:
     """q (B,S,H,hd), k/v (B,S,Hkv,hd) with H % Hkv == 0. Returns
     (B,S,H,hd) in q's dtype. ``blk_q`` is the reference's and has no
-    effect (K6 tiles 64 queries); keys are walked in blocks of
+    effect (K6 tiles its own query rows); keys are walked in blocks of
     ``min(blk_k, S)``, which must divide S."""
     return _fa.flash_attention_bshd(q, k, v, causal=causal, window=window,
                                     blk_q=blk_q, blk_k=blk_k)

@@ -7,7 +7,8 @@ kernel K6 (``kernels.ops.flash_attention``): the kernel on a CUDA tensor,
 its plain version on a CPU tensor. The reference's ``_mha_block`` and
 ``_causal_pair_attention`` are its jnp route to the same function and are
 not ported; the reference rounds softmax probabilities to the value dtype
-before the second product (``_mha_block``), K6 keeps them in f32.
+before the second product (``_mha_block``), K6 keeps them in f32 (in
+bf16 through two bf16 terms, ``p_hi + p_lo``, to 2^-17).
 ``chunked_ce_loss`` comes with training.
 """
 from __future__ import annotations

@@ -12,12 +12,17 @@ floats within 1e-4 + 1e-5 |ref| (the kernels reduce in warp-tree and
 fixed block order, torch in its own).
 """
 import dataclasses
+import re
+import shutil
+import subprocess
+from pathlib import Path
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch import kernels as K  # noqa: E402
 from repro_torch.core import mechanisms as MECH  # noqa: E402
 from repro_torch.core import power as PWR  # noqa: E402
 from repro_torch.core import predictors as PRED  # noqa: E402
@@ -575,32 +580,42 @@ K6_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2.0 ** -7, 1e-5)}
 K7_TOL = 1e-4
 
 
-def _qkv(B, S, H, Hkv, hd, dtype, dev, seed=0):
+def _qkv(B, S, H, Hkv, hd, dtype, dev, seed=0, q_scale=1.0):
+    """q, k, v from a numpy seed; ``q_scale`` (a power of two, exact in
+    bf16) scales the scores."""
     rng = np.random.default_rng(seed)
-    return [torch.as_tensor(rng.standard_normal(s).astype(np.float32))
-            .to(dev, dtype) for s in ((B, S, H, hd), (B, S, Hkv, hd),
-                                      (B, S, Hkv, hd))]
+    q, k, v = (rng.standard_normal(s).astype(np.float32)
+               for s in ((B, S, H, hd), (B, S, Hkv, hd), (B, S, Hkv, hd)))
+    return [torch.as_tensor(a).to(dev, dtype) for a in (q * q_scale, k, v)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("B,S,H,Hkv,hd,causal,window", [
-    (1, 128, 2, 2, 64, True, 0),
-    (2, 256, 4, 2, 64, True, 0),
-    (1, 256, 4, 1, 128, True, 0),      # MQA
-    (2, 512, 2, 2, 32, True, 0),
-    (1, 64, 4, 2, 16, True, 0),        # S < blk
-    (1, 32, 2, 1, 128, True, 0),       # S < one staged sub-tile
-    (1, 256, 2, 2, 64, True, 32),
-    (1, 256, 2, 2, 64, True, 128),
-    (1, 384, 2, 1, 64, False, 0),
-    (1, 384, 2, 1, 64, False, 100),
-    (2, 1024, 8, 2, 128, True, 0),
+@pytest.mark.parametrize("B,S,H,Hkv,hd,causal,window,q_scale", [
+    (1, 128, 2, 2, 64, True, 0, 1.0),
+    (2, 256, 4, 2, 64, True, 0, 1.0),
+    (1, 256, 4, 1, 128, True, 0, 1.0),      # MQA
+    (2, 512, 2, 2, 32, True, 0, 1.0),
+    (1, 64, 4, 2, 16, True, 0, 1.0),        # S < blk
+    (1, 32, 2, 1, 128, True, 0, 1.0),       # S < one staged sub-tile
+    (1, 256, 2, 2, 64, True, 32, 1.0),
+    (1, 256, 2, 2, 64, True, 128, 1.0),
+    (1, 384, 2, 1, 64, False, 0, 1.0),
+    (1, 384, 2, 1, 64, False, 100, 1.0),
+    (2, 1024, 8, 2, 128, True, 0, 1.0),
+    # the bf16 kernel's edges: S below one 64-row wgmma tile, its 24-key
+    # block padded inside a 64-key sub-tile; 32:1 GQA at hd 128; causal
+    # with a window; scores x 8, so p spans many binades and the split of p
+    # into two bf16 terms is what holds the result to one bf16 ulp
+    (2, 24, 4, 2, 64, True, 0, 1.0),
+    (1, 256, 32, 1, 128, True, 0, 1.0),
+    (1, 512, 4, 2, 128, True, 100, 1.0),
+    (2, 512, 4, 2, 128, True, 0, 8.0),
 ])
 def test_flash_attention_kernel_matches_plain(dev, dtype, B, S, H, Hkv, hd,
-                                              causal, window):
+                                              causal, window, q_scale):
     from repro_torch.kernels import flash_attention as FA
-    q, k, v = _qkv(B, S, H, Hkv, hd, dtype, dev)
+    q, k, v = _qkv(B, S, H, Hkv, hd, dtype, dev, q_scale=q_scale)
     n0 = FA.flash_attention_bshd.launches
     got = FA.flash_attention_bshd(q, k, v, causal=causal, window=window)
     assert FA.flash_attention_bshd.launches == n0 + 1
@@ -613,19 +628,29 @@ def test_flash_attention_kernel_matches_plain(dev, dtype, B, S, H, Hkv, hd,
                                atol=atol)
 
 
-@pytest.mark.parametrize("blk", [32, 64, 256])
-def test_flash_attention_kernel_key_blocks(dev, blk):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("S,blk", [
+    (512, 32), (512, 64), (512, 256),
+    # key blocks that are not a multiple of the bf16 kernel's 64-key
+    # sub-tile, and a sequence that is not a multiple of its 128-row tile
+    (384, 48), (384, 96), (320, 64),
+])
+def test_flash_attention_kernel_key_blocks(dev, dtype, S, blk):
     from repro_torch.kernels import flash_attention as FA
-    q, k, v = _qkv(1, 512, 4, 2, 64, torch.float32, dev, seed=3)
+    q, k, v = _qkv(1, S, 4, 2, 64, dtype, dev, seed=3)
     got = FA.flash_attention_bshd(q, k, v, blk_q=blk, blk_k=blk)
     want = FA.flash_attention_bshd_ref(q, k, v, blk_q=blk, blk_k=blk)
-    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
-                               rtol=2e-5, atol=2e-5)
+    rtol, atol = K6_TOL[dtype]
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=rtol,
+                               atol=atol)
 
 
 def test_flash_attention_kernel_ignores_blk_q(dev):
-    """K6 tiles 64 queries whatever ``blk_q`` says: a query block that
-    does not divide S is accepted and changes nothing."""
+    """K6 tiles its own query rows (64 in f32, 128 in bf16) whatever
+    ``blk_q`` says: a query block that does not divide S is accepted and
+    changes nothing."""
     from repro_torch.kernels import flash_attention as FA
     q, k, v = _qkv(1, 96, 2, 1, 32, torch.float32, dev, seed=5)
     got = FA.flash_attention_bshd(q, k, v, blk_q=64, blk_k=32)
@@ -665,6 +690,31 @@ def test_flash_attention_kernel_refuses_bad_operands(dev):
     with pytest.raises(ValueError, match="contiguous"):
         FA.flash_attention_bshd(q, k.transpose(1, 2).contiguous()
                                 .transpose(1, 2), v)
+
+
+def test_flash_attention_bf16_kernel_is_wgmma_without_spills(dev):
+    """The bf16 kernel runs on the tensor cores: its SASS holds HGMMA (the
+    warpgroup matrix multiply), and ptxas spills none of its registers."""
+    lib = K.library()
+    props = re.findall(
+        r"Function properties for (\S*flash_attention_kernel_wgmma\S*)\n"
+        r"\s*(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) "
+        r"bytes spill loads", K.BUILD["log"])
+    assert len(props) == 4, "one ptxas report per head dim (16/32/64/128)"
+    for name, _, stores, loads in props:
+        assert (stores, loads) == ("0", "0"), f"{name} spills"
+    tool = shutil.which("cuobjdump") or str(
+        Path(K._nvcc()).parent / "cuobjdump")
+    if not Path(tool).exists():
+        pytest.skip("cuobjdump is not installed")
+    sass = subprocess.run([tool, "--dump-sass", lib._name],
+                          capture_output=True, text=True, check=True).stdout
+    funcs = re.split(r"\n\s*Function : ", sass)
+    tc = [f for f in funcs
+          if "flash_attention_kernel_wgmma" in f.split("\n", 1)[0]]
+    assert len(tc) == 4
+    for f in tc:
+        assert "HGMMA" in f, f.split("\n", 1)[0]
 
 
 def _rwkv_case(B, T, H, hd, lo, hi, dev, seed=0):

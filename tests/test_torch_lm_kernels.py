@@ -118,6 +118,59 @@ def _rwkv(BH, Tn, hd, lo=0.8, hi=0.999, scale=0.5, seed=0):
     return arrs
 
 
+def _bf16_kernel_numerics(q, k, v, *, split, blk_k=128):
+    """The bf16 card kernel's arithmetic, causal, on the CPU: bf16 operands
+    with f32 products and sums, the reference's softmax step in f32, and p
+    V from p split into two bf16 terms (``split``) or rounded to bf16
+    once, as the reference's jnp ``_mha_block`` rounds it."""
+    B, S, H, hd = q.shape
+    rep = H // k.shape[2]
+    qf = q.float().transpose(1, 2)
+    kf, vf = (t.float().repeat_interleave(rep, 2).transpose(1, 2)
+              for t in (k, v))
+    m = torch.full((B, H, S), -1e30)
+    l = torch.zeros((B, H, S))
+    acc = torch.zeros((B, H, S, hd))
+    rows = torch.arange(S)[:, None]
+    for j in range(S // blk_k):
+        kj, vj = (t[:, :, j * blk_k:(j + 1) * blk_k] for t in (kf, vf))
+        mask = j * blk_k + torch.arange(blk_k)[None, :] <= rows
+        s = torch.where(mask, qf @ kj.transpose(-1, -2) * (1.0 / hd ** 0.5),
+                        -1e30)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
+        alpha = torch.exp(torch.clamp(m - m_new, min=-80.0))
+        hi = p.bfloat16().float()
+        pv = hi @ vj
+        if split:
+            pv = pv + (p - hi).bfloat16().float() @ vj
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-20)[..., None]
+    return out.transpose(1, 2).bfloat16()
+
+
+@pytest.mark.parametrize("hd,q_scale", [(64, 1.0), (128, 8.0)])
+def test_flash_attention_bf16_split_p_keeps_one_ulp(hd, q_scale):
+    """Why the card's bf16 kernel splits p: with p_hi + p_lo its result
+    lands within one bf16 ulp (rtol 2^-7, atol 1e-5, the card tests'
+    limit) of the reference's Pallas kernel, which keeps p in f32; p
+    rounded to bf16 once does not (scores x 8 make p span many
+    binades)."""
+    rng = np.random.default_rng(7)
+    a = [rng.standard_normal(sh).astype(np.float32)
+         for sh in ((1, 256, 4, hd), (1, 256, 2, hd), (1, 256, 2, hd))]
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(x, "bfloat16")
+                                    for x in (a[0] * q_scale, a[1], a[2]))
+    want = _np(JOPS.flash_attention(jq, jk, jv, causal=True))
+    lim = 1e-5 + 2.0 ** -7 * np.abs(want)
+    split = _np(_bf16_kernel_numerics(tq, tk, tv, split=True))
+    once = _np(_bf16_kernel_numerics(tq, tk, tv, split=False))
+    assert (np.abs(split - want) <= lim).all()
+    assert (np.abs(once - want) > lim).any()
+
+
 @pytest.mark.parametrize("BH,Tn,hd,chunk", [
     (2, 128, 64, 64), (1, 256, 64, 128), (3, 128, 32, 32),
 ])
