@@ -34,8 +34,7 @@ once after the loop.
   counterpart of the reference's ``vmap`` over (workload x grid point x
   seed and grid point. The builtin fork mechanisms share one step in which
   the mechanism is a per-row traced id (``FORK_MECHS``): on the fused
-  kernel engine that step is one ``epoch_fused_rows`` call for all rows
-  (with ``SimConfig.pallas_block_cu`` on the card, the CU-tiled epoch);
+  kernel engine that step is one ``epoch_fused_rows`` call for all rows;
   otherwise, and for the specialised families (statics, the oracle, custom
   hooks), the one-row body is mapped over the rows with
   ``torch.func.vmap``, so custom hooks see per-row views.
@@ -108,9 +107,9 @@ class SimStatic:
     # False (unfused body), "v1" (PC-table kernel pair), "v2" (the fused
     # epoch kernel), True = v2 where the mechanism permits, else v1
     use_pallas: Union[bool, str]
-    # fork family on the fused kernel engine: tile the CU axis over blocks
-    # of this many CUs (None = monolithic), the CU-tiled epoch kernel on
-    # the card (for rows too wide for one CTA); inert on the CPU
+    # the reference's CU tiling of the fork family's fused epoch (None =
+    # untiled): checked as the reference checks it, and otherwise inert,
+    # since the port's kernels pick their own CTA width on the card
     pallas_block_cu: Optional[int]
     power: PWR.PowerStatic
 
@@ -177,7 +176,7 @@ class SimConfig:
     # False | True | "v1" | "v2": see SimStatic; the port runs its kernels
     # by default
     use_pallas: Union[bool, str] = True
-    # fork-family CU tile of the fused kernel (None = monolithic)
+    # the reference's fork-family CU tile (None = untiled): see SimStatic
     pallas_block_cu: Optional[int] = None
     power: PWR.PowerConfig = PWR.DEFAULT
     seed: int = 0

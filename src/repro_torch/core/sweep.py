@@ -31,9 +31,10 @@ objectives through the fork--pre-execute engine. This layer
 ``run_suite`` IS a one-point ``run_grid``, so every consumer dispatches
 through the same batched steps. Inside the port, suite, grid, per-point
 grid and ``GridExecutor`` rows are bitwise equal to each other: a row's
-arithmetic never depends on which rows share its batch (the kernel runs
-one CTA per row; the unfused body's reductions are short enough that
-their order does not change with the batch size).
+arithmetic never depends on which rows share its batch (the kernel sums
+each row's values in fixed orders, whatever its CTAs; the unfused body's
+reductions are short enough that their order does not change with the
+batch size).
 
 Differences from the reference, all of them consequences of running on
 one card in eager PyTorch:

@@ -5,13 +5,11 @@ Seven kernels, one shared library. The DVFS engine's hot path:
 * ``pc_table.pc_table_predict`` / ``pc_table.pc_table_update`` — the PC
   table predict/update pair (``csrc/pc_table.cu``);
 * ``epoch_fused.epoch_fused`` — the whole fork--execute epoch of one
-  simulation, families ``pc``/``reactive`` (``csrc/epoch_fused.cu``);
+  simulation, families ``pc``/``reactive`` (``csrc/epoch_fused.cu``: each
+  row's CUs over CTAs of a few CUs, in two passes and an epilogue);
 * ``epoch_fused.epoch_fused_rows`` — the same epoch for every row of a
   sweep family at once, mechanism chosen per row by a traced id (family
-  ``fork``; same source, one CTA per row);
-* ``epoch_fused.epoch_fused_rows(..., block_cu=b)`` — the CU-tiled fork
-  epoch for rows too wide for one CTA (same source, one entry point that
-  launches two passes over CU blocks and an epilogue).
+  ``fork``; the same kernels).
 
 The LM model zoo's prefill (``ops.py`` holds the reference's public
 wrappers):
@@ -61,7 +59,7 @@ SIGNATURES = {
     "pc_table_predict_launch": (_CI, [_VP] * 9 + [_CI] * 5 + [_VP] * 2),
     "pc_table_update_launch": (_CI, [_VP] * 10 + [_CI] * 3 + [_VP]),
     "epoch_fused_launch": (_CI, [_VP, _VP]),
-    "epoch_fused_blocked_launch": (_CI, [_VP, _VP]),
+    "epoch_fused_cta_width": (_CI, [_CI] * 3),
     "flash_attention_launch": (_CI, [_VP] * 4 + [_CI] * 9 + [_VP]),
     "rwkv_chunk_launch": (_CI, [_VP] * 7 + [_CI] * 7 + [_VP]),
     "repro_error_string": (ctypes.c_char_p, [_CI]),

@@ -59,9 +59,12 @@
 // split) sets the pace.
 // Keys past a block's end or past S inside a sub-tile get p = 0 (past S
 // the TMA copy fills K and V with zeros). Query rows past S are computed
-// on zero rows of Q and never stored. Head dims 16 and 32 read a 64-column
-// panel of which the head fills the first hd columns (the next heads' or
-// zero-filled columns beyond it are multiplied and dropped).
+// on zero rows of Q and never stored. The TMA maps are 4-D (column, head,
+// row, batch), so a 64-column box ends at its head's last column: head
+// dims 16, 32 and 96 fill their last panel with zeros past hd (nothing of
+// the next head is read), the scores take hd / 16 k-steps, and the p V
+// columns past hd come out zero and are not stored. Head dim 96 runs p V
+// at n = 128, a third more tensor work than its 96 columns need.
 //
 // f32: flash_attention_kernel, on the CUDA cores. The tensor cores would
 // take f32 only as TF32 (10 significand bits), which the port does not use.
@@ -306,16 +309,16 @@ __device__ __forceinline__ int warpgroup() {
   return __shfl_sync(FULL_MASK, (int)threadIdx.x / 128, 0);
 }
 
-// one box of a 3-D tensor map (columns, rows, batch) into shared memory,
-// completing `bar`'s transaction count
+// one box of a 4-D tensor map (column, head, row, batch) into shared
+// memory, completing `bar`'s transaction count
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1,
-                                         int c2) {
+                                         uint32_t bar, int col, int head,
+                                         int row, int batch) {
   asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2)
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(head),
+      "r"(row), "r"(batch)
       : "memory");
 }
 
@@ -893,8 +896,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_kernel_wgmma(
     if (tid == 2 * 128) {
       mbar_expect_tx(bar_q, NP * T::kQPanel);
       for (int p = 0; p < NP; ++p)
-        tma_load(sQ + p * T::kQPanel, &mq, bar_q, h * HD + p * kPanel, q0,
-                 b);
+        tma_load(sQ + p * T::kQPanel, &mq, bar_q, p * kPanel, h, q0, b);
       int c = 0;  // sub-tiles issued so far
       for (int j = jb0; j < jb1; ++j, c += nsub) {
         for (int kv = 0; kv < 2; ++kv) {  // the block's K, then its V
@@ -908,8 +910,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_kernel_wgmma(
             mbar_expect_tx(full + 8 * slot, T::kKV);
             for (int p = 0; p < NP; ++p)
               tma_load(ring + slot * T::kKV + p * T::kKVPanel, map,
-                       full + 8 * slot, hk * HD + p * kPanel,
-                       j * BK + i * kKeys, b);
+                       full + 8 * slot, p * kPanel, hk, j * BK + i * kKeys,
+                       b);
           }
         }
       }
@@ -944,19 +946,20 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// (B, S, heads x hd) bf16 as a 3-D map of 64-column, `rows`-row boxes with
-// the 128-byte swizzle; rows past S read as zeros
-bool encode(CUtensorMap* map, const void* ptr, int B, int S, int cols,
-            int rows) {
+// (B, S, heads, hd) bf16 as a 4-D map of boxes of 64 columns of one head
+// and `rows` rows, with the 128-byte swizzle; columns past hd and rows
+// past S read as zeros
+bool encode(CUtensorMap* map, const void* ptr, int B, int S, int heads,
+            int hd, int rows) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)S,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2,
-                                 (cuuint64_t)cols * 2 * S};
-  const cuuint32_t box[3] = {(cuuint32_t)kPanel, (cuuint32_t)rows, 1};
-  const cuuint32_t step[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads,
+                              (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t row = (cuuint64_t)heads * hd * 2;
+  const cuuint64_t strides[3] = {(cuuint64_t)hd * 2, row, row * S};
+  const cuuint32_t box[4] = {(cuuint32_t)kPanel, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
             dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
@@ -967,9 +970,9 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
            int S, int H, int Hkv, int blk_k, int causal, int window,
            cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
-  if (!encode(&mq, q, B, S, H * HD, kRows) ||
-      !encode(&mk, k, B, S, Hkv * HD, kKeys) ||
-      !encode(&mv, v, B, S, Hkv * HD, kKeys))
+  if (!encode(&mq, q, B, S, H, HD, kRows) ||
+      !encode(&mk, k, B, S, Hkv, HD, kKeys) ||
+      !encode(&mv, v, B, S, Hkv, HD, kKeys))
     return (int)cudaErrorInvalidValue;
   const long long grid = (long long)((S + kRows - 1) / kRows) * H * B;
   if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
@@ -1003,6 +1006,8 @@ int launch_hd(const void* q, const void* k, const void* v, void* o, int B,
       FA_LAUNCH(32);
     case 64:
       FA_LAUNCH(64);
+    case 96:
+      FA_LAUNCH(96);
     case 128:
       FA_LAUNCH(128);
     default:

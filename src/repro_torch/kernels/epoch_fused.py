@@ -32,33 +32,35 @@ fork-exact model last) and the table and per-WF state only for
 ``pc_ids`` (``id_ctr_pc`` counter-driven, the others fork-exact); every
 other group keeps its carry values. ``hit_rate`` is emitted for every id.
 
-:func:`epoch_fused_rows` steps R fork-family rows at once (the sweep's
-grid rows, each with its own program, block count, id, sweep scalars and
-power regime): on CUDA tensors it is **one** kernel launch, one CTA per
-row; on CPU tensors it runs :func:`_epoch_math` row by row.
-:func:`epoch_fused` is the one-row call of every family.
+On CUDA tensors every call is one call of the C entry point
+(``csrc/epoch_fused.cu``), in one tiled form for every family: each row's
+CUs cut over CTAs of a few CUs (the launcher picks the width from CU, R
+and the card's SM count, each V/f domain whole in a CTA;
+:func:`cta_width` reads its pick), a pass A (predict, select, per-CU
+traffic partials), a pass B (execute, counters, state advance) and an
+epilogue (table sums and EMA blend, hit rate). :func:`epoch_fused_rows`
+steps R fork-family rows at once (the sweep's grid rows, each with its
+own program, block count, id, sweep scalars and power regime);
+:func:`epoch_fused` is the one-row call of every family. A row's bits
+depend neither on its batch nor on its CTA width: every sum across CUs
+runs in CU order. On CPU tensors the plain version runs row by row.
 
-``block_cu`` selects the CU-tiled fork epoch (the reference's
-``_fork_blocked``), for rows too wide for one CTA's shared memory: on
-CUDA tensors one call of the C entry point launches a pass A
-(predict, select, per-CU traffic partials) over a (CU / block_cu, R)
-grid, a pass B (execute, counters, state advance) over the same grid,
-and an epilogue (table sums and EMA blend, hit rate, time). Its
-arithmetic is the monolithic kernel's, so its rows equal the monolithic
-kernel's bit for bit wherever both fit. On CPU tensors ``block_cu`` is
-inert, as on the reference's interpret engine: the monolithic plain
-version runs. :func:`_fork_blocked_math` is the plain version of the
-reference's blocked pair (lean math; traffic, hits and raw table sums
-accumulated block by block in index order), reached through
-:func:`epoch_fused_blocked_ref` and :func:`epoch_fused_rows_blocked_ref`.
+``block_cu`` is the reference's CU tiling of the fork family
+(``_fork_blocked``): a divisor of CU that holds whole domains, checked as
+the reference checks it, and otherwise inert on either device, as on the
+reference's interpret engine (the families ``pc`` and ``reactive`` ignore
+it, as the reference does). :func:`_fork_blocked_math` is the plain
+version of the reference's blocked pair (lean math; traffic, hits and
+raw table sums accumulated block by block in index order), reached
+through :func:`epoch_fused_blocked_ref` and
+:func:`epoch_fused_rows_blocked_ref`.
 
-On a CUDA tensor the wrappers launch the CUDA kernel (counted in
-``epoch_fused.launches`` and ``epoch_fused.launches_by_family``, where
-``"fork_blocked"`` counts calls of the tiled entry point); on a CPU
+On a CUDA tensor the wrappers launch the CUDA kernels (calls counted in
+``epoch_fused.launches`` and ``epoch_fused.launches_by_family``); on a CPU
 tensor they run :func:`_epoch_math`. :func:`epoch_fused_ref` and
 :func:`epoch_fused_rows_ref` run :func:`_epoch_math` on any device.
-A row too wide for one CTA raises (``RuntimeError`` naming
-``pallas_block_cu``); nothing falls back.
+A program a CTA's shared memory cannot hold raises (``RuntimeError``
+naming the remedy); nothing falls back.
 """
 from __future__ import annotations
 
@@ -80,8 +82,8 @@ _N_SCAL = 9
 _N_PW = len(PWR.PowerAxes._fields)
 _CU_MODEL_IDS = {m: i for i, m in enumerate(EST.CU_MODELS)}
 _FAMILY_IDS = {"pc": 0, "reactive": 1, "fork": 2}
-# what the C entry points return, before any launch, for a row (or a
-# block of one) that one CTA's shared memory cannot hold
+# what the C entry point returns, before any launch, for a program (and a
+# row's traffic partials) that a CTA's shared memory cannot hold
 # (csrc/epoch_fused.cu: kRowTooWide)
 _ROW_TOO_WIDE = -1
 
@@ -320,15 +322,11 @@ def _epoch_math(ins, *, NF, CU, WF, E, T_, ND, CPD, IPB, OFFB, P, family,
     return outs
 
 
-def _check_blocks(CU: int, block_cu: int, cus_per_domain: int,
-                  lean: bool) -> None:
-    """The blocked epoch's tiling (whole blocks of whole domains) and math
-    mode (lean only, as the reference's blocked pair)."""
+def _check_blocks(CU: int, block_cu: int, cus_per_domain: int) -> None:
+    """The reference's tiling: whole blocks of whole domains."""
     if block_cu < 1 or CU % block_cu or block_cu % cus_per_domain:
         raise ValueError(f"block_cu={block_cu} must divide n_cu={CU} and be "
                          f"a multiple of cus_per_domain={cus_per_domain}")
-    if not lean:
-        raise ValueError("the blocked fork epoch implements lean math only")
 
 
 def _fork_blocked_math(ins, *, NF, CU, WF, E, T_, CPD, IPB, OFFB, P,
@@ -481,20 +479,16 @@ class _EpochArgs(ctypes.Structure):
                 "P", "Pp", "CU", "WF", "NF", "T", "E", "CPD", "IPB", "OFFB",
                 "family", "fork_est", "cu_model", "lean", "R", "n_react",
                 "react_models", "pc_mask", "id_ctr_pc")] + [
-            (n, ctypes.c_void_p) for n in ("traf", "hit_cu", "idx")] + [
-            ("block_cu", ctypes.c_int)]
+            (n, ctypes.c_void_p) for n in ("traf", "hit_cu", "idx",
+                                           "iat")] + [
+            ("cta_cu", ctypes.c_int)]
 
 
-_UNTILED = ("the CU-tiled epoch (SimConfig.pallas_block_cu) serves the fork "
-            "family only; run this family unfused (use_pallas=False) or "
-            "through the sweep")
-# what to do about a row too wide for one CTA, by family
-_TOO_WIDE_HINT = {
-    "pc": _UNTILED, "reactive": _UNTILED,
-    "fork": "tile the row over CTAs with block_cu (SimConfig."
-            "pallas_block_cu), which runs the CU-tiled fork epoch",
-    "fork_blocked": "choose a smaller block_cu (SimConfig.pallas_block_cu)",
-}
+# what to do about it: every CTA holds the whole program, which no tiling
+# shrinks
+_TOO_WIDE_HINT = ("every CTA holds the whole program, so no block_cu "
+                  "(SimConfig.pallas_block_cu) helps: use a program of fewer "
+                  "blocks")
 
 
 def _ptr(t):
@@ -502,27 +496,47 @@ def _ptr(t):
 
 
 def _run_kernel(args: _EpochArgs, dev: torch.device, family: str) -> None:
-    """Call the C entry point of ``family`` once on ``dev``'s current
-    stream and count it (``"fork_blocked"``: the CU-tiled entry point,
-    three kernel launches per call)."""
-    lib = library()
-    entry = lib.epoch_fused_blocked_launch if family == "fork_blocked" \
-        else lib.epoch_fused_launch
-    code = entry(ctypes.addressof(args), stream_ptr_of(dev))
+    """Call the C entry point once on ``dev``'s current stream (passes A
+    and B, and the epilogue but for the reactive family) and count it
+    under ``family``."""
+    code = library().epoch_fused_launch(ctypes.addressof(args),
+                                        stream_ptr_of(dev))
     if code == _ROW_TOO_WIDE:
-        cus = args.block_cu if family == "fork_blocked" else args.CU
         raise RuntimeError(
-            f"epoch_fused[{family}]: {cus} CUs x {args.WF} WFs over "
-            f"{args.Pp} program blocks do not fit one CTA's shared memory: "
-            f"{_TOO_WIDE_HINT[family]}")
+            f"epoch_fused[{family}]: {args.CU} CUs x {args.WF} WFs over "
+            f"{args.Pp} program blocks do not fit a CTA's shared memory: "
+            f"{_TOO_WIDE_HINT}")
     check(code, f"epoch_fused[{family}]")
     epoch_fused.launches += 1
     epoch_fused.launches_by_family[family] += 1
 
 
+def cta_width(CU: int, R: int, cus_per_domain: int = 1) -> int:
+    """The CTA width, in CUs, that the launcher picks for ``R`` rows of
+    ``CU`` CUs on the current CUDA device."""
+    return int(library().epoch_fused_cta_width(CU, R, cus_per_domain))
+
+
+# the execute rows the kernels run per CU: fork rows 0 and NF-1 and the
+# selected row, the only ones any output reads (csrc/epoch_fused.cu)
+_EXEC_ROWS = 3
+
+
+def _scratch(R, CU, WF, dev, table: bool):
+    """The passes' hand-over buffers: per-CU traffic partials of the
+    executed rows and I at the selected state, and (with a table) per-CU
+    hit counts and each WF's table slot."""
+    out = dict(traf=torch.empty((R, _EXEC_ROWS, CU), dtype=_F32, device=dev),
+               iat=torch.empty((R, CU), dtype=_F32, device=dev))
+    if table:
+        out.update(hit_cu=torch.empty((R, CU), dtype=_I32, device=dev),
+                   idx=torch.empty((R, CU, WF), dtype=_I32, device=dev))
+    return out
+
+
 def _launch(ins, *, NF, CU, WF, E, T_, ND, CPD, IPB, OFFB, P, family,
             fork_estimator, cu_model, lean):
-    """Check the operands and launch the CUDA kernel; same outputs as
+    """Check the operands and launch K3; same outputs as
     :func:`_epoch_math`."""
     pc = family == "pc"
     if pc:
@@ -572,6 +586,7 @@ def _launch(ins, *, NF, CU, WF, E, T_, ND, CPD, IPB, OFFB, P, family,
     else:
         o.update(ri0_o=empty(CU), rse_o=empty(CU))
 
+    scratch = _scratch(1, CU, WF, dev, pc)
     args = _EpochArgs(
         i0r=_ptr(i0r), sr=_ptr(sr), cum_t=_ptr(cum_t), pos=_ptr(pos),
         eps=_ptr(eps), ti0=_ptr(ti0), tse=_ptr(tse), tcnt=_ptr(tcnt),
@@ -579,6 +594,7 @@ def _launch(ins, *, NF, CU, WF, E, T_, ND, CPD, IPB, OFFB, P, family,
         rse=_ptr(rse), fprev=_ptr(fprev), eacc=_ptr(eacc), tacc=_ptr(tacc),
         F=_ptr(F), scal=_ptr(scal), pw=_ptr(pw_vec),
         **{k: _ptr(v) for k, v in o.items()},
+        **{k: _ptr(v) for k, v in scratch.items()},
         P=P, Pp=Pp, CU=CU, WF=WF, NF=NF, T=T_, E=E, CPD=CPD, IPB=IPB,
         OFFB=OFFB, family=_FAMILY_IDS[family], fork_est=int(fork_estimator),
         cu_model=_CU_MODEL_IDS.get(cu_model, -1), lean=int(lean), R=1)
@@ -636,10 +652,10 @@ def _fork_layout(react_models, pc_ids, id_ctr_pc):
 
 def _launch_rows(ins, *, NF, CU, WF, E, T_, ND, CPD, IPB, OFFB, lean,
                  react_models, pc_ids, id_ctr_pc, block_cu=None):
-    """Check the operands of R fork rows and launch: without ``block_cu``
-    the monolithic kernel ONCE (one CTA per row), with it the CU-tiled
-    entry point ONCE (passes A and B over (CU / block_cu, R) CTAs, then
-    the epilogue). Same outputs as :func:`_rows_plain`."""
+    """Check the operands of R fork rows (and ``block_cu``, which picks
+    nothing) and call the kernels ONCE (passes A and B over (CU / cta_cu,
+    R) CTAs, then the epilogue), counted under ``"fork"``. Same outputs as
+    :func:`_rows_plain`."""
     (i0r, sr, cum_t, prow, Prow, pos, ti0, tse, tcnt, wfi, wfs, ri0, rse,
      fprev, eacc, tacc, F, tid, mech, eps, scal, pw_vec) = ins
     if WF > 64 or NF > 32:
@@ -667,7 +683,7 @@ def _launch_rows(ins, *, NF, CU, WF, E, T_, ND, CPD, IPB, OFFB, lean,
     for name, t, dt, shp in checks:
         require(t, name, dt, shp, dev)
     if block_cu is not None:
-        _check_blocks(CU, block_cu, CPD, lean)
+        _check_blocks(CU, block_cu, CPD)
     n_react, packed, pc_mask, ctr = _fork_layout(react_models, pc_ids,
                                                  id_ctr_pc)
 
@@ -682,11 +698,7 @@ def _launch_rows(ins, *, NF, CU, WF, E, T_, ND, CPD, IPB, OFFB, lean,
              energy_o=empty(R, CU), err_o=empty(R, CU),
              fidx_o=empty(R, CU, dtype=_I32), tsens_o=empty(R, CU),
              hit_o=empty(R))
-    # the tiled passes hand over per-CU traffic partials, per-CU hit
-    # counts and the table slot of every WF through these scratch buffers
-    scratch = {} if block_cu is None else dict(
-        traf=empty(R, NF + 1, CU), hit_cu=empty(R, CU, dtype=_I32),
-        idx=empty(R, CU, WF, dtype=_I32))
+    scratch = _scratch(R, CU, WF, dev, True)
     args = _EpochArgs(
         i0r=_ptr(i0r), sr=_ptr(sr), cum_t=_ptr(cum_t), pos=_ptr(pos),
         eps=_ptr(eps), ti0=_ptr(ti0), tse=_ptr(tse), tcnt=_ptr(tcnt),
@@ -699,12 +711,9 @@ def _launch_rows(ins, *, NF, CU, WF, E, T_, ND, CPD, IPB, OFFB, lean,
         P=Pp, Pp=Pp, CU=CU, WF=WF, NF=NF, T=T_, E=E, CPD=CPD, IPB=IPB,
         OFFB=OFFB, family=_FAMILY_IDS["fork"], fork_est=0, cu_model=-1,
         lean=int(lean), R=R, n_react=n_react, react_models=packed,
-        pc_mask=pc_mask, id_ctr_pc=ctr, block_cu=block_cu or 0)
-    if block_cu is None:
-        _run_kernel(args, dev, "fork")
-        epoch_fused.fork_rows += R
-    else:
-        _run_kernel(args, dev, "fork_blocked")
+        pc_mask=pc_mask, id_ctr_pc=ctr)
+    _run_kernel(args, dev, "fork")
+    epoch_fused.fork_rows += R
     return tuple(o[k] for k in (
         "pos_o", "ti0_o", "tse_o", "tcnt_o", "wfi_o", "wfs_o", "ri0_o",
         "rse_o", "fsel_o", "eacc_o", "tacc_o", "work_o", "energy_o", "err_o",
@@ -722,7 +731,10 @@ def _rows_plain(ins, *, NF, CU, WF, E, T_, ND, CPD, IPB, OFFB, lean,
      fprev, eacc, tacc, F, tid, mech, eps, scal, pw_vec) = ins
     math = _epoch_math
     if blocked:
-        _check_blocks(CU, block_cu, CPD, lean)
+        _check_blocks(CU, block_cu, CPD)
+        if not lean:
+            raise ValueError("the reference's blocked fork epoch implements "
+                             "lean math only")
         math = functools.partial(_fork_blocked_math, block_cu=block_cu)
     per_row = []
     for r in range(pos.shape[0]):
@@ -789,9 +801,10 @@ def _rows_kernel_or_plain(ins, **statics):
 
 def epoch_fused_rows(i0_rate, sens_rate, cum_t, prog_idx, pos, freqs, eps,
                      f_prev, e_acc, t_acc, **kw) -> EpochOut:
-    """Step R fork-family rows one epoch: on CUDA tensors ONE launch of the
-    kernel (one CTA per row, counted under ``launches_by_family["fork"]``),
-    on CPU tensors the plain version row by row.
+    """Step R fork-family rows one epoch: on CUDA tensors ONE call of the
+    kernels (three launches over the rows' CUs, counted once under
+    ``launches_by_family["fork"]``), on CPU tensors the plain version row
+    by row.
 
     ``i0_rate``/``sens_rate`` (W, Pp) and ``cum_t`` (W, 3, 2Pp+1) are W
     programs padded to Pp blocks; row r reads program ``prog_idx[r]``
@@ -804,10 +817,8 @@ def epoch_fused_rows(i0_rate, sens_rate, cum_t, prog_idx, pos, freqs, eps,
     ``power`` (R, 11) the packed regime; ``table`` a ``PCTable`` of
     (R, T, E). ``tid`` (CU,) int32 is shared. ``react_models``,
     ``pc_ids``, ``id_ctr_pc`` give the id layout (see the module
-    docstring). ``block_cu`` (a divisor of CU, a multiple of
-    ``cus_per_domain``) launches the CU-tiled epoch on CUDA tensors
-    (counted under ``launches_by_family["fork_blocked"]``) and is inert
-    on CPU tensors."""
+    docstring). ``block_cu`` (the reference's tiling: a divisor of CU, a
+    multiple of ``cus_per_domain``) is checked and otherwise inert."""
     return _fork_out(_rows_call(_rows_kernel_or_plain, i0_rate, sens_rate,
                                 cum_t, prog_idx, pos, freqs, eps, f_prev,
                                 e_acc, t_acc, **kw), squeeze=False)
@@ -932,21 +943,19 @@ def epoch_fused(i0_rate, sens_rate, cum_t, pos, freqs, eps, f_prev, e_acc,
     ``react_i0/react_sens`` and ``cu_model`` unless ``fork_estimator``;
     ``family='fork'`` needs both state groups, the traced id ``mech`` and
     the id layout ``react_models``/``pc_ids``/``id_ctr_pc`` (a one-row
-    :func:`epoch_fused_rows`; ``block_cu`` launches the CU-tiled epoch on
-    CUDA tensors and is inert on CPU tensors). ``lean`` picks the math
-    mode (see the module docstring).
+    :func:`epoch_fused_rows`; ``block_cu`` as there, ignored by the other
+    families). ``lean`` picks the math mode (see the module docstring).
 
-    On CUDA tensors this launches the kernel (f32 operands, ``tid`` int32,
-    all contiguous; WF <= 64, NF <= 32) and never synchronises; on CPU
-    tensors it runs the plain version."""
+    On CUDA tensors this launches the kernels (f32 operands, ``tid``
+    int32, all contiguous; WF <= 64, NF <= 32) and never synchronises; on
+    CPU tensors it runs the plain version."""
     return _epoch_call(_kernel_or_plain, _rows_kernel_or_plain, i0_rate,
                        sens_rate, cum_t, pos, freqs, eps, f_prev, e_acc,
                        t_acc, **kw)
 
 
 epoch_fused.launches = 0
-epoch_fused.launches_by_family = {"pc": 0, "reactive": 0, "fork": 0,
-                                  "fork_blocked": 0}
+epoch_fused.launches_by_family = {"pc": 0, "reactive": 0, "fork": 0}
 # rows stepped by the fork-family launches (rows per launch = this over
 # launches_by_family["fork"])
 epoch_fused.fork_rows = 0

@@ -36,7 +36,7 @@ from repro_torch.kernels import check, library, require, stream_ptr
 
 NEG_INF = -1e30
 # head dims the kernel is instantiated for, and the largest key block
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 96, 128)
 MAX_BLK_K = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -82,7 +82,7 @@ def test_blocked_rows_equal_each_row_alone(block_cu, tid):
             *a, **k, block_cu=block_cu), 0)
         for name, v in alone.items():
             assert torch.equal(rows[name][r], v), (r, name)
-    assert KEF.epoch_fused.launches_by_family["fork_blocked"] == 0
+    assert KEF.epoch_fused.launches == 0
 
 
 def test_blocked_tiling_is_checked():

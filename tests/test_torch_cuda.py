@@ -352,10 +352,10 @@ def test_batched_noise_is_bitwise_the_rows_noise(dev):
         assert torch.equal(batch[r], alone), r
 
 
-# the CU-tiled fork epoch (K5): (CU, WF, block_cu, cus_per_domain, table
-# map) at the widths it exists for, past the monolithic kernel's 189 CUs;
-# "mod" spreads each table over CUs of every block, "triples" maps three
-# neighbouring CUs to a table so tables straddle block boundaries
+# the fork family in the reference's CU tiling (K5): (CU, WF, block_cu,
+# cus_per_domain, table map) at the widths it exists for; "mod" spreads
+# each table over CUs of every block, "triples" maps three neighbouring
+# CUs to a table so tables straddle block (and CTA) boundaries
 BLOCKED_SHAPES = [(256, 40, 64, 1, "mod"), (256, 40, 64, 2, "mod"),
                   (304, 40, 38, 1, "own"), (304, 40, 38, 2, "own"),
                   (304, 40, 38, 1, "triples"), (96, 64, 32, 1, "mod")]
@@ -374,7 +374,7 @@ def test_blocked_kernel_matches_plain(dev, CU, WF, block_cu, cpd, layout):
     """K5 over every traced id against its plain version (the reference's
     blocked pair): fidx and f_sel equal, floats within the kernels'
     tolerance (the plain version runs the selected row in lean math, the
-    kernel in the monolithic kernel's exact order)."""
+    kernel in the exact order). One call, counted under "fork"."""
     tid, T = _tid(CU, layout)
     args, kw = fork_rows_case(FORK_IDS, CU, WF, T=T, E=128, tid=tid,
                               Ps=(1024, 768), offset_blocks=8, device=dev,
@@ -385,8 +385,7 @@ def test_blocked_kernel_matches_plain(dev, CU, WF, block_cu, cpd, layout):
                                                        block_cu=block_cu))
     torch.cuda.synchronize()
     after = KEF.epoch_fused.launches_by_family
-    assert after["fork_blocked"] == before["fork_blocked"] + 1
-    assert after["fork"] == before["fork"]
+    assert after["fork"] == before["fork"] + 1
     assert torch.equal(got["f_sel"], want["f_sel"])
     _rows_close(got, want, f"{CU}x{WF}/{block_cu} cpd={cpd} {layout}",
                 args, kw)
@@ -416,41 +415,198 @@ def test_blocked_kernel_mixed_rows_are_independent(dev):
 
 @pytest.mark.parametrize("cpd", [1, 2])
 def test_blocked_kernel_is_bitwise_the_monolithic_kernel(dev, cpd):
-    """Where both fit (128 x 40), K5 in blocks of 32 CUs equals K4 bit for
-    bit in every output: the same device functions in the same order, the
-    traffic partials summed over all CUs in CU order, each table slot's
-    WFs walked in index order."""
-    args, kw = fork_rows_case(FORK_IDS, 128, 40, T=64, E=128, Ps=(1024,),
+    """A row's bits do not depend on the CTA width the launcher picks: at
+    64 x 40 the rows of a 42-row call (8 CUs per CTA) equal each row
+    called alone (the narrowest width) bit for bit in every output, the
+    traffic partials summed over all CUs in CU order and each table slot's
+    WFs walked in index order either way. K5 (block_cu) runs these same
+    kernels, so its rows are K4's."""
+    ids = FORK_IDS * 6
+    assert KEF.cta_width(64, len(ids), cpd) == 8
+    assert KEF.cta_width(64, 1, cpd) == cpd
+    args, kw = fork_rows_case(ids, 64, 40, T=32, E=128, Ps=(1024, 768),
                               offset_blocks=8, device=dev,
                               cus_per_domain=cpd, seed=7 + cpd)
-    k5 = row_fields(KEF.epoch_fused_rows(*args, **kw, block_cu=32))
-    k4 = row_fields(KEF.epoch_fused_rows(*args, **kw))
-    for name, v in k4.items():
-        assert torch.equal(k5[name], v), name
+    batch = row_fields(KEF.epoch_fused_rows(*args, **kw, block_cu=32))
+    for r in range(7):
+        a, k = one_row(args, kw, r)
+        alone = row_fields(KEF.epoch_fused_rows(*a, **k), 0)
+        for name, v in alone.items():
+            assert torch.equal(batch[name][r], v), (r, name)
 
 
 def test_monolithic_kernel_refuses_rows_past_shared_memory(dev):
-    """K4 holds a whole row in one CTA; a 304 x 40 row over 1024 blocks
-    does not fit and raises naming pallas_block_cu (no launch, no
-    fallback), in the kernel wrapper and through the sweep."""
-    args, kw = fork_rows_case([5, 3], 304, 40, T=304, E=128,
-                              tid=np.arange(304), Ps=(1024,), device=dev)
+    """Every CTA holds the whole program: one of 8192 blocks does not fit
+    and raises naming the remedy (no launch, no fallback), for K3 and K4.
+    Rows of any width fit: K3 and K4 at 304 x 40 over 1024 blocks match
+    their plain versions, and run_sim at 304 CUs runs. A block_cu the
+    reference refuses is refused."""
+    args, kw = _case("pc", False, None, 64, 40, 10, dev, T=64, E=128,
+                     P=8192)
+    rows, rkw = fork_rows_case([5, 3], 64, 40, T=64, E=128, Ps=(8192,),
+                               device=dev)
     before = dict(KEF.epoch_fused.launches_by_family)
     with pytest.raises(RuntimeError, match="pallas_block_cu"):
-        KEF.epoch_fused_rows(*args, **kw)
+        KEF.epoch_fused(*args, **kw)
+    with pytest.raises(RuntimeError, match="fewer blocks"):
+        KEF.epoch_fused_rows(*rows, **rkw)
     assert KEF.epoch_fused.launches_by_family == before
+    args, kw = _case("pc", False, None, 304, 40, 10, dev, T=304, E=128,
+                     P=1024)
+    got = KEF.epoch_fused(*args, **kw)
+    want = KEF.epoch_fused_ref(*args, **kw)
+    for k, gg, ww in zip(("i0", "sens", "count"), got.table, want.table):
+        _close(gg, ww, f"K3 at 304 x 40 table.{k}")
+    for field in ("pos", "wf_i0", "wf_sens", "work", "energy", "fidx"):
+        _close(getattr(got, field), getattr(want, field), f"K3 {field}")
     prog = get_workload("comd", device=dev)
-    cfg = SIM.SimConfig(n_cu=304, n_epochs=2)
-    with pytest.raises(RuntimeError, match="pallas_block_cu"):
-        SW.run_suite([prog], cfg, ("pcstall",))
+    tr = SIM.run_sim(prog, SIM.SimConfig(n_cu=304, n_epochs=2), "pcstall")
+    assert all(np.isfinite(v).all() for v in tr.values())
+    rows, rkw = fork_rows_case([5, 3], 304, 40, T=304, E=128,
+                               tid=np.arange(304), Ps=(1024,), device=dev)
+    got = row_fields(KEF.epoch_fused_rows(*rows, **rkw))
+    want = row_fields(KEF.epoch_fused_rows_ref(*rows, **rkw))
+    _rows_close(got, want, "K4 at 304 x 40", rows, rkw)
     with pytest.raises(ValueError, match="block_cu"):
-        KEF.epoch_fused_rows(*args, **kw, block_cu=39)
+        KEF.epoch_fused_rows(*rows, **rkw, block_cu=39)
+
+
+# (cus_per_table, table map) cases of K4/K5: contiguous groups of 1, 2 and
+# 4 CUs per table; a non-contiguous map holding ids past the table count
+# and below 0 (dropped from the update, clamped in the lookup); and slots
+# that collide heavily (4 entries per table, 16 blocks per entry)
+TABLE_MAPS = [
+    ("cpt1", dict(T=64, E=128)), ("cpt2", dict(T=32, E=128)),
+    ("cpt4", dict(T=16, E=128)),
+    ("scattered", dict(T=8, E=32)),
+    ("collide", dict(T=16, E=4, offset_blocks=16)),
+]
+
+
+def _table_map(name, CU):
+    if name.startswith("cpt"):
+        return np.arange(CU) // int(name[3:])
+    if name == "scattered":
+        base = np.array([0, 2, 1, 3, 7, 2, 0, 4, 9, -1, 5, 8])
+        return base[np.arange(CU) % len(base)]
+    return np.arange(CU) % 16
+
+
+@pytest.mark.parametrize("layout,opts", TABLE_MAPS, ids=[m[0] for m in
+                                                         TABLE_MAPS])
+@pytest.mark.parametrize("lean", [True, False], ids=["lean", "exact"])
+def test_fork_epoch_table_maps(dev, layout, opts, lean):
+    """K4 over every traced id at 64 x 40 against the plain version, and
+    K5 (block_cu 16, the same kernels) against the reference's blocked
+    pair in lean math, for each table map; each row called alone (one CU
+    per CTA) equals the row among 14 (four) bit for bit."""
+    CU = 64
+    args, kw = fork_rows_case(FORK_IDS * 2, CU, 40, tid=_table_map(layout, CU),
+                              Ps=(1024, 768), device=dev, seed=len(layout),
+                              **opts)
+    assert KEF.cta_width(CU, 14) == 4 and KEF.cta_width(CU, 1) == 1
+    k4 = row_fields(KEF.epoch_fused_rows(*args, **kw, lean=lean))
+    want = row_fields(KEF.epoch_fused_rows_ref(*args, **kw, lean=lean))
+    torch.cuda.synchronize()
+    _rows_close(k4, want, f"K4 {layout}", args, kw)
+    if lean:
+        k5 = row_fields(KEF.epoch_fused_rows(*args, **kw, block_cu=16))
+        want5 = row_fields(KEF.epoch_fused_rows_blocked_ref(*args, **kw,
+                                                            block_cu=16))
+        assert torch.equal(k5["f_sel"], want5["f_sel"])
+        _rows_close(k5, want5, f"K5 {layout}", args, kw)
+    for r in (0, 4, 5, 13):
+        a, k = one_row(args, kw, r)
+        alone = row_fields(KEF.epoch_fused_rows(*a, **k, lean=lean), 0)
+        for name, v in alone.items():
+            assert torch.equal(k4[name][r], v), (r, name)
+
+
+@pytest.mark.parametrize("lean", [True, False], ids=["lean", "exact"])
+def test_k3_row_is_bitwise_the_k4_row(dev, lean):
+    """K3 run as mechanism m (one row: one CU per CTA at 64 CUs) equals
+    the row with traced id m in a K4 call of 42 rows (8 CUs per CTA) bit
+    for bit in every output K3 writes: one chain of device functions,
+    whatever the family and the CTA width."""
+    ids = FORK_IDS * 6
+    args, kw = fork_rows_case(ids, 64, 40, T=32, E=128, Ps=(1024,),
+                              offset_blocks=8, device=dev, seed=21)
+    assert KEF.cta_width(64, len(ids)) == 8 and KEF.cta_width(64, 1) == 1
+    fork = row_fields(KEF.epoch_fused_rows(*args, **kw, lean=lean))
+    for m in FORK_IDS:
+        spec = MECH.get(SIM.FORK_MECHS[m])
+        scal = kw["scal"][m]
+        single = dict(
+            p_blocks=1024, epoch_us=scal[0], sigma=scal[1],
+            cap_per_ghz=scal[2], membw=scal[3], table_ema=scal[4],
+            obj=scal[5:8], lat_us=scal[8],
+            power=PWR.PowerAxes(*kw["power"][m].unbind(0)),
+            family=spec.family, fork_estimator=spec.fork_estimator,
+            cu_model=spec.cu_model, offset_blocks=8, lean=lean)
+        if spec.family == "pc":
+            single.update(table=PRED.PCTable(*(t[m] for t in kw["table"])),
+                          tid=kw["tid"], wf_i0=kw["wf_i0"][m],
+                          wf_sens=kw["wf_sens"][m])
+        else:
+            single.update(react_i0=kw["react_i0"][m],
+                          react_sens=kw["react_sens"][m])
+        k3 = row_fields(KEF.epoch_fused(
+            args[0][0], args[1][0], args[2][0], args[4][m], args[5][m],
+            args[6][m], args[7][m], args[8][m], args[9][m:m + 1], **single))
+        for name, v in k3.items():
+            if name in ("t_acc", "hit_rate"):
+                v = v.reshape(-1)[0]
+            assert torch.equal(fork[name][m], v), (spec.name, name)
+
+
+@pytest.mark.parametrize("family,fork_est,model", [("pc", False, None),
+                                                   ("pc", True, None),
+                                                   ("reactive", False,
+                                                    "crisp"),
+                                                   ("reactive", True, None)])
+def test_tiled_k3_matches_plain_past_one_cta(dev, family, fork_est, model):
+    """K3 at the README's 304 x 40 over 1024 blocks (two CUs per CTA)
+    against its plain version."""
+    args, kw = _case(family, fork_est, model, 304, 40, 10, dev, T=304,
+                     E=128, P=1024, seed=5)
+    assert KEF.cta_width(304, 1) == 2
+    got = KEF.epoch_fused(*args, **kw)
+    want = KEF.epoch_fused_ref(*args, **kw)
+    torch.cuda.synchronize()
+    for field in got._fields:
+        g, w = getattr(got, field), getattr(want, field)
+        if g is None:
+            continue
+        if field == "table":
+            for k, gg, ww in zip(("i0", "sens", "count"), g, w):
+                _close(gg, ww, f"table.{k}")
+        else:
+            _close(g, w, field)
+
+
+@pytest.mark.parametrize("mech", ["crisp", "pcstall"])
+def test_run_workload_tiles_k3_with_block_cu(dev, mech):
+    """run_sim of a one-row traced mechanism at the README's
+    SimConfig(n_cu=304, pallas_block_cu=38) runs K3 once per epoch, and
+    equals the run without block_cu bit for bit (block_cu picks nothing
+    for the one-row families, as in the reference)."""
+    prog = get_workload("comd", device=dev)
+    cfg = SIM.SimConfig(n_cu=304, n_epochs=20)
+    fam = MECH.get(mech).family
+    before = dict(KEF.epoch_fused.launches_by_family)
+    tr = SIM.run_sim(prog, dataclasses.replace(cfg, pallas_block_cu=38), mech)
+    after = KEF.epoch_fused.launches_by_family
+    assert after[fam] - before[fam] == 20
+    assert all(np.isfinite(v).all() for v in tr.values())
+    plain = SIM.run_sim(prog, cfg, mech)
+    for k, v in plain.items():
+        assert np.array_equal(tr[k], v), k
 
 
 def test_block_cu_steps_the_sweep_on_k5(dev):
-    """SimConfig.pallas_block_cu sends the traced family to K5 (one call
-    per epoch, no K4 launch), and over 40 closed-loop epochs its grid
-    equals the monolithic kernel's bit for bit."""
+    """With SimConfig.pallas_block_cu the traced family steps one call
+    per epoch, and over 40 closed-loop epochs its grid equals the grid
+    without block_cu bit for bit."""
     progs = {n: get_workload(n, P=P, device=dev)
              for n, P in (("comd", 128), ("hacc", 96))}
     cfg = SIM.SimConfig(n_cu=16, n_wf=20, n_epochs=40)
@@ -460,8 +616,7 @@ def test_block_cu_steps_the_sweep_on_k5(dev):
     tiled = SW.run_grid(progs, dataclasses.replace(cfg, pallas_block_cu=4),
                         grid, mechs)
     after = dict(KEF.epoch_fused.launches_by_family)
-    assert after["fork_blocked"] - before["fork_blocked"] == 40
-    assert after["fork"] == before["fork"]
+    assert after["fork"] - before["fork"] == 40
     mono = SW.run_grid(progs, cfg, grid, mechs)
     for key in mono:
         for w in progs:
@@ -554,10 +709,10 @@ def test_service_on_card_bitwise_and_dispatch_never_syncs(dev):
         torch.cuda.set_sync_debug_mode(0)
     assert len(pending.traces()) == 4
     ref = SW.run_grid(progs, cfg, {"epoch_us": [1.0, 10.0]}, mechs)
-    before = KEF.epoch_fused.launches_by_family["fork_blocked"]
+    before = KEF.epoch_fused.launches_by_family["fork"]
     with DVFSService(cfg, max_batch=2, coalesce_s=0.01) as svc:
         results = svc.map(jobs)
-    assert KEF.epoch_fused.launches_by_family["fork_blocked"] > before
+    assert KEF.epoch_fused.launches_by_family["fork"] > before
     for (prog, ov), res in zip(jobs, results):
         want = ref[(ov["epoch_us"],)][prog.name]
         for m in mechs:
@@ -611,6 +766,11 @@ def _qkv(B, S, H, Hkv, hd, dtype, dev, seed=0, q_scale=1.0):
     (1, 256, 32, 1, 128, True, 0, 1.0),
     (1, 512, 4, 2, 128, True, 100, 1.0),
     (2, 512, 4, 2, 128, True, 0, 8.0),
+    # head dim 96 (phi3-mini): 32 MHA heads, GQA, a window, and scores x 8
+    (1, 256, 32, 32, 96, True, 0, 1.0),
+    (2, 512, 8, 2, 96, True, 0, 1.0),
+    (1, 384, 4, 4, 96, True, 100, 1.0),
+    (1, 384, 4, 2, 96, False, 0, 8.0),
 ])
 def test_flash_attention_kernel_matches_plain(dev, dtype, B, S, H, Hkv, hd,
                                               causal, window, q_scale):
@@ -700,7 +860,8 @@ def test_flash_attention_bf16_kernel_is_wgmma_without_spills(dev):
         r"Function properties for (\S*flash_attention_kernel_wgmma\S*)\n"
         r"\s*(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) "
         r"bytes spill loads", K.BUILD["log"])
-    assert len(props) == 4, "one ptxas report per head dim (16/32/64/128)"
+    assert len(props) == 5, \
+        "one ptxas report per head dim (16/32/64/96/128)"
     for name, _, stores, loads in props:
         assert (stores, loads) == ("0", "0"), f"{name} spills"
     tool = shutil.which("cuobjdump") or str(
@@ -712,7 +873,7 @@ def test_flash_attention_bf16_kernel_is_wgmma_without_spills(dev):
     funcs = re.split(r"\n\s*Function : ", sass)
     tc = [f for f in funcs
           if "flash_attention_kernel_wgmma" in f.split("\n", 1)[0]]
-    assert len(tc) == 4
+    assert len(tc) == 5
     for f in tc:
         assert "HGMMA" in f, f.split("\n", 1)[0]
 
@@ -818,5 +979,29 @@ def test_prefill_runs_one_kernel_per_layer_and_decode_agrees(dev, arch):
     for i in range(S):
         logits, cache = M.decode_step(params, cfg, cache, toks[:, i])
     assert counter.launches == n0 + cfg.n_layers
+    np.testing.assert_allclose(logits.cpu().numpy(), full.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_phi3_shaped_prefill_runs_k6_at_head_dim_96(dev):
+    """A phi3-mini-shaped model (2 layers, d 192, 2 MHA heads of 96) in
+    f32 on the card: the prefill launches K6 at head dim 96 once per layer
+    and a token-by-token decode ends at its logits."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(get_smoke_config("phi3-mini-3.8b"),
+                              dtype="float32", d_model=192, n_heads=2,
+                              n_kv_heads=2, head_dim=96)
+    params = M.init_params(cfg, 0, dev)
+    S = 256
+    toks = torch.as_tensor(np.random.default_rng(7).integers(
+        0, cfg.vocab, (1, S))).to(dev)
+    n0 = FA.flash_attention_bshd.launches
+    full = M.prefill(params, cfg, {"tokens": toks})
+    assert FA.flash_attention_bshd.launches == n0 + cfg.n_layers
+    cache = M.init_cache(cfg, 1, S, device=dev)
+    for i in range(S):
+        logits, cache = M.decode_step(params, cfg, cache, toks[:, i])
     np.testing.assert_allclose(logits.cpu().numpy(), full.cpu().numpy(),
                                rtol=1e-4, atol=1e-4)

@@ -7,9 +7,9 @@
   entry point's parameter count and kinds, and the field order of the
   fused epoch kernel's argument struct (K1-K7). A mismatch would not fail to
   build; it would hand the kernel garbage pointers on the card.
-* A row too wide for one CTA's shared memory: the code the C entry points
-  return for it is the one the wrapper turns into an error naming
-  ``pallas_block_cu``.
+* A program too long for a CTA's shared memory: the code the C entry
+  point returns for it is the one the wrapper turns into an error naming
+  ``pallas_block_cu`` and the remedy.
 """
 import ast
 import ctypes
@@ -80,7 +80,7 @@ def _c_entry_points():
 def test_ctypes_signatures_match_c_sources():
     c = _c_entry_points()
     assert set(c) == set(K.SIGNATURES)
-    assert {"epoch_fused_launch", "epoch_fused_blocked_launch",
+    assert {"epoch_fused_launch", "epoch_fused_cta_width",
             "flash_attention_launch", "rwkv_chunk_launch"} <= set(c)
     for name, (_, argtypes) in K.SIGNATURES.items():
         kinds = ["ptr" if t is ctypes.c_void_p else "int" for t in argtypes]
@@ -104,32 +104,30 @@ def test_epoch_args_struct_matches_c_source():
 
 
 def test_row_too_wide_code_matches_c_source():
-    """Both epoch entry points refuse a row (or block) one CTA cannot hold
-    with the code the wrapper maps to its error, before any launch."""
+    """The epoch entry point refuses a program a CTA cannot hold with the
+    code the wrapper maps to its error, before any launch."""
     src = (CSRC / "epoch_fused.cu").read_text()
     code = int(re.search(r"kRowTooWide = (-?\d+);", src).group(1))
     assert KEF._ROW_TOO_WIDE == code
     assert len(re.findall(r"if \(bytes > \(size_t\)kMaxSmem\) return "
-                          r"kRowTooWide;", src)) == 2
+                          r"kRowTooWide;", src)) == 1
 
 
-@pytest.mark.parametrize("family", ["pc", "reactive", "fork",
-                                    "fork_blocked"])
+@pytest.mark.parametrize("family", ["pc", "reactive", "fork"])
 def test_row_too_wide_raises_naming_pallas_block_cu(monkeypatch, family):
     """The entry point's refusal becomes a RuntimeError that names
-    ``pallas_block_cu`` with the family's remedy, and counts no launch."""
+    ``pallas_block_cu`` with the remedy, and counts no launch."""
     class Lib:
         def epoch_fused_launch(self, *a):
             return KEF._ROW_TOO_WIDE
-        epoch_fused_blocked_launch = epoch_fused_launch
     monkeypatch.setattr(KEF, "library", Lib)
     monkeypatch.setattr(KEF, "stream_ptr_of", lambda dev: 0)
     before = dict(KEF.epoch_fused.launches_by_family)
-    args = KEF._EpochArgs(CU=304, WF=40, Pp=1024, block_cu=304)
+    args = KEF._EpochArgs(CU=304, WF=40, Pp=1024)
     with pytest.raises(RuntimeError, match="pallas_block_cu") as err:
         KEF._run_kernel(args, None, family)
     assert "304 CUs x 40 WFs over 1024 program blocks" in str(err.value)
-    assert KEF._TOO_WIDE_HINT[family] in str(err.value)
+    assert KEF._TOO_WIDE_HINT in str(err.value)
     assert KEF.epoch_fused.launches_by_family == before
 
 

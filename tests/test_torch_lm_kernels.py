@@ -52,6 +52,8 @@ def _qkv(B, S, H, Hkv, hd, dtype, seed=0):
     (2, 256, 4, 2, 64),
     (1, 256, 4, 1, 128),   # MQA
     (2, 512, 2, 2, 32),
+    (1, 128, 4, 4, 96),    # head dim 96 (phi3-mini), MHA
+    (2, 256, 4, 2, 96),    # head dim 96, GQA
 ])
 def test_flash_attention_plain_vs_reference(B, S, H, Hkv, hd, dtype):
     (jq, tq), (jk, tk), (jv, tv) = _qkv(B, S, H, Hkv, hd, dtype)
@@ -69,6 +71,19 @@ def test_flash_attention_plain_vs_reference(B, S, H, Hkv, hd, dtype):
 @pytest.mark.parametrize("window", [32, 128])
 def test_flash_attention_plain_sliding_window(window):
     (jq, tq), (jk, tk), (jv, tv) = _qkv(1, 256, 2, 2, 64, "float32", seed=1)
+    got = TOPS.flash_attention(tq, tk, tv, causal=True, window=window)
+    for want in (JOPS.flash_attention(jq, jk, jv, causal=True,
+                                      window=window),
+                 JREF.attention_ref(jq, jk, jv, causal=True, window=window)):
+        np.testing.assert_allclose(_np(got), _np(want), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("Hkv,window", [(4, 32), (2, 100)])
+def test_flash_attention_plain_head_dim_96_windowed(Hkv, window):
+    """Head dim 96, causal with a sliding window, MHA and GQA, against the
+    reference's Pallas kernel in interpret mode and its oracle."""
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(1, 256, 4, Hkv, 96, "float32",
+                                        seed=2)
     got = TOPS.flash_attention(tq, tk, tv, causal=True, window=window)
     for want in (JOPS.flash_attention(jq, jk, jv, causal=True,
                                       window=window),

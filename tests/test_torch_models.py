@@ -30,6 +30,7 @@ from repro.models import layers as JL
 from repro.models import model as JM
 from repro.models import rwkv as JR
 from repro_torch import interop
+from repro_torch.configs import all_configs
 from repro_torch.configs import get_config as t_config
 from repro_torch.configs import get_smoke_config as t_smoke
 from repro_torch.launch import serve as TS
@@ -41,6 +42,11 @@ torch.set_num_threads(1)
 
 LOGIT_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 ARCHS = ["glm4-9b", "rwkv6-3b"]
+# smoke configs keep head dim 16; phi3-mini's is 96, a K6 instance of its
+# own: a phi3-shaped smoke model keeps it (2 layers, d 192, 2 MHA heads)
+SHAPES = {"phi3-mini-3.8b": dict(d_model=192, n_heads=2, n_kv_heads=2,
+                                 head_dim=96)}
+LM_ARCHS = ARCHS + list(SHAPES)
 
 
 def _np(x):
@@ -55,8 +61,9 @@ def _t(a, dtype=torch.float32):
 
 def _pair(arch, dtype, seed=3):
     """Both packages' configs and the reference's weights in both."""
-    cj = dataclasses.replace(j_smoke(arch), dtype=dtype)
-    ct = dataclasses.replace(t_smoke(arch), dtype=dtype)
+    over = dict(SHAPES.get(arch, {}), dtype=dtype)
+    cj = dataclasses.replace(j_smoke(arch), **over)
+    ct = dataclasses.replace(t_smoke(arch), **over)
     pj = JM.init_params(cj, jax.random.key(seed))
     pt = TM.init_params(ct, 0, "cpu")
     pt.load_state_dict(interop.params_from_numpy(
@@ -247,7 +254,7 @@ def test_init_params_uses_the_reference_constants():
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("S", [32, 256])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", LM_ARCHS)
 def test_prefill_matches_reference(arch, S, dtype):
     cj, ct, pj, pt = _pair(arch, dtype)
     toks = _tokens(cj, 2, S, 1)
@@ -259,7 +266,7 @@ def test_prefill_matches_reference(arch, S, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", LM_ARCHS)
 def test_decode_teacher_forced_matches_reference(arch, dtype):
     """Eight decode steps on the same tokens from an empty cache: every
     step's logits."""
@@ -339,3 +346,20 @@ def test_full_configs_are_the_published_widths():
         (40, 4096, 32, 2, 128, 13696, 151552)
     assert (rwkv.n_layers, rwkv.d_model, rwkv.resolved_head_dim,
             rwkv.d_ff, rwkv.vocab) == (32, 2560, 64, 8960, 65536)
+
+
+def _served(cfg):
+    return cfg.family in ("dense", "ssm") and cfg.moe is None \
+        and cfg.frontend != "vision"
+
+
+@pytest.mark.parametrize("arch", [n for n, c in all_configs().items()
+                                  if _served(c) and c.family == "dense"])
+def test_served_attention_configs_have_a_k6_head_dim(arch):
+    """Every config of an attention family the port serves prefills on
+    K6 at its own head dim: the head dim is one K6 is instantiated for."""
+    from repro_torch.kernels import flash_attention as FA
+    cfg = t_config(arch)
+    TM.init_params(dataclasses.replace(t_smoke(arch), n_layers=1), 0, "cpu")
+    assert cfg.resolved_head_dim in FA.HEAD_DIMS, (arch,
+                                                   cfg.resolved_head_dim)

@@ -225,3 +225,22 @@ def test_logical_epoch_mask_and_custom_hook():
     out = SIM.run_sim(prog, sim, spec)
     assert set(out) == {"work", "energy", "err", "fidx", "true_sens"}
     assert np.isfinite(out["work"]).all() and (out["work"] > 0).all()
+
+
+@pytest.mark.parametrize("mech", ["crisp", "pcstall"])
+def test_run_workload_block_cu_is_inert_on_the_cpu(mech):
+    """``pallas_block_cu`` (the reference's fork-family tiling) is inert
+    for the one-row fused epoch, as in the reference: ``run_workload``
+    with crisp and pcstall at 16 CUs x 8 WFs in blocks of 4 is bit for bit
+    the untiled run, traces and metrics."""
+    prog = get_workload("comd", P=128, device="cpu")
+    cfg = SIM.SimConfig(n_cu=16, n_wf=8, n_epochs=80)
+    tiled = dataclasses.replace(cfg, pallas_block_cu=4)
+    before = dict(KEF.epoch_fused.launches_by_family)
+    for k, v in SIM.run_sim(prog, cfg, mech).items():
+        assert np.array_equal(SIM.run_sim(prog, tiled, mech)[k], v), k
+    a = SIM.run_workload(prog, cfg, mechanisms=(mech,))
+    b = SIM.run_workload(prog, tiled, mechanisms=(mech,))
+    assert a == b
+    assert all(np.isfinite(list(r.values())).all() for r in a.values())
+    assert KEF.epoch_fused.launches_by_family == before
