@@ -26,7 +26,9 @@ drives the port (never JAX, never ``repro``):
    device time per call against its bound, the per-call time with the
    host, the plain version's and, for K6, ``scaled_dot_product_attention``;
    the epoch calls (K3, K4, K5) split by kernel (pass A, pass B,
-   epilogue) with torch.profiler;
+   epilogue) and K7's into its kernel and its memset with torch.profiler;
+   K6 and K7 each run only their own kernels, and two K7 calls agree bit
+   for bit;
 4. the quickstart path: ``run_workload`` of static17, crisp, pcstall and
    oracle on ``comd`` for 600 epochs, with the fused epoch kernel's
    launches counted (crisp and pcstall run K3; static17 and the oracle
@@ -567,8 +569,9 @@ def device_ms(fn, what, reps=100):
 
 
 def kernel_names(fn, part, reps=5):
-    """The names of the CUDA kernels containing ``part`` that ``reps``
-    calls of ``fn`` launch, from one torch.profiler session."""
+    """The names containing ``part`` of what ``reps`` calls of ``fn`` run
+    on the card (kernels, memsets, copies; not the runtime calls that
+    launch them), from one torch.profiler session."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -577,7 +580,9 @@ def kernel_names(fn, part, reps=5):
             fn()
         torch.cuda.synchronize()
     return sorted({ev.key for ev in prof.key_averages()
-                   if part in ev.key and ev.count})
+                   if part in ev.key and ev.count
+                   and ev.device_type is not None
+                   and "cuda" in str(ev.device_type).lower()})
 
 
 # ---------------------------------------------------------------------------
@@ -941,9 +946,11 @@ def main() -> int:
               f"{key}'s prefill: {rows[key]['library_ms'] * 1e3:.2f} us per "
               f"call, max |K6 - library| {float(lib_err):.3e} on {card}",
               flush=True)
+    # K7: one memset (the tickets and the chain's flags) and one kernel
     times["rwkv_chunked"] = (
         lambda: RC.rwkv_chunked_bthd(*k7_in),
-        lambda: RC.rwkv_chunked_bthd_ref(*k7_in), ("rwkv_chunk_kernel",))
+        lambda: RC.rwkv_chunked_bthd_ref(*k7_in),
+        ("rwkv_chunk_kernel", "Memset (Device)"))
     rates = {"flash_attention": BF16_FLOP_PER_S,
              "flash_attention[hd96]": BF16_FLOP_PER_S}
     for key, (kern, plain, names) in times.items():
@@ -1010,7 +1017,19 @@ def main() -> int:
                   f"{f32_bound * 1e3:.2f} us (f32 rate outside the tensor "
                   f"cores), {f32_ms / f32_bound:.2f}x, on {card}",
                   flush=True)
-    del k6_in, k96_in
+    # K7 runs its own kernel and its reset alone, and two calls agree bit
+    # for bit (the state is summed in chunk order; integer atomics only)
+    ran = kernel_names(lambda: RC.rwkv_chunked_bthd(*k7_in), "")
+    k7_names = [n for n in ran if "rwkv_chunk_kernel" in n]
+    check(len(k7_names) == 1 and set(ran) <= set(k7_names)
+          | {"Memset (Device)"},
+          f"rwkv_chunked ran only K7's kernel and its memset: {ran}")
+    y1, S1 = RC.rwkv_chunked_bthd(*k7_in, return_state=True)
+    y2, S2 = RC.rwkv_chunked_bthd(*k7_in, return_state=True)
+    torch.cuda.synchronize()
+    check(torch.equal(y1, y2) and torch.equal(S1, S2),
+          "rwkv_chunked: two calls bitwise equal")
+    del k6_in, k96_in, y1, y2, S1, S2
     torch.cuda.empty_cache()
 
     # ---- 4. the quickstart path -------------------------------------------

@@ -18,8 +18,9 @@ wrappers):
   with causal and sliding-window masks over grouped KV heads
   (``csrc/flash_attention.cu``): bf16 on the tensor cores (``wgmma``,
   TMA-staged K/V, p split into two bf16 terms), f32 on the CUDA cores;
-* ``rwkv_chunk.rwkv_chunked_bthd`` — K7, the chunked RWKV6 WKV with the
-  state carried over the chunks (``csrc/rwkv_chunk.cu``).
+* ``rwkv_chunk.rwkv_chunked_bthd`` — K7, the chunked RWKV6 WKV
+  (``csrc/rwkv_chunk.cu``): one CTA per (batch, head, chunk), the state
+  carried from chunk to chunk through a chain of flags.
 
 Every wrapper launches its kernel on a CUDA tensor and runs the kernel's
 plain PyTorch version on a CPU tensor; there is no fallback between the
@@ -61,7 +62,7 @@ SIGNATURES = {
     "epoch_fused_launch": (_CI, [_VP, _VP]),
     "epoch_fused_cta_width": (_CI, [_CI] * 3),
     "flash_attention_launch": (_CI, [_VP] * 4 + [_CI] * 9 + [_VP]),
-    "rwkv_chunk_launch": (_CI, [_VP] * 7 + [_CI] * 7 + [_VP]),
+    "rwkv_chunk_launch": (_CI, [_VP] * 8 + [_CI] * 7 + [_VP]),
     "repro_error_string": (ctypes.c_char_p, [_CI]),
 }
 

@@ -14,10 +14,12 @@ with the (hd, hd) state S carried over the chunks in order from zero.
 :func:`rwkv_chunked_ref` is the plain PyTorch version of that math on any
 device (batched over heads, a Python loop over chunks; it also takes a
 start state). On a CUDA tensor :func:`rwkv_chunked_bthd` launches K7 on the
-current stream (counted in ``rwkv_chunked_bthd.launches``), reading the
-(B,T,H,hd) layout the model holds; it starts from the zero state (passing
-a state raises) and, when asked, also writes the final state from the one
-it holds. On a CPU tensor it runs the plain version.
+current stream (one memset and one kernel, counted once in
+``rwkv_chunked_bthd.launches``), reading the (B,T,H,hd) layout the model
+holds: persistent CTAs walk the (batch, head, chunk) tiles, each tile
+chained to the next chunk through the state it publishes. It starts from
+the zero state (passing a state raises) and, when asked, returns the
+final state of that chain. On a CPU tensor it runs the plain version.
 """
 from __future__ import annotations
 
@@ -28,8 +30,9 @@ import torch
 from repro_torch.kernels import check, library, require, stream_ptr
 
 _F32 = torch.float32
-# the C entry point's code for a chunk one CTA's shared memory cannot hold
-_TOO_LARGE = -1
+# the C entry point's codes for a chunk one CTA cannot hold and for a head
+# dim it has no kernel for (nothing is launched for either)
+_TOO_LARGE, _BAD_HEAD_DIM = -1, -2
 
 
 def _chunk(T: int, chunk: int) -> int:
@@ -116,16 +119,22 @@ def rwkv_chunked_bthd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"expected f32 ({H}, {hd}) or ({B}, {H}, {hd}) "
                          f"with unit stride on the head dim")
     y = torch.empty_like(r)
-    S = (torch.empty((B, H, hd, hd), dtype=_F32, device=dev)
-         if return_state else None)
+    # the state carried from chunk to chunk, the final state at the end;
+    # work: the tiles' ticket and each (batch, head)'s count of published
+    # state tiles (reset by the launch)
+    S = torch.empty((B, H, hd, hd), dtype=_F32, device=dev)
+    work = torch.empty(1 + B * H, dtype=torch.int32, device=dev)
     code = library().rwkv_chunk_launch(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-        u.data_ptr(), y.data_ptr(), None if S is None else S.data_ptr(),
+        u.data_ptr(), y.data_ptr(), S.data_ptr(), work.data_ptr(),
         B, T, H, hd, C, u.stride(0), u.stride(1), stream_ptr(r))
     if code == _TOO_LARGE:
         raise ValueError(f"a chunk of {C} tokens x head dim {hd} needs more "
-                         "shared memory than one CTA has: use a smaller "
-                         "chunk")
+                         "shared memory than one CTA has (K7 holds 128 "
+                         "tokens, 64 at head dim 128): use a smaller chunk")
+    if code == _BAD_HEAD_DIM:
+        raise ValueError(f"K7 has kernels for head dims 16, 32, 64 and 128, "
+                         f"not {hd}")
     check(code, "rwkv_chunked")
     rwkv_chunked_bthd.launches += 1
     return (y, S) if return_state else y

@@ -896,6 +896,15 @@ def _rwkv_case(B, T, H, hd, lo, hi, dev, seed=0):
     (2, 256, 2, 32, 64, 0.6, 0.999),
     (1, 128, 4, 32, 32, 0.6, 0.95),
     (1, 96, 1, 64, 128, 0.8, 0.999),      # T < chunk: one chunk of T
+    # tiles well beyond one wave (each chunk waits on its predecessor's
+    # count, whatever order the CTAs run in), every head dim K7 has
+    (2, 2048, 40, 64, 128, 0.6, 0.999),   # 1280 tiles, ~10 waves
+    (2, 1024, 8, 32, 128, 0.6, 0.999),
+    (1, 512, 6, 16, 64, 0.6, 0.999),      # the smoke models' heads
+    (1, 256, 3, 128, 64, 0.6, 0.999),     # the largest chunk at hd 128
+    # T == chunk: one tile per (batch, head), the state its own increment
+    (3, 128, 5, 32, 128, 0.6, 0.999),
+    (3, 128, 5, 64, 128, 0.6, 0.999),
 ])
 def test_rwkv_chunk_kernel_matches_plain(dev, B, T, H, hd, chunk, lo, hi):
     from repro_torch.kernels import rwkv_chunk as RC
@@ -910,6 +919,28 @@ def test_rwkv_chunk_kernel_matches_plain(dev, B, T, H, hd, chunk, lo, hi):
     for got, want in ((y, yw), (S, Sw)):
         np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                    rtol=K7_TOL, atol=K7_TOL)
+
+
+def test_rwkv_chunk_kernel_two_calls_bitwise_equal(dev):
+    """The chain sums in chunk order and uses integer atomics only: two
+    calls at the rwkv6-3b head shape give the same bits."""
+    from repro_torch.kernels import rwkv_chunk as RC
+    r, k, v, w, u = _rwkv_case(2, 2048, 40, 64, 0.6, 0.999, dev, seed=12)
+    y1, S1 = RC.rwkv_chunked_bthd(r, k, v, w, u, return_state=True)
+    y2, S2 = RC.rwkv_chunked_bthd(r, k, v, w, u, return_state=True)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(S1, S2)
+
+
+def test_rwkv_chunk_kernel_refuses_other_head_dims(dev):
+    from repro_torch.kernels import rwkv_chunk as RC
+    r, k, v, w, u = _rwkv_case(1, 256, 2, 48, 0.8, 0.999, dev)
+    n0 = RC.rwkv_chunked_bthd.launches
+    with pytest.raises(ValueError, match="head dims"):
+        RC.rwkv_chunked_bthd(r, k, v, w, u)
+    with pytest.raises(ValueError, match="shared memory"):
+        RC.rwkv_chunked_bthd(*_rwkv_case(1, 256, 2, 128, 0.8, 0.999, dev))
+    assert RC.rwkv_chunked_bthd.launches == n0
 
 
 def test_rwkv_chunk_kernel_without_state(dev):

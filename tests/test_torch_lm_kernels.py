@@ -236,3 +236,96 @@ def test_rwkv_chunked_plain_state_matches_exact_scan():
                                        rtol=K7_TOL, atol=K7_TOL)
             np.testing.assert_allclose(_np(S[b, h]), _np(Sw), rtol=K7_TOL,
                                        atol=K7_TOL)
+
+
+def _tf32_split(x):
+    """The card kernel's split of an f32 operand: hi rounded to TF32
+    (nearest, ties away), lo the exact rest cut to TF32."""
+    hi = ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+    lo = ((x - hi).view(torch.int32) & -0x2000).view(torch.float32)
+    return hi, lo
+
+
+def _mm(a, b, terms=3):
+    """a @ b as the card's K7 forms it on the tensor cores: three TF32
+    products (a_lo b_hi + a_hi b_lo + a_hi b_hi, f32 sums), or TF32 once."""
+    ah, al = _tf32_split(a)
+    bh, bl = _tf32_split(b)
+    if terms == 1:
+        return ah @ bh
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _k7_kernel_numerics(r, k, v, w, u, chunk, terms=3):
+    """K7's decomposition on the CPU, r/k/v/w (BH,T,hd), u (BH,hd): every
+    chunk (padded to 32 tokens, w = 1) on its own — the prefix of logw as
+    512 / hd segment sums and their offsets, rP, kD, kT, A = rP kD^T below
+    the diagonal, the intra-chunk y = A v + diag v, the state increment
+    dS_c = kT^T v and the decay exp(total_c) — then the chunks in order:
+    S_c = exp(total_c) S_{c-1} + dS_c and y_c = intra_c + rP_c S_{c-1}.
+    Returns y and the final state."""
+    BH, T, hd = r.shape
+    C = min(chunk, T)
+    n, Cp, NS = T // C, -(-C // 32) * 32, 512 // hd
+
+    def chunks(x, pad):
+        x = x.reshape(BH, n, C, hd)
+        return torch.cat([x, torch.full((BH, n, Cp - C, hd), pad)], 2)
+    r, k, v, w = (chunks(x, p) for x, p in ((r, 0.), (k, 0.), (v, 0.),
+                                            (w, 1.)))
+    logw = torch.log(torch.clamp(w, min=1e-38))
+    seg = logw.reshape(BH, n, NS, Cp // NS, hd)
+    local = torch.cumsum(seg, 3)
+    sums = local[:, :, :, -1]
+    offs = torch.cumsum(sums, 2) - sums
+    cum = (offs[:, :, :, None] + local).reshape(BH, n, Cp, hd)
+    total = torch.cumsum(sums, 2)[:, :, -1]                 # (BH, n, hd)
+    rP = r * torch.exp(cum - logw)
+    kD = k * torch.exp(-cum)
+    kT = k * torch.exp(total[:, :, None] - cum)
+    tri = torch.tril(torch.ones((Cp, Cp), dtype=torch.bool), -1)
+    A = torch.where(tri, _mm(rP, kD.transpose(-1, -2), terms), 0.0)
+    diag = (r * u[:, None, None] * k).sum(-1)
+    intra = _mm(A, v, terms) + diag[..., None] * v
+    dS = _mm(kT.transpose(-1, -2), v, terms)                # (BH, n, hd, hd)
+    decay = torch.exp(total)
+    S = torch.zeros((BH, hd, hd))
+    ys = []
+    for c in range(n):
+        ys.append(intra[:, c] + _mm(rP[:, c], S, terms))
+        S = decay[:, c, :, None] * S + dS[:, c]
+    y = torch.stack(ys, 1)[:, :, :C].reshape(BH, T, hd)
+    return y, S
+
+
+@pytest.mark.parametrize("BH,Tn,hd,chunk", [
+    (2, 256, 64, 128), (2, 256, 32, 64), (3, 128, 16, 32),
+    (2, 128, 64, 128),    # T equal to one chunk
+    (1, 96, 64, 128),     # T below the chunk: one chunk of 96, padded
+])
+def test_rwkv_chunked_kernel_decomposition_vs_reference(BH, Tn, hd, chunk):
+    """K7's decomposition (chunks apart, then the chain of states), in the
+    card's three-term TF32 products, against the reference's Pallas
+    kernel in interpret mode and its exact scan (y and the final state)."""
+    arrs = _rwkv(BH, Tn, hd, lo=0.6, seed=5)
+    j = [jnp.asarray(a) for a in arrs]
+    y, S = _k7_kernel_numerics(*(torch.from_numpy(a) for a in arrs), chunk)
+    want = JOPS.rwkv_chunked(*j, chunk=chunk)
+    np.testing.assert_allclose(_np(y), _np(want), rtol=K7_TOL, atol=K7_TOL)
+    yw, Sw = jax.vmap(JREF.rwkv_chunk_ref)(*j, jnp.zeros((BH, hd, hd)))
+    np.testing.assert_allclose(_np(y), _np(yw), rtol=K7_TOL, atol=K7_TOL)
+    np.testing.assert_allclose(_np(S), _np(Sw), rtol=K7_TOL, atol=K7_TOL)
+
+
+def test_rwkv_chunked_kernel_needs_the_three_term_split():
+    """Why the card's K7 splits its operands: with TF32 once (~11 bits) its
+    y leaves the 1e-4 bound of the reference's kernel; in three terms it
+    keeps it."""
+    arrs = _rwkv(2, 256, 64, lo=0.6, seed=6)
+    want = _np(JOPS.rwkv_chunked(*(jnp.asarray(a) for a in arrs)))
+    lim = K7_TOL + K7_TOL * np.abs(want)
+    t = [torch.from_numpy(a) for a in arrs]
+    three = _np(_k7_kernel_numerics(*t, 128)[0])
+    once = _np(_k7_kernel_numerics(*t, 128, terms=1)[0])
+    assert (np.abs(three - want) <= lim).all()
+    assert (np.abs(once - want) > lim).any()
