@@ -10,7 +10,10 @@ drives the port (never JAX, never ``repro``):
 2. every kernel against its plain PyTorch version on the card, at the
    main path's shapes (64 CUs x 40 WFs, 64 tables x 128 slots, 10 V/f
    states, 1024-block Table II programs), from numpy-seeded inputs: the
-   PC-table pair, the fused epoch in families pc/reactive (K3), also at
+   PC-table pair (K1's I_pred and hit mask, K2's tables) at int64 and
+   int32 slots with tensor and float scalars, each wrapper call one
+   kernel launch (torch.profiler), and what a v1 epoch launches on the
+   card; the fused epoch in families pc/reactive (K3), also at
    the README's 304 x 40; the fork family (K4) for every traced id in
    both math modes and in one call of 300 mixed rows, and at the
    managers' layout (16 CUs x 40 WFs, 16 tables, the two ``for_model``
@@ -25,6 +28,9 @@ drives the port (never JAX, never ``repro``):
 3. times of every kernel (the one method: ``scripts/devtime.py``):
    device time per call against its bound, the per-call time with the
    host, the plain version's and, for K6, ``scaled_dot_product_attention``;
+   K1 and K2 as the v1 epoch calls them (int64 slots, 0-dim scalars),
+   their kernels alone (torch.profiler) and the launch floor
+   (``torch.cuda._sleep(1)`` by the same method);
    the epoch calls (K3, K4, K5) split by kernel (pass A, pass B,
    epilogue) and K7's into its kernel and its memset with torch.profiler;
    K6 and K7 each run only their own kernels, and two K7 calls agree bit
@@ -33,8 +39,9 @@ drives the port (never JAX, never ``repro``):
    oracle on ``comd`` for 600 epochs, with the fused epoch kernel's
    launches counted (crisp and pcstall run K3; static17 and the oracle
    run the unfused body, as in the reference); pcstall with
-   ``use_pallas="v1"`` (the PC-table pair); whole runs of the kernel
-   engine against the unfused engine;
+   ``use_pallas="v1"`` (the PC-table pair; its wall and ms per epoch);
+   whole runs of the kernel engine (K3 for crisp and pcstall, the pair
+   for pcstall v1) against the unfused engine;
 5. the README's ``SimConfig(n_cu=304, n_wf=40, pallas_block_cu=38)``
    through ``run_workload`` with crisp and pcstall on K3, held against
    the unfused engine;
@@ -113,6 +120,8 @@ from repro_torch.kernels import ref as REF  # noqa: E402
 # main-path shapes (SimConfig defaults)
 CU, WF, NF, T_TABLES, ENTRIES, P = 64, 40, 10, 64, 128, 1024
 N_EPOCHS = 600
+# v1 epochs whose launches on the card phase 2 counts
+V1_PROFILED = 5
 # kernel vs plain version on the card: discrete outputs equal; floats
 # |a - b| <= ATOL + RTOL |b| (the two sum in different orders: warp trees
 # and a fixed-order block reduction against torch's reductions)
@@ -541,20 +550,8 @@ def kernel_split(fn, reps=1):
 # timing
 # ---------------------------------------------------------------------------
 
-def time_events(fn, reps=200, warm=20):
-    """ms per call of ``fn`` by CUDA events over ``reps`` back-to-back
-    calls (includes host time when the host is the slower side)."""
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps
+# ms per call with the host: events over back-to-back calls
+time_events = DT.events_ms
 
 
 def device_ms(fn, what, reps=100):
@@ -572,17 +569,7 @@ def kernel_names(fn, part, reps=5):
     """The names containing ``part`` of what ``reps`` calls of ``fn`` run
     on the card (kernels, memsets, copies; not the runtime calls that
     launch them), from one torch.profiler session."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sorted({ev.key for ev in prof.key_averages()
-                   if part in ev.key and ev.count
-                   and ev.device_type is not None
-                   and "cuda" in str(ev.device_type).lower()})
+    return sorted(k for k in DT.kernel_counts(fn, reps) if part in k)
 
 
 # ---------------------------------------------------------------------------
@@ -613,40 +600,90 @@ def main() -> int:
                        r"epoch_epilogue|pc_table_\w+?_kernel|"
                        r"flash_attention_kernel_wgmma|"
                        r"flash_attention_kernel|rwkv_chunk_kernel)"
-                       r"(ILi(\d+)E|I(13__nv_bfloat16|f)Li(\d+))?", line)
+                       r"(ILi(\d+)E|I(13__nv_bfloat16|f)Li(\d+)|I([ix])E)?",
+                       line)
         if fn:
             tmpl = fn.group(3) or (fn.group(4) and (
                 ("bf16" if fn.group(4) != "f" else "f32")
-                + f", {fn.group(5)}"))
+                + f", {fn.group(5)}")) or (
+                    fn.group(6) and {"i": "int32", "x": "int64"}[fn.group(6)])
             print("  " + fn.group(1) + (f"<{tmpl}>" if tmpl else ""))
         elif "registers" in line or "spill" in line or line.startswith("=="):
             print("  " + line.strip())
 
     # ---- 2. kernels against their plain versions -------------------------
     rows = {}
-    tbl, tid, idx, fb = table_case(7, dev)
+    tbl, tid, idx32, fb = table_case(7, dev)
     F = PWR.freqs_ghz(PWR.DEFAULT, NF, device=dev)
-    # the scalars as the main path passes them: 0-dim tensors on the card
+    # the slots and scalars as the main path passes them: int64 slots,
+    # 0-dim tensors on the card; int32 slots and floats are held too
+    idx = idx32.long()
     kp = dict(epoch_us=torch.tensor(1.0, device=dev),
               cap_per_ghz=torch.tensor(5500.0, device=dev))
     ema = torch.tensor(0.5, device=dev)
-    got = KPT.pc_table_predict(*tbl, tid, idx, *fb, F, **kp)
-    want = REF.pc_table_predict_ref(*tbl, tid, idx, *fb, F, **kp)
-    torch.cuda.synchronize()
-    rows["pc_table_predict"] = dict(
-        max_abs_err=compare("pc_table_predict", got, want),
-        nbytes=nbytes(*tbl, tid, idx, *fb, F, got),
-        ops=2 * CU * WF + 5 * CU * NF)
     shp = (T_TABLES, CU // T_TABLES * WF)
     upd_in = (idx.reshape(shp), fb[0].reshape(shp), fb[1].reshape(shp))
-    got = KPT.pc_table_update(*tbl, *upd_in, ema=ema)
-    want = REF.pc_table_update_ref(*tbl, *upd_in, ema=ema)
-    torch.cuda.synchronize()
-    err = max(compare(f"pc_table_update[{k}]", g, w)
-              for k, g, w in zip(("i0", "sens", "count"), got, want))
+    want, want_hit = REF.pc_table_predict_ref(*tbl, tid, idx, *fb, F, **kp,
+                                              return_hit=True)
+    want_upd = REF.pc_table_update_ref(*tbl, *upd_in, ema=ema)
+    k1_err = k2_err = 0.0
+    for ix, scal in ((idx, "tensor"), (idx32, "tensor"), (idx, "float"),
+                     (idx32, "float")):
+        tag = f"{str(ix.dtype).split('.')[-1]} slots, {scal} scalars"
+        pk = kp if scal == "tensor" else dict(epoch_us=1.0,
+                                              cap_per_ghz=5500.0)
+        got, hit = KPT.pc_table_predict(*tbl, tid, ix, *fb, F, **pk,
+                                        return_hit=True)
+        upd = KPT.pc_table_update(*tbl, ix.reshape(shp), *upd_in[1:],
+                                  ema=ema if scal == "tensor" else 0.5)
+        torch.cuda.synchronize()
+        k1_err = max(k1_err, compare(f"pc_table_predict[{tag}]", got, want))
+        check(torch.equal(hit, want_hit),
+              f"pc_table_predict[{tag}].hit: equal to the plain version's "
+              f"({int((hit != want_hit).sum())} differ)")
+        k2_err = max([k2_err] + [
+            compare(f"pc_table_update[{tag}].{k}", g, w)
+            for k, g, w in zip(("i0", "sens", "count"), upd, want_upd)])
+    rows["pc_table_predict"] = dict(
+        max_abs_err=k1_err, nbytes=nbytes(*tbl, tid, idx, *fb, F, got, hit),
+        ops=2 * CU * WF + 5 * CU * NF)
     rows["pc_table_update"] = dict(
-        max_abs_err=err, nbytes=nbytes(*tbl, *upd_in, *got),
+        max_abs_err=k2_err, nbytes=nbytes(*tbl, *upd_in, *upd),
         ops=3 * T_TABLES * shp[1] + 12 * T_TABLES * ENTRIES)
+    # one wrapper call is one kernel and nothing else on the card (traced
+    # before any other profiler session of this process: CUPTI drops
+    # records once a process has traced a few thousand)
+    for key, fn in (
+            ("pc_table_predict", lambda: KPT.pc_table_predict(
+                *tbl, tid, idx, *fb, F, **kp, return_hit=True)),
+            ("pc_table_update", lambda: KPT.pc_table_update(
+                *tbl, *upd_in, ema=ema))):
+        ran = DT.kernel_counts(fn, 4)
+        check(len(ran) == 1 and f"{key}_kernel" in next(iter(ran))
+              and sum(ran.values()) == 4,
+              f"{key}: 4 calls ran 4 launches of one kernel: {ran}")
+    # what a v1 pcstall epoch (64 x 40, comd) runs on the card
+    v1_sim = SIM.SimConfig(n_epochs=N_EPOCHS, use_pallas="v1")
+    v1_prog = get_workload("comd", device=dev)
+    st_v1, ax_v1 = v1_sim.static_part(), v1_sim.axes(dev)
+    v1_step = SIM._make_step(v1_prog, v1_prog.n_blocks, 0, st_v1, ax_v1,
+                             "pcstall")
+    v1_box = [SIM.init_carry(v1_prog.n_blocks, st_v1, dev)]
+
+    def v1_epoch():
+        v1_box[0], _ = v1_step(v1_box[0])
+
+    ran = DT.kernel_counts(v1_epoch, V1_PROFILED)
+    pair = sorted((re.search(r"pc_table_\w+_kernel", n).group(0), c)
+                  for n, c in ran.items() if "pc_table_" in n)
+    check(len(pair) == 2 and all(c == V1_PROFILED for _, c in pair),
+          f"v1 epoch: one K1 and one K2 launch each: {pair}")
+    v1_per_epoch = sum(ran.values()) / V1_PROFILED
+    print(f"v1 epoch (pcstall, 64 x 40): {v1_per_epoch:.1f} launches on the "
+          f"card per epoch over {V1_PROFILED} epochs (torch.profiler), of "
+          f"them K1 and K2 one each; {len(ran)} distinct on {card}",
+          flush=True)
+    del v1_box, v1_step
 
     def epoch_vs(tag, key, got, want):
         errs = []
@@ -890,9 +927,13 @@ def main() -> int:
 
     # ---- 3. times ----------------------------------------------------------
     times = {}
+    # K1 and K2 as the v1 epoch calls them: int64 slots, 0-dim scalars on
+    # the card, the hit mask
     times["pc_table_predict"] = (
-        lambda: KPT.pc_table_predict(*tbl, tid, idx, *fb, F, **kp),
-        lambda: REF.pc_table_predict_ref(*tbl, tid, idx, *fb, F, **kp),
+        lambda: KPT.pc_table_predict(*tbl, tid, idx, *fb, F, **kp,
+                                     return_hit=True),
+        lambda: REF.pc_table_predict_ref(*tbl, tid, idx, *fb, F, **kp,
+                                         return_hit=True),
         ("pc_table_predict_kernel",))
     times["pc_table_update"] = (
         lambda: KPT.pc_table_update(*tbl, *upd_in, ema=ema),
@@ -953,6 +994,8 @@ def main() -> int:
         ("rwkv_chunk_kernel", "Memset (Device)"))
     rates = {"flash_attention": BF16_FLOP_PER_S,
              "flash_attention[hd96]": BF16_FLOP_PER_S}
+    # the least device time a call of one launch can take
+    floor_ms = device_ms(lambda: torch.cuda._sleep(1), "launch floor")
     for key, (kern, plain, names) in times.items():
         ev = time_events(kern)
         dv = device_ms(kern, key)
@@ -972,7 +1015,12 @@ def main() -> int:
               f"{row['plain_ms'] * 1e3:.1f} us, bound "
               f"{row['bound_ms'] * 1e3:.4f} us ({row['bound_by']}) "
               f"on {card}", flush=True)
-        if len(names) > 1:
+        if key.startswith("pc_table") and floor_ms is not None:
+            print(f"time {key}: the launch floor (torch.cuda._sleep(1), "
+                  f"the same method) {floor_ms * 1e3:.2f} us per call "
+                  f"beside the bound {row['bound_ms'] * 1e3:.4f} us on "
+                  f"{card}", flush=True)
+        if len(names) > 1 or key.startswith("pc_table"):
             means = DT.kernel_means(kern, names)
             print(f"time {key} by kernel (profiler, mean over the records "
                   f"kept of 100): " + ", ".join(
@@ -1070,8 +1118,15 @@ def main() -> int:
     # the PC-table kernel path
     for fn in (KEF.epoch_fused, KPT.pc_table_predict, KPT.pc_table_update):
         fn.launches = 0
-    tr_v1 = SIM.run_sim(prog, SIM.SimConfig(n_epochs=N_EPOCHS,
-                                            use_pallas="v1"), "pcstall")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr_v1 = SIM.run_sim(prog, v1_sim, "pcstall")
+    torch.cuda.synchronize()
+    v1_wall = time.perf_counter() - t0
+    print(f"v1 pcstall run ({N_EPOCHS} epochs, comd, 64 x 40): wall "
+          f"{v1_wall:.3f} s, {v1_wall / N_EPOCHS * 1e3:.3f} ms per epoch; "
+          f"{v1_per_epoch:.1f} launches on the card per epoch (phase 2) on "
+          f"{card}", flush=True)
     v1_launches = (KPT.pc_table_predict.launches,
                    KPT.pc_table_update.launches)
     check(v1_launches == (N_EPOCHS, N_EPOCHS) and
@@ -1102,6 +1157,9 @@ def main() -> int:
         b = SIM.run_sim(prog, SIM.SimConfig(n_epochs=N_EPOCHS,
                                             use_pallas=False), mech)
         agg_dev(mech, a, b)
+        if mech == "pcstall":
+            # the PC-table pair's run (K1's hit mask feeds the update)
+            agg_dev("pcstall v1", tr_v1, b)
 
     # ---- 5. the README's 304-CU row on the one-row path (K3) ------------
     KEF.epoch_fused.launches_by_family = dict.fromkeys(

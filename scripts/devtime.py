@@ -13,6 +13,13 @@ after four. The time is everything a call launches on the card: a
 wrapper that packs its scalar operands with small PyTorch kernels pays
 for them too.
 
+``events_ms(fn)`` is CUDA events over back-to-back calls with no spin:
+the time per call with the host, where the host is the slower side.
+
+``kernel_counts(fn, reps)`` is what ``reps`` calls run on the card
+(kernels, memsets, copies), by name and count, from one torch.profiler
+session: the launches a call makes.
+
 ``kernel_means(fn, names)`` splits a call by kernel with torch.profiler:
 each named kernel's mean duration over the records the trace kept, and
 how many it kept. CUPTI drops a few kernel records per session in a
@@ -61,6 +68,38 @@ def device_ms(fn, reps: int = 100, tries: int = 4):
         if queued_ms < spin.elapsed_time(start):
             return start.elapsed_time(end) / reps
     return None
+
+
+def events_ms(fn, reps: int = 200, warm: int = 20) -> float:
+    """ms per call of ``fn`` by CUDA events over ``reps`` back-to-back
+    calls (includes host time when the host is the slower side)."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def kernel_counts(fn, reps: int = 5):
+    """{name: records} of everything ``reps`` calls of ``fn`` run on the
+    card (not the runtime calls that launch it), from one torch.profiler
+    session after one untraced call."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {ev.key: ev.count for ev in prof.key_averages()
+            if ev.count and ev.device_type is not None
+            and "cuda" in str(ev.device_type).lower()}
 
 
 def kernel_means(fn, names, reps: int = 100):

@@ -500,11 +500,13 @@ def _make_body(st: SimStatic, spec: Optional[MechanismSpec],
     def _pc_lookup(carry, idx_lu, F, ax):
         """Table lookup + CU reduce + I(f) + capacity clip."""
         if use_v1:
-            I_pc = KPT.pc_table_predict(
+            # one launch: the kernel reads the int64 slots and the scalars
+            # on the card, and writes the hit mask from the counts it reads
+            I_pc, hit = KPT.pc_table_predict(
                 carry.table.i0, carry.table.sens, carry.table.count, tid32,
-                idx_lu.to(torch.int32), carry.wf_i0, carry.wf_sens, F,
-                epoch_us=ax.epoch_us, cap_per_ghz=ax.cap_per_ghz)
-            hit = (carry.table.count[tid[:, None], idx_lu] > 0).to(_F32)
+                idx_lu, carry.wf_i0, carry.wf_sens, F,
+                epoch_us=ax.epoch_us, cap_per_ghz=ax.cap_per_ghz,
+                return_hit=True)
         else:
             i0t, s_t, hit = PRED.table_lookup(carry.table, tid, idx_lu,
                                               carry.wf_i0, carry.wf_sens)
@@ -516,7 +518,7 @@ def _make_body(st: SimStatic, spec: Optional[MechanismSpec],
             shp = (n_tables, st.cus_per_table * st.n_wf)
             i0n, sn, cn = KPT.pc_table_update(
                 carry.table.i0, carry.table.sens, carry.table.count,
-                idx_lu.to(torch.int32).reshape(shp), i0_wf.reshape(shp),
+                idx_lu.reshape(shp), i0_wf.reshape(shp),
                 s_wf.reshape(shp), ema=ax.table_ema)
             return PRED.PCTable(i0n, sn, cn)
         return PRED.table_update(carry.table, tid, idx_lu, i0_wf, s_wf,

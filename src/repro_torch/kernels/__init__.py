@@ -54,11 +54,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # ctypes signature of every C entry point (c_void_p for each pointer and
-# the stream, c_int for each int), in the order of the C prototypes
-_VP, _CI = ctypes.c_void_p, ctypes.c_int
+# the stream, c_int for each int, c_float for each float), in the order
+# of the C prototypes
+_VP, _CI, _CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
-    "pc_table_predict_launch": (_CI, [_VP] * 9 + [_CI] * 5 + [_VP] * 2),
-    "pc_table_update_launch": (_CI, [_VP] * 10 + [_CI] * 3 + [_VP]),
+    "pc_table_predict_launch": (_CI, [_VP] * 10 + [_CF] * 2 + [_CI] * 6
+                                + [_VP] * 3),
+    "pc_table_update_launch": (_CI, [_VP] * 7 + [_CF] + [_CI] * 4
+                               + [_VP] * 2),
     "epoch_fused_launch": (_CI, [_VP, _VP]),
     "epoch_fused_cta_width": (_CI, [_CI] * 3),
     "flash_attention_launch": (_CI, [_VP] * 4 + [_CI] * 9 + [_VP]),
@@ -170,8 +173,12 @@ def stream_ptr(t: torch.Tensor) -> int:
 
 
 def stream_ptr_of(device: torch.device) -> int:
-    """The current CUDA stream of ``device``, as a pointer-sized int."""
-    return torch.cuda.current_stream(device).cuda_stream
+    """The current CUDA stream of ``device`` (the current device where it
+    names no index), as a pointer-sized int, without building a
+    ``torch.cuda.Stream`` (a few µs of host time per launch)."""
+    index = device.index
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if index is None else index)
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape,

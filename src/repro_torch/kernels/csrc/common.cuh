@@ -6,7 +6,26 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <atomic>
+
 #define FULL_MASK 0xffffffffu
+
+// The current device's SM count, read from the runtime once per device
+// and kept (launchers size their grids by it on every call); 0 where it
+// cannot be read.
+inline int sm_count() {
+  constexpr int kDevices = 64;
+  static std::atomic<int> kept[kDevices];
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  const bool keep = dev >= 0 && dev < kDevices;
+  if (keep && (sms = kept[dev].load(std::memory_order_relaxed))) return sms;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+      cudaSuccess)
+    return 0;
+  if (keep) kept[dev].store(sms, std::memory_order_relaxed);
+  return sms;
+}
 
 __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   return x < lo ? lo : (x > hi ? hi : x);

@@ -839,9 +839,8 @@ epoch_epilogue(const EpochArgs G) {
 // whole domains, is at most kMaxCtaCu and still gives every SM of the card
 // a CTA over the R rows; where none does, the narrowest.
 int cta_width(int CU, int R, int CPD) {
-  int dev = 0, sms = 132;
-  if (cudaGetDevice(&dev) == cudaSuccess)
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int sms = sm_count();
+  if (!sms) sms = 132;
   int best = 0, least = 0;
   for (int w = CPD; w <= CU; w += CPD) {
     if (CU % w) continue;

@@ -486,11 +486,8 @@ int launch(const float* r, const float* k, const float* v, const float* w,
       rwkv_chunk_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0;
-  err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
+  const int sms = sm_count();
+  if (!sms) return (int)cudaErrorInvalidDevice;
   err = cudaMemsetAsync(work, 0, sizeof(int) * (1 + (size_t)B * H), stream);
   if (err != cudaSuccess) return (int)err;
   const int tiles = B * H * (T / C);

@@ -17,11 +17,12 @@ def pc_table_predict_ref(table_i0: torch.Tensor, table_sens: torch.Tensor,
                          table_count: torch.Tensor, tid: torch.Tensor,
                          idx: torch.Tensor, fb_i0: torch.Tensor,
                          fb_sens: torch.Tensor, freqs: torch.Tensor, *,
-                         epoch_us=1.0, cap_per_ghz=0.0) -> torch.Tensor:
+                         epoch_us=1.0, cap_per_ghz=0.0, return_hit=False):
     """PCSTALL lookup + per-CU aggregation + I(f) evaluation (+ capacity
     clip when ``cap_per_ghz > 0``). table_* (T,E); tid (CU,); idx/fb_*
-    (CU,WF); freqs (F,). Returns I_pred (CU,F). Table ids and slots clamp
-    into range, as the reference's gathers do."""
+    (CU,WF); freqs (F,). Returns I_pred (CU,F), and with ``return_hit``
+    also the per-WF hit mask (CU,WF) f32 (1 where the slot's count > 0).
+    Table ids and slots clamp into range, as the reference's gathers do."""
     T, E = table_i0.shape
     t = tid.clamp(0, T - 1)[:, None]
     e = idx.clamp(0, E - 1)
@@ -35,7 +36,8 @@ def pc_table_predict_ref(table_i0: torch.Tensor, table_sens: torch.Tensor,
                           device=ipred.device)
     clipped = torch.clamp(ipred, min=torch.zeros_like(ipred),
                           max=cap * freqs[None, :] * epoch_us * n_wf)
-    return torch.where(cap > 0.0, clipped, ipred)
+    ipred = torch.where(cap > 0.0, clipped, ipred)
+    return (ipred, hit.to(torch.float32)) if return_hit else ipred
 
 
 def pc_table_update_ref(table_i0: torch.Tensor, table_sens: torch.Tensor,

@@ -12,6 +12,7 @@ floats within 1e-4 + 1e-5 |ref| (the kernels reduce in warp-tree and
 fixed block order, torch in its own).
 """
 import dataclasses
+import importlib.util
 import re
 import shutil
 import subprocess
@@ -32,8 +33,16 @@ from repro_torch.kernels import epoch_fused as KEF  # noqa: E402
 from repro_torch.kernels import pc_table as KPT  # noqa: E402
 from repro_torch.kernels import ref as REF  # noqa: E402
 
+_spec = importlib.util.spec_from_file_location(
+    "devtime", Path(__file__).resolve().parents[1] / "scripts/devtime.py")
+DT = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(DT)
+
 pytestmark = pytest.mark.cuda
 RTOL, ATOL = 1e-5, 1e-4
+# a whole run's work and energy sums, kernel engine against the unfused
+# one (a last-ulp difference may flip a frequency choice; chip_smoke.py's)
+AGG_TOL = 1e-3
 EPOCH_FAMS = [("pc", False, None), ("pc", True, None),
               ("reactive", False, "stall"), ("reactive", False, "lead"),
               ("reactive", False, "crit"), ("reactive", False, "crisp"),
@@ -150,35 +159,135 @@ def test_epoch_fused_kernel_table_maps(dev):
     assert added == sum(t < 4 for t in tid) * 12
 
 
-@pytest.mark.parametrize("T,E,CU,WF,NF", [(4, 64, 8, 16, 10),
-                                          (3, 200, 5, 70, 32),
-                                          (8, 128, 16, 40, 1)])
-def test_pc_table_kernels_match_plain(dev, T, E, CU, WF, NF):
-    rng = np.random.default_rng(T * E)
+def _table_case(T, E, CU, WF, NF, dev, *, N=None, seed=0):
+    """PC-table operands from a numpy seed: table ids past the last table,
+    slots below 0 and past the last slot (clamped on lookup, dropped on
+    update), ``N`` update entries per table (CU * WF // T by default)."""
+    rng = np.random.default_rng(seed)
 
     def f32(a):
         return torch.as_tensor(np.asarray(a, np.float32)).to(dev)
 
-    tbl = [f32(rng.uniform(0, 60, (T, E))), f32(rng.uniform(0, 40, (T, E))),
-           f32(rng.integers(0, 3, (T, E)))]
-    tid = torch.as_tensor(rng.integers(0, T + 2, CU), dtype=torch.int32)
-    idx = torch.as_tensor(rng.integers(0, E, (CU, WF)), dtype=torch.int32)
-    fb = [f32(rng.uniform(0, 60, (CU, WF))), f32(rng.uniform(0, 40, (CU, WF)))]
-    F = f32(np.linspace(1.3, 2.2, NF))
+    N = N or max(CU * WF // T, 1)
+    return dict(
+        tbl=[f32(rng.uniform(0, 60, (T, E))), f32(rng.uniform(0, 40, (T, E))),
+             f32(rng.integers(0, 3, (T, E)))],
+        tid=torch.as_tensor(rng.integers(0, T + 2, CU),
+                            dtype=torch.int32).to(dev),
+        idx=torch.as_tensor(rng.integers(-2, E + 2, (CU, WF))).to(dev),
+        fb=[f32(rng.uniform(0, 60, (CU, WF))),
+            f32(rng.uniform(0, 40, (CU, WF)))],
+        F=f32(np.linspace(1.3, 2.2, NF)),
+        idx2=torch.as_tensor(rng.integers(-2, E + 2, (T, N))).to(dev),
+        vals=[f32(rng.uniform(0, 60, (T, N))),
+              f32(rng.uniform(0, 40, (T, N)))])
+
+
+def _scalar_kw(kind, dev, **vals):
+    if kind == "float":
+        return vals
+    return {k: torch.tensor(v, dtype=torch.float32, device=dev)
+            for k, v in vals.items()}
+
+
+# ragged shapes: WF 1 / 33 / 40 / 100, E 1 / 100 / 128 / 1000 (and past
+# one thread per slot), T 1 / 64 / 304, N past one staged chunk (1024)
+@pytest.mark.parametrize("T,E,CU,WF,NF,N", [
+    (4, 64, 8, 16, 10, None), (3, 200, 5, 70, 32, None),
+    (8, 128, 16, 40, 1, None), (1, 1, 3, 1, 10, None),
+    (64, 128, 64, 40, 10, None), (304, 100, 304, 33, 10, None),
+    (2, 1000, 4, 100, 7, None), (2, 300, 40, 100, 10, 2000),
+    (1, 2000, 30, 40, 10, 1200), (3, 1500, 6, 33, 5, 5000)])
+@pytest.mark.parametrize("scalars", ["float", "tensor"])
+def test_pc_table_kernels_match_plain(dev, T, E, CU, WF, NF, N, scalars):
+    """K1 (I_pred and the hit mask) and K2 against their plain versions;
+    int32 and int64 slots give the same bits, and so do two calls."""
+    d = _table_case(T, E, CU, WF, NF, dev, N=N, seed=T * E + WF)
+    tbl, tid, fb, F = d["tbl"], d["tid"], d["fb"], d["F"]
     for cap in (0.0, 80.0):
-        got = KPT.pc_table_predict(*tbl, tid.to(dev), idx.to(dev), *fb, F,
-                                   epoch_us=1.0, cap_per_ghz=cap)
-        want = REF.pc_table_predict_ref(*tbl, tid.to(dev), idx.to(dev), *fb,
-                                        F, epoch_us=1.0, cap_per_ghz=cap)
-        _close(got, want, f"predict cap={cap}")
-    N = CU * WF // T
-    idx2 = torch.as_tensor(rng.integers(0, E, (T, N)),
-                           dtype=torch.int32).to(dev)
-    vals = [f32(rng.uniform(0, 60, (T, N))), f32(rng.uniform(0, 40, (T, N)))]
-    got = KPT.pc_table_update(*tbl, idx2, *vals, ema=0.3)
-    want = REF.pc_table_update_ref(*tbl, idx2, *vals, ema=0.3)
-    for k, g, w in zip(("i0", "sens", "count"), got, want):
+        kw = _scalar_kw(scalars, dev, epoch_us=1.5, cap_per_ghz=cap)
+        outs = [KPT.pc_table_predict(*tbl, tid, d["idx"].to(dt), *fb, F,
+                                     **kw, return_hit=True)
+                for dt in (torch.int64, torch.int32, torch.int64)]
+        want, want_hit = REF.pc_table_predict_ref(*tbl, tid, d["idx"], *fb,
+                                                  F, **kw, return_hit=True)
+        torch.cuda.synchronize()
+        _close(outs[0][0], want, f"predict cap={cap}")
+        assert torch.equal(outs[0][1], want_hit), f"hit cap={cap}"
+        for got, hit in outs[1:]:
+            assert torch.equal(got, outs[0][0]) and torch.equal(
+                hit, outs[0][1]), f"predict cap={cap}: bits differ"
+    kw = _scalar_kw(scalars, dev, ema=0.3)
+    outs = [KPT.pc_table_update(*tbl, d["idx2"].to(dt), *d["vals"], **kw)
+            for dt in (torch.int64, torch.int32, torch.int64)]
+    want = REF.pc_table_update_ref(*tbl, d["idx2"], *d["vals"], **kw)
+    for k, g, w in zip(("i0", "sens", "count"), outs[0], want):
         _close(g, w, f"update {k}")
+        assert g.is_contiguous() and g.shape == (T, E)
+    for other in outs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(outs[0], other))
+
+
+@pytest.mark.parametrize("scalars", ["float", "tensor"])
+def test_pc_table_wrappers_launch_one_kernel_each(dev, scalars):
+    """A wrapper call on the card is one kernel launch and nothing else
+    (no conversion, scalar packing or copy), as the engine calls it:
+    int64 slots, the hit mask, the scalars on the card or as floats."""
+    d = _table_case(64, 128, 64, 40, 10, dev, seed=5)
+    kp = _scalar_kw(scalars, dev, epoch_us=1.0, cap_per_ghz=5500.0)
+    ke = _scalar_kw(scalars, dev, ema=0.5)
+    upd = (d["idx"].reshape(64, 40), *(v.reshape(64, 40) for v in d["fb"]))
+    ran = DT.kernel_counts(lambda: KPT.pc_table_predict(
+        *d["tbl"], d["tid"], d["idx"], *d["fb"], d["F"], **kp,
+        return_hit=True), 4)
+    assert len(ran) == 1 and "pc_table_predict_kernel" in next(iter(ran)) \
+        and set(ran.values()) == {4}, ran
+    ran = DT.kernel_counts(
+        lambda: KPT.pc_table_update(*d["tbl"], *upd, **ke), 4)
+    assert len(ran) == 1 and "pc_table_update_kernel" in next(iter(ran)) \
+        and set(ran.values()) == {4}, ran
+
+
+def test_pc_table_wrappers_refuse_bad_operands(dev):
+    """A wrong dtype, shape, device, layout or scalar raises before any
+    launch."""
+    d = _table_case(4, 32, 8, 12, 10, dev, seed=2)
+    tbl, tid, idx, fb, F = d["tbl"], d["tid"], d["idx"], d["fb"], d["F"]
+    n0 = (KPT.pc_table_predict.launches, KPT.pc_table_update.launches)
+    bad_predict = [
+        ("dtype", dict(idx=idx.float())),
+        ("dtype", dict(tid=tid.long())),
+        ("dtype", dict(tbl0=tbl[0].double())),
+        ("shape", dict(tid=tid[:5])),
+        ("shape", dict(fb0=fb[0][:, :6].contiguous())),
+        ("on cpu", dict(fb1=fb[1].cpu())),
+        ("contiguous", dict(fb0=torch.zeros((8, 24), device=dev)[:, ::2])),
+        ("32 states", dict(F=torch.linspace(1.0, 2.0, 33, device=dev))),
+        ("epoch_us", dict(epoch_us=torch.tensor(1.0, device=dev,
+                                                dtype=torch.float64))),
+        ("cap_per_ghz", dict(cap_per_ghz=torch.ones(2, device=dev))),
+        ("cap_per_ghz", dict(cap_per_ghz=torch.ones(2)))]
+    for what, sub in bad_predict:
+        ops = {**dict(tbl0=tbl[0], tid=tid, idx=idx, fb0=fb[0], fb1=fb[1],
+                      F=F, epoch_us=1.0, cap_per_ghz=0.0), **sub}
+        with pytest.raises(ValueError, match=what):
+            KPT.pc_table_predict(ops["tbl0"], tbl[1], tbl[2], ops["tid"],
+                                 ops["idx"], ops["fb0"], ops["fb1"], ops["F"],
+                                 epoch_us=ops["epoch_us"],
+                                 cap_per_ghz=ops["cap_per_ghz"])
+    idx2, vals = d["idx2"], d["vals"]
+    bad_update = [
+        ("dtype", (idx2.float(), *vals), {}),
+        ("shape", (idx2, vals[0][:, :3].contiguous(), vals[1]), {}),
+        ("shape", (idx2[:3], vals[0][:3], vals[1][:3]), {}),
+        ("on cpu", (idx2, vals[0].cpu(), vals[1]), {}),
+        ("ema", (idx2, *vals), dict(ema=torch.tensor([0.5, 0.5],
+                                                     device=dev)))]
+    for what, args, kw in bad_update:
+        with pytest.raises(ValueError, match=what):
+            KPT.pc_table_update(*tbl, *args, **kw)
+    assert (KPT.pc_table_predict.launches,
+            KPT.pc_table_update.launches) == n0
 
 
 def test_wrappers_reject_bad_operands(dev):
@@ -195,7 +304,7 @@ def test_wrappers_reject_bad_operands(dev):
     tbl = [torch.zeros((2, 8), device=dev) for _ in range(3)]
     with pytest.raises(ValueError, match="int32"):
         KPT.pc_table_update(*tbl, torch.zeros((2, 3), device=dev,
-                                              dtype=torch.int64),
+                                              dtype=torch.float32),
                             torch.zeros((2, 3), device=dev),
                             torch.zeros((2, 3), device=dev))
 
@@ -211,6 +320,28 @@ def test_run_sim_on_card_uses_kernels(dev):
         out = SIM.run_sim(prog, sim, mech)
         assert KEF.epoch_fused.launches == before + 20, mech
         assert all(np.isfinite(v).all() for v in out.values()), mech
+
+
+@pytest.mark.parametrize("mech", ["pcstall", "accpc"])
+def test_v1_run_matches_unfused_engine(dev, mech):
+    """A 600-epoch run of a pc mechanism on the PC-table pair (K1's hit
+    mask feeding hit_rate and the table update) against the unfused
+    engine: the same shapes and hit rate, work and energy sums within
+    AGG_TOL."""
+    prog = get_workload("comd", device=dev)
+    cfg = SIM.SimConfig(n_epochs=600)
+    n0 = (KPT.pc_table_predict.launches, KPT.pc_table_update.launches)
+    a = SIM.run_sim(prog, dataclasses.replace(cfg, use_pallas="v1"), mech)
+    assert (KPT.pc_table_predict.launches - n0[0],
+            KPT.pc_table_update.launches - n0[1]) == (600, 600)
+    b = SIM.run_sim(prog, dataclasses.replace(cfg, use_pallas=False), mech)
+    assert a.keys() == b.keys()
+    for k in a:
+        assert a[k].shape == b[k].shape and np.isfinite(a[k]).all(), k
+    for k in ("work", "energy"):
+        want = float(b[k].sum(dtype=np.float64))
+        got = float(a[k].sum(dtype=np.float64))
+        assert abs(got - want) <= AGG_TOL * abs(want), (k, got, want)
 
 
 @pytest.mark.parametrize("mech,use_pallas", [

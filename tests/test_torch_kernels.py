@@ -50,10 +50,30 @@ def _pc_inputs(T, E, CU, WF, seed):
         freqs=np.linspace(1.3, 2.2, 10).astype(np.float32))
 
 
+def _scalars(kind, **vals):
+    """The wrappers' scalar operands as Python floats or as 0-dim f32
+    tensors (the engine passes its ``SimAxes`` tensors)."""
+    if kind == "float":
+        return vals
+    return {k: torch.tensor(v, dtype=torch.float32) for k, v in vals.items()}
+
+
+IDX_DTYPES = pytest.mark.parametrize("idx_dt", [torch.int32, torch.int64],
+                                     ids=["i32", "i64"])
+SCALAR_KINDS = pytest.mark.parametrize("scalars", ["float", "tensor"])
+
+
 # the shapes of tests/test_kernels.py::test_pc_table_predict_sweep
 @pytest.mark.parametrize("T,E,CU,WF", [(4, 64, 8, 16), (8, 128, 16, 40)])
 @pytest.mark.parametrize("cap", [0.0, 60.0])
-def test_pc_table_predict_matches_reference(T, E, CU, WF, cap):
+@IDX_DTYPES
+@SCALAR_KINDS
+def test_pc_table_predict_matches_reference(T, E, CU, WF, cap, idx_dt,
+                                            scalars):
+    """I_pred against the reference's kernel (interpret mode) and its
+    oracle; the hit mask against the reference's v1 body's own gather
+    (``count[tid[:, None], idx] > 0``); int64 slots and tensor scalars give
+    the bits of int32 slots and float scalars."""
     d = _pc_inputs(T, E, CU, WF, seed=T * CU)
     names = ("ti0", "tse", "tcnt", "tid", "idx", "fb0", "fbs", "freqs")
     want = JKPT.pc_table_predict(*(jnp.asarray(d[k]) for k in names),
@@ -61,11 +81,22 @@ def test_pc_table_predict_matches_reference(T, E, CU, WF, cap):
                                  interpret=True)
     also = JREF.pc_table_predict_ref(*(jnp.asarray(d[k]) for k in names),
                                      epoch_us=1.0, cap_per_ghz=cap)
-    args = [t_(d[k], torch.int32 if k in ("tid", "idx") else torch.float32)
+    want_hit = (jnp.asarray(d["tcnt"])[jnp.asarray(d["tid"])[:, None],
+                                       jnp.asarray(d["idx"])] > 0)
+    dts = dict(tid=torch.int32, idx=idx_dt)
+    args = [t_(d[k], dts.get(k, torch.float32)) for k in names]
+    got, hit = KPT.pc_table_predict(
+        *args, **_scalars(scalars, epoch_us=1.0, cap_per_ghz=cap),
+        return_hit=True)
+    alone = KPT.pc_table_predict(
+        *args, **_scalars(scalars, epoch_us=1.0, cap_per_ghz=cap))
+    base = [t_(d[k], torch.int32 if k in dts else torch.float32)
             for k in names]
-    got = KPT.pc_table_predict(*args, epoch_us=1.0, cap_per_ghz=cap)
-    plain = REF.pc_table_predict_ref(*args, epoch_us=1.0, cap_per_ghz=cap)
+    plain = REF.pc_table_predict_ref(*base, epoch_us=1.0, cap_per_ghz=cap)
     np.testing.assert_array_equal(np_(got), np_(plain))
+    np.testing.assert_array_equal(np_(alone), np_(plain))
+    np.testing.assert_array_equal(np_(hit), np_(want_hit).astype(np.float32))
+    assert hit.dtype == torch.float32 and hit.shape == (CU, WF)
     np.testing.assert_allclose(np_(got), np_(want), rtol=RTOL, atol=1e-3)
     np.testing.assert_allclose(np_(got), np_(also), rtol=RTOL, atol=1e-3)
     assert KPT.pc_table_predict.launches == 0   # CPU: the plain version
@@ -85,7 +116,12 @@ def test_pc_table_predict_clamps_out_of_range_ids():
 
 
 @pytest.mark.parametrize("T,E,N", [(4, 64, 16), (8, 128, 40), (3, 16, 90)])
-def test_pc_table_update_matches_reference(T, E, N):
+@IDX_DTYPES
+@SCALAR_KINDS
+def test_pc_table_update_matches_reference(T, E, N, idx_dt, scalars):
+    """The new tables against the reference's kernel (interpret mode);
+    int64 slots and a tensor ``ema`` give the bits of int32 slots and a
+    float."""
     rng = np.random.default_rng(T + N)
     tbl = [rng.uniform(0, 60, (T, E)).astype(np.float32),
            rng.uniform(0, 40, (T, E)).astype(np.float32),
@@ -97,8 +133,8 @@ def test_pc_table_update_matches_reference(T, E, N):
     se = rng.uniform(0, 40, (T, N)).astype(np.float32)
     want = JKPT.pc_table_update(*map(jnp.asarray, tbl + [idx, i0, se]),
                                 ema=0.3, interpret=True)
-    got = KPT.pc_table_update(*map(t_, tbl), t_(idx, torch.int32), t_(i0),
-                              t_(se), ema=0.3)
+    got = KPT.pc_table_update(*map(t_, tbl), t_(idx, idx_dt), t_(i0),
+                              t_(se), **_scalars(scalars, ema=0.3))
     plain = REF.pc_table_update_ref(*map(t_, tbl), t_(idx, torch.int32),
                                     t_(i0), t_(se), ema=0.3)
     for g, p, w in zip(got, plain, want):
