@@ -18,6 +18,11 @@ the card's name and power limit, then:
   the fork family on the kernel engine: the summed device time of every
   kernel and copy ``torch.profiler`` records over 100 epochs, over the
   host wall of the same 100 epochs run without the profiler;
+* with ``--first``: the Fig-15 grid's first and second ``run_grid`` calls
+  in the process (all eight mechanisms, 800 epochs, kernel engine; the
+  first holds the call's one-time costs, the dispatch guard's
+  axis-liveness audits among them where the checkout has the auditor),
+  and those audits alone, their cache cleared;
 * with ``--service``: one micro-batch of the 304-CU DVFS service (the
   first 8 requests of ``dvfs_request_stream(32, seed=7)`` at
   ``SimConfig(n_cu=304, n_wf=40, pallas_block_cu=38)``, 400 epochs,
@@ -43,6 +48,8 @@ from repro_torch.core.workloads import get_workload
 
 FIG15_WORKLOADS = ["comd", "hpgmg", "lulesh", "xsbench", "hacc", "quickS",
                    "dgemm", "BwdBN", "BwdPool", "FwdSoft"]
+FIG15_MECHS = ("static13", "static17", "static22", "crisp", "accreac",
+               "pcstall", "accpc", "oracle")
 FAMILIES = {"forks": ("crisp", "accreac", "pcstall", "accpc"),
             "statics": ("static13", "static17", "static22"),
             "oracle": ("oracle",)}
@@ -116,6 +123,27 @@ def grid_times(n_epochs=800):
     return out
 
 
+def first_calls(n_epochs=800):
+    from repro_torch.core import sweep as SW
+    progs = {w: get_workload(w) for w in FIG15_WORKLOADS}
+    sim = SIM.SimConfig(n_epochs=n_epochs)
+
+    def grid():
+        SW.run_grid(progs, sim, {"epoch_us": [1.0]}, FIG15_MECHS)
+    out = {"first_s": wall(grid), "second_s": wall(grid)}
+    try:
+        from repro_torch.analysis import deps as DEPS
+    except ImportError:          # a checkout without the auditor
+        return out
+    DEPS.axis_liveness.cache_clear()
+    t0 = time.perf_counter()
+    for m in FIG15_MECHS:
+        DEPS.require_dedup_sound(m, sim)
+    out["audit_s"] = time.perf_counter() - t0
+    out["audits"] = DEPS.axis_liveness.cache_info().misses
+    return out
+
+
 def service_times(n_epochs=400):
     from repro_torch.core import sweep as SW
     from repro_torch.data.pipeline import dvfs_request_stream
@@ -142,12 +170,15 @@ def main() -> None:
     ap.add_argument("--label", default="")
     ap.add_argument("--grid", action="store_true")
     ap.add_argument("--service", action="store_true")
+    ap.add_argument("--first", action="store_true")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("time_sweep: needs a CUDA device")
     card = card_line()
     res = {"label": a.label, "card": card,
            "engine_ms_per_epoch": engine_ms(get_workload("comd"))}
+    if a.first:
+        res["fig15_first_calls"] = first_calls()
     if a.grid:
         res["fig15_families"] = grid_times()
     if a.service:

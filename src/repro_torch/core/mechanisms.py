@@ -16,14 +16,21 @@ Hook contract (as in the reference, on tensors):
     New per-CU reactive state in instr/us(/GHz) rate units; ``None`` keeps
     the carry.
 
-The axis-liveness auditor of ``repro.analysis`` is not ported yet
-(ROADMAP A11): ``register(verify_axes=True)`` raises until it is.
+Hooks whose weights are part of the mechanism's identity (the learned
+predictors of ``repro_torch.learn``) ride a :class:`ParamHook`, which
+compares by parameter value. ``register`` audits every non-builtin spec
+with the axis-liveness auditor (``repro_torch.analysis.deps``), and
+:func:`mechanism_table` renders the registry with the audit's verdict.
 """
 from __future__ import annotations
 
 import threading
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Tuple, Union
+from typing import Callable, Dict, Mapping, Optional, Tuple, Union
+
+import numpy as np
+import torch
+from torch.utils import _pytree as pytree
 
 from repro_torch.core import power as PWR
 
@@ -64,7 +71,7 @@ class MechanismSpec:
     predict: Optional[Callable] = None       # custom predictor hook
     update: Optional[Callable] = None        # custom estimator hook
     # documented waiver for a false under-declaration reported by the
-    # axis-liveness auditor (kept for parity with the reference's specs)
+    # axis-liveness auditor: it turns the audit's error into a warning
     liveness_waiver: Optional[str] = None
     # whether the fused epoch kernel can serve this mechanism; forced False
     # for static pins, the fork oracle and custom predict hooks, which run
@@ -137,6 +144,68 @@ class MechanismSpec:
         return tuple(a for a in self.config_axes if a != "n_epochs")
 
 
+class ParamHook:
+    """A predict/update hook parameterized by arrays, compared by VALUE.
+
+    Binds a module-level hook function ``fn`` to a flat ``{name: array}``
+    parameter dict and calls it as ``fn(*hook_args, params=tensors)``,
+    where ``tensors`` are the parameters as f32 tensors on the device of
+    the hook's first tensor argument (copied there once per device and
+    kept: the epoch loop copies nothing from the host).
+
+    Equality and hashing cover ``(fn identity, per-parameter name, shape,
+    dtype, bytes)``, the key the step caches need:
+
+    * a spec re-created around equal-valued parameters (the same frozen
+      artifact reloaded) compares equal, so every spec-keyed cache
+      (``sweep._grid_step``, the audit cache, ``resolve``) hits and
+      nothing is rebuilt;
+    * any changed byte makes an unequal spec, which builds its own step
+      and never reuses one with old weights;
+    * the shared builtin fork family keys on no custom spec, so weight
+      swaps never rebuild it.
+
+    Parameters are converted with ``np.asarray`` and keyed in sorted-name
+    order; pass numpy arrays (or CPU tensors)."""
+
+    __slots__ = ("fn", "params", "_key", "_hash", "_on_device")
+
+    def __init__(self, fn: Callable, params: Mapping[str, "np.ndarray"]):
+        self.fn = fn
+        self.params = {k: np.asarray(params[k]) for k in sorted(params)}
+        self._key = (fn, tuple(
+            (k, v.shape, v.dtype.str, v.tobytes())
+            for k, v in self.params.items()))
+        self._hash = hash(self._key)
+        self._on_device: Dict[torch.device, Dict[str, torch.Tensor]] = {}
+
+    def tensors(self, device) -> Dict[str, torch.Tensor]:
+        """The parameters as f32 tensors on ``device`` (cached)."""
+        dev = torch.device(device)
+        got = self._on_device.get(dev)
+        if got is None:
+            got = {k: torch.as_tensor(v, dtype=torch.float32).to(dev)
+                   for k, v in self.params.items()}
+            self._on_device[dev] = got
+        return got
+
+    def __call__(self, *args, **kw):
+        dev = next(t.device for t in pytree.tree_leaves(args)
+                   if isinstance(t, torch.Tensor))
+        return self.fn(*args, params=self.tensors(dev), **kw)
+
+    def __eq__(self, other):
+        return isinstance(other, ParamHook) and self._key == other._key
+
+    def __hash__(self):
+        return self._hash
+
+    def __repr__(self):
+        shapes = {k: v.shape for k, v in self.params.items()}
+        name = getattr(self.fn, "__name__", repr(self.fn))
+        return f"ParamHook({name}, {shapes})"
+
+
 # ---------------------------------------------------------------------------
 # Registry
 # ---------------------------------------------------------------------------
@@ -146,27 +215,48 @@ _REG_LOCK = threading.Lock()
 
 
 def register(spec: MechanismSpec, *, allow_override: bool = False,
-             verify_axes: bool = False) -> MechanismSpec:
+             verify_axes: Optional[bool] = None) -> MechanismSpec:
     """Add ``spec`` to the registry and return it. Duplicate names raise
     unless ``allow_override=True``; builtins can never be overridden and
-    user mechanisms cannot claim a traced id. ``verify_axes=True`` needs
-    the axis-liveness auditor, which is not ported yet."""
+    user mechanisms cannot claim a traced id.
+
+    ``verify_axes`` runs the axis-liveness auditor
+    (:func:`repro_torch.analysis.deps.verify_spec_axes`) on the spec
+    before it enters the registry: one epoch of the spec is followed
+    operation by operation at a tiny static shape on the CPU (cached, and
+    shared with the ``run_grid`` guard) and its real axis dependencies
+    are checked against ``exec_axes``. Under-declaration raises
+    :class:`repro_torch.analysis.deps.AxisLivenessError` and the spec is
+    not registered; over-declaration warns, naming the dead axis. The
+    default (``None``) audits every spec outside ``BUILTIN_NAMES``; the
+    builtins are held exact by the port's tests.
+
+    Step builds are keyed on the spec value and plain hook functions
+    compare by identity, so a spec re-created around fresh lambdas builds
+    a new step; weights that belong to the mechanism's identity go in a
+    :class:`ParamHook`, which compares by value."""
+    if spec.name in _REGISTRY and (
+            not allow_override or spec.name in BUILTIN_NAMES):
+        raise ValueError(
+            f"mechanism {spec.name!r} is already registered"
+            + ("" if allow_override else
+               " (pass allow_override=True to replace)"))
+    if spec.name not in BUILTIN_NAMES:
+        assert spec.traced_id is None, \
+            "traced ids are reserved for the builtin fork family"
+        assert spec.family != "oracle", \
+            "the oracle family is the builtin fork oracle"
+    if verify_axes is None:
+        verify_axes = spec.name not in BUILTIN_NAMES
     if verify_axes:
-        raise NotImplementedError(
-            "verify_axes needs the axis-liveness auditor (analysis/), not "
-            "yet ported: ROADMAP A11")
+        # lazy: the auditor imports simulate, which imports this module
+        from repro_torch.analysis.deps import verify_spec_axes
+        verify_spec_axes(spec)  # raises AxisLivenessError: not registered
     with _REG_LOCK:
         if spec.name in _REGISTRY and (
                 not allow_override or spec.name in BUILTIN_NAMES):
             raise ValueError(
-                f"mechanism {spec.name!r} is already registered"
-                + ("" if allow_override else
-                   " (pass allow_override=True to replace)"))
-        if spec.name not in BUILTIN_NAMES:
-            assert spec.traced_id is None, \
-                "traced ids are reserved for the builtin fork family"
-            assert spec.family != "oracle", \
-                "the oracle family is the builtin fork oracle"
+                f"mechanism {spec.name!r} is already registered")
         _REGISTRY[spec.name] = spec
     return spec
 
@@ -266,7 +356,38 @@ for _s in (
     MechanismSpec("oracle", "oracle", _CTRL, traced_id=7,
                   label="fork oracle"),
 ):
+    # repro: waive[REPRO006] import-time builtin registration, no threads yet
     _REGISTRY[_s.name] = _s
 del _s
 
 assert names() == BUILTIN_NAMES
+
+
+def mechanism_table(verify: bool = True) -> str:
+    """The registry as a markdown table.
+
+    With ``verify=True`` each row's live-axes cell is stamped by the
+    axis-liveness auditor: ``✓`` when it derives exactly the declared
+    set, ``~ over`` for a declared axis that is dead, ``waived`` for a
+    documented waiver and ``✗ UNDER`` for an under-declaration."""
+    marks = {}
+    if verify:
+        from repro_torch.analysis.deps import axis_liveness
+        for s in specs():
+            res = axis_liveness(s)
+            if res.under_declared:
+                marks[s.name] = "waived" if res.waiver else "✗ UNDER"
+            else:
+                marks[s.name] = "✓" if res.exact else "~ over"
+    head = "| name | family | traced id | live axes | verified | label |" \
+        if verify else "| name | family | traced id | live axes | label |"
+    rows = [head, "|---|---|" + "---|" * (head.count("|") - 3)]
+    for s in specs():
+        tid = "—" if s.traced_id is None else str(s.traced_id)
+        axes = ", ".join(a for a in s.exec_axes if a != "n_ep")
+        cells = [f"`{s.name}`", s.family, tid, axes]
+        if verify:
+            cells.append(marks[s.name])
+        cells.append(s.label)
+        rows.append("| " + " | ".join(cells) + " |")
+    return "\n".join(rows)

@@ -110,6 +110,7 @@ def freqs_ghz(pw: PowerParams, n_freqs: Optional[int] = None,
         dev = resolve_device(device)
     lo, hi = _f32(pw.f_min, dev), _f32(pw.f_max, dev)
     i = torch.arange(n_freqs - 1, dtype=torch.float32, device=dev)
+    # repro: waive[REPRO001] a numpy scalar of the static ladder length
     r = float(np.float32(1.0) / np.float32(n_freqs - 1))
     return torch.cat([lo * (1.0 - i * r) + i * (hi * r), hi.reshape(1)])
 

@@ -45,11 +45,13 @@ one card in eager PyTorch:
 * no buffer donation (``donate_argnums``): the initial carry is built per
   dispatch and released when the loop drops it;
 * ``TRACE_COUNTS`` counts builds of a family's batched step, one per
-  (``SimStatic``, family) key, cached like the reference's executables;
-* the axis-liveness auditor (``repro.analysis.deps``) is not ported
-  (ROADMAP A11). The reference derives all eleven builtins' ``exec_axes``
-  exactly, so builtin specs are trusted; a non-builtin spec under
-  ``dedup=True`` raises ``NotImplementedError`` (``dedup=False`` runs it).
+  (``SimStatic``, family) key, cached like the reference's executables.
+
+``run_grid(dedup=True)`` refuses an under-declared spec before any
+dispatch, as the reference does: the axis-liveness auditor
+(``repro_torch.analysis.deps.require_dedup_sound``, on the engine the
+grid runs) raises ``AxisLivenessError`` naming the axis (``dedup=False``
+runs it).
 
 ``GridExecutor.dispatch`` never synchronises with the host: operands go to
 the card from pinned memory on the current stream, and
@@ -99,21 +101,12 @@ DISPATCH_ROWS: collections.Counter = collections.Counter()
 # from several threads); snapshot reads need none
 _COUNTER_LOCK = threading.Lock()
 
-_A11_TODO = ("dedup=True needs the axis-liveness audit of {name!r}, and the "
-             "auditor (repro.analysis) is not ported yet: ROADMAP A11. "
-             "Builtin specs are trusted; run a custom spec with dedup=False")
-
 
 def reset_counters() -> None:
     """Zero ``TRACE_COUNTS`` and ``DISPATCH_ROWS`` atomically."""
     with _COUNTER_LOCK:
         TRACE_COUNTS.clear()
         DISPATCH_ROWS.clear()
-
-
-def _require_dedup_sound(spec: MechanismSpec) -> None:
-    if spec.name not in MECH.BUILTIN_NAMES:
-        raise NotImplementedError(_A11_TODO.format(name=spec.name))
 
 
 def pad_program(prog: Program, p_max: int) -> Program:
@@ -372,8 +365,12 @@ def run_grid(programs: Union[Dict[str, Program], Sequence[Program]],
     assert len(devs) == 1, f"programs on several devices: {devs}"
     specs = [MECH.resolve(m) for m in mechanisms]
     if dedup:
+        # refuse under-declared specs before any dispatch: the dedup
+        # broadcasts one row across every point agreeing on a spec's
+        # declared axes (the audit is cached per spec and engine)
+        from repro_torch.analysis.deps import require_dedup_sound
         for s in specs:
-            _require_dedup_sound(s)
+            require_dedup_sound(s, static_cfg)
     assert static_cfg.n_cu % static_cfg.cus_per_domain == 0
     axis_names, points = _grid_points(axes_grid)
     keys = [tuple(p[n] for n in axis_names) for p in points]

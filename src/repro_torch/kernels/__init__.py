@@ -136,6 +136,7 @@ def _build(out_dir: Path) -> Path:
                 proc.kill()
                 proc.wait()
         shutil.rmtree(tmp, ignore_errors=True)
+    # repro: waive[REPRO006] _build runs only inside library() under _lock
     BUILD["seconds"] = time.perf_counter() - t0
     return out_dir / _LIB_NAME
 

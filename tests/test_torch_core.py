@@ -344,12 +344,31 @@ def test_spec_validation_matches_reference(kw):
     assert got.type is want.type
 
 
+def _table_predict(carry, ctx, st, ax):
+    """A pc predictor reading the live PC table (declares _TABLE
+    soundly: the audit derives exactly those axes)."""
+    tid = torch.div(torch.arange(st.n_cu), st.cus_per_table,
+                    rounding_mode="floor")
+    idx = PRED.table_index(ctx.blk, st.entries, st.offset_blocks)
+    i0, s, _ = PRED.table_lookup(carry.table, tid, idx, carry.wf_i0,
+                                 carry.wf_sens)
+    return SIM.predict_instr(i0.sum(-1), s.sum(-1), st, ax)
+
+
+def _sneaky_predict(carry, ctx, st, ax):
+    i0 = carry.react_i0 * (1.0 + 0.1 * ax.table_ema)
+    return SIM.predict_instr(i0, carry.react_sens, st, ax)
+
+
 def test_register_resolve_unregister():
+    from repro_torch.analysis.deps import AxisLivenessError, axis_liveness
     spec = MECH.MechanismSpec("my_pc", "pc", MECH._TABLE,
-                              predict=lambda c, x, s, a: None)
+                              predict=_table_predict)
     assert not spec.v2_capable and not spec.is_traced
     try:
+        # the default registration audits the custom spec
         assert MECH.register(spec) is spec
+        assert axis_liveness(spec).exact
         assert MECH.resolve("my_pc") is spec
         assert "my_pc" in MECH.names()
         with pytest.raises(ValueError, match="already registered"):
@@ -364,8 +383,11 @@ def test_register_resolve_unregister():
     assert "my_pc" not in MECH.names()
     with pytest.raises(KeyError, match="unknown mechanism"):
         MECH.get("my_pc")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MECH.register(spec, verify_axes=True)
+    sneaky = MECH.MechanismSpec("my_sneaky", "reactive", MECH._CTRL,
+                                predict=_sneaky_predict)
+    with pytest.raises(AxisLivenessError, match="table_ema"):
+        MECH.register(sneaky, verify_axes=True)
+    assert "my_sneaky" not in MECH.names()
     with pytest.raises(AssertionError):
         MECH.register(MECH.MechanismSpec("t", "reactive", MECH._CTRL,
                                          traced_id=9))

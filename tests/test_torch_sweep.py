@@ -395,12 +395,27 @@ def test_dedup_flag_and_custom_specs(progs):
 
     spec = MECH.MechanismSpec("sweep_decay", "reactive", MECH._CTRL,
                               predict=predict)
-    with pytest.raises(NotImplementedError, match="A11"):
-        SW.run_grid(progs, cfg, grid, ("crisp", spec))
+    # the audited dedup (exec_axes derived exactly) equals the per-point run
+    SW.reset_counters()
+    audited = SW.run_grid(progs, cfg, grid, ("crisp", spec))
+    assert SW.DISPATCH_ROWS["grid_sweep_decay"] == len(progs) * 2
     custom = SW.run_grid(progs, cfg, grid, ("crisp", spec), dedup=False)
+    for key in custom:
+        _same(audited[key], custom[key], str(key))
     tr = custom[("edp", 0.8)]["hacc"]["sweep_decay"]
     assert set(tr) == {"work", "energy", "err", "fidx", "true_sens"}
     assert np.isfinite(tr["work"]).all() and (tr["work"] > 0).all()
+
+    def sneaky(carry, ctx, st, ax):
+        i0 = carry.react_i0 * (1.0 + 0.1 * ax.table_ema)
+        return SIM.predict_instr(i0, carry.react_sens, st, ax)
+
+    # an under-declared spec (reads table_ema, a grid axis here) is refused
+    under = MECH.MechanismSpec("sweep_sneaky", "reactive", MECH._CTRL,
+                               predict=sneaky)
+    from repro_torch.analysis.deps import AxisLivenessError
+    with pytest.raises(AxisLivenessError, match="table_ema"):
+        SW.run_grid(progs, cfg, grid, ("crisp", under))
 
 
 def test_step_builds_are_cached(progs):
