@@ -25,8 +25,9 @@ drives the port (never JAX, never ``repro``):
    with the reference's tiling: K4's kernels) at 304 x 40 in blocks of 38
    against the reference's blocked pair; rows alone against the same
    rows among 42 and among 8 (two CTA widths each), bit for bit; K6 at
-   the glm4-9b and phi3-mini-3.8b prefills and K7 at the rwkv6-3b
-   prefill;
+   the glm4-9b and phi3-mini-3.8b prefills (bf16 and f32) and at the
+   musicgen-medium, granite-moe-1b-a400m and qwen2-moe-a2.7b prefills
+   (bf16), and K7 at the rwkv6-3b prefill;
 3. times of every kernel (the one method: ``scripts/devtime.py``):
    device time per call against its bound, the per-call time with the
    host, the plain version's and, for K6, ``scaled_dot_product_attention``;
@@ -63,18 +64,22 @@ drives the port (never JAX, never ``repro``):
    and the mean report beside the JAX reference's; then
    ``DVFSManager.for_model`` for llama3-405b and qwen2-moe-a2.7b at its
    default 16 CUs (K4): ``report`` and a 2 x 2 ``grid_report``;
-9. the LM serving path: ``launch.serve.serve`` of glm4-9b, rwkv6-3b and
-   phi3-mini-3.8b at their published widths and depths (random weights
-   from a seed), batch 4, a 2048-token prompt, greedy tokens (16, 16 and
-   8), telemetry streamed to ``DVFSService.for_model`` (K4 at 16 CUs):
-   prefill seconds, decode ms per token, K6 (flash attention; head dim
-   128, and 96 for phi3) or K7 (chunked WKV) once per layer of the
-   prefill, finite logits, the DVFS report; the same serve without the
-   DVFS stream; then per model a token-by-token decode of 256 tokens
-   against the prefill's logits, the model in f32 to 2e-2 (as the
-   reference's tests hold it) and in bf16 to a fixed limit, and where the
-   device time of a prefill and of a decode step goes (K6/K7, matrix
-   products, the rest);
+9. the LM serving path: ``launch.serve.serve`` of glm4-9b, rwkv6-3b,
+   phi3-mini-3.8b, musicgen-medium (audio), granite-moe-1b-a400m and
+   qwen2-moe-a2.7b (moe) at their published widths and depths (random
+   weights from a seed), batch 4, a 2048-token prompt, greedy tokens (16
+   for the first two, 8 for the rest), telemetry streamed to
+   ``DVFSService.for_model`` (K4 at 16 CUs): prefill seconds, decode ms
+   per token, K6 (flash attention; head dim 128, 96 for phi3, 64 for
+   musicgen and granite-moe) or K7 (chunked WKV) once per layer of the
+   prefill, the moe prefills' dropped pairs, finite logits, the DVFS
+   report; the same serve without the DVFS stream; then per model a
+   token-by-token decode of 256 tokens (4 for the moe models, where their
+   prefill can drop no pair) against the prefill's logits, the model in
+   f32 to 2e-2 (as the reference's tests hold it) and in bf16 to a fixed
+   limit, and where the device time of a prefill and of a decode step
+   goes (K6/K7, the MoE layer's expert products and its dispatch and
+   combine, the other matrix products, the rest);
 10. engine and grid wall times;
 11. K4 against its plain version at the learn path's layout (32 CUs x
     40 WFs, 32 tables: the factory dataset's 32 pcstall rows and the
@@ -142,6 +147,7 @@ from repro_torch.kernels import rwkv_chunk as RC  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.learn import dataset as LDS  # noqa: E402
 from repro_torch.models import model as LM  # noqa: E402
+from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.kernels import pc_table as KPT  # noqa: E402
 from repro_torch.kernels import ref as REF  # noqa: E402
 
@@ -215,16 +221,41 @@ MANAGER_CU = 16  # DVFSManager.for_model's default
 # batch 4, a prompt of 2048 tokens (it takes both kernels' paths in the
 # reference: the chunked WKV needs S > 128, the block-pair attention
 # S > 1024), 32 greedy tokens, telemetry to DVFSService.for_model
-SERVE_ARCHS = ("glm4-9b", "rwkv6-3b", "phi3-mini-3.8b")
+SERVE_ARCHS = ("glm4-9b", "rwkv6-3b", "phi3-mini-3.8b", "musicgen-medium",
+               "granite-moe-1b-a400m", "qwen2-moe-a2.7b")
 SERVE_BATCH, SERVE_PROMPT = 4, 2048
 # greedy tokens per serve, within the run's time limit
-SERVE_GEN = {"glm4-9b": 16, "rwkv6-3b": 16, "phi3-mini-3.8b": 8}
+SERVE_GEN = {"glm4-9b": 16, "rwkv6-3b": 16, "phi3-mini-3.8b": 8,
+             "musicgen-medium": 8, "granite-moe-1b-a400m": 8,
+             "qwen2-moe-a2.7b": 8}
+# K6's row of each attention model's prefill (batch 4, 2048 tokens in
+# bf16) and the numpy seed of its inputs; the first two also in f32
+K6_ROWS = {"glm4-9b": ("flash_attention", 41),
+           "phi3-mini-3.8b": ("flash_attention[hd96]", 43),
+           "musicgen-medium": ("flash_attention[musicgen-medium]", 44),
+           "granite-moe-1b-a400m": ("flash_attention[granite-moe-1b-a400m]",
+                                    45),
+           "qwen2-moe-a2.7b": ("flash_attention[qwen2-moe-a2.7b]", 46)}
+K6_F32 = ("glm4-9b", "phi3-mini-3.8b")
 # the README's 304-CU configuration on the one-row path (K3)
 WIDE_SIM = SIM.SimConfig(n_cu=304, n_wf=40, pallas_block_cu=38,
                          n_epochs=300)
 # decode token by token against the prefill's logits, as the reference's
 # tests/test_models.py holds it (rtol = atol = 2e-2; the model in f32)
 DECODE_S, DECODE_TOL = 256, 2e-2
+# the moe models' decode check runs at a 4-token prompt: a pair drops only
+# where an expert takes more than its capacity max(int(S k 1.25 / E), 4)
+# of the prefill's S k pairs, and an expert takes at most one pair per
+# token, so at S <= 4 nothing can drop whatever the routing. At 256 the
+# random weights route most tokens alike (the causal attention's running
+# mean is a component every token shares): on an H100 80GB HBM3 this
+# script reads 25,664 of 49,152 pairs dropped for granite-moe (capacity
+# 80 against a mean load of 64) and 7,299 of 24,576 for qwen2-moe
+# (capacity 21 against 17). The prefill drops pairs that decode (one
+# token, capacity 4, k distinct experts) keeps, so the two differ there by
+# the reference's own semantics; the drops at 256 and at the 2048-token
+# serve are printed.
+MOE_DECODE_S = 4
 # the same check with the models in bf16, as they are served, holds the
 # largest |decode - prefill| logit gap to a fixed limit. In bf16 at full
 # width the arithmetic alone moves the logits: on an H100 80GB HBM3 at
@@ -533,12 +564,17 @@ def qkv_case(cfg, dtypes, seed, dev):
             for dt in dtypes}
 
 
-def lm_cases(dev):
-    """K6 at the glm4-9b prefill (bf16 and f32) and K7 at the rwkv6-3b
-    prefill, from numpy seeds."""
+def lm_cases(dev, f32=True):
+    """K6 at every attention model's prefill ({row: (cfg, {dtype: (q, k,
+    v)})}: bf16, and f32 for ``K6_F32`` where ``f32``) and K7 at the
+    rwkv6-3b prefill, from numpy seeds."""
     rwkv = get_config("rwkv6-3b")
-    k6 = qkv_case(get_config("glm4-9b"), (torch.bfloat16, torch.float32), 41,
-                  dev)
+    k6 = {}
+    for arch, (key, seed) in K6_ROWS.items():
+        cfg = get_config(arch)
+        dts = (torch.bfloat16, torch.float32) if f32 and arch in K6_F32 \
+            else (torch.bfloat16,)
+        k6[key] = (cfg, qkv_case(cfg, dts, seed, dev))
     rng = np.random.default_rng(42)
     B, S = SERVE_BATCH, SERVE_PROMPT
     hd = rwkv.resolved_head_dim
@@ -560,14 +596,18 @@ def lm_counts():
 def reset_lm_counts():
     FA.flash_attention_bshd.launches = 0
     RC.rwkv_chunked_bthd.launches = 0
+    MOE.moe_layer.dropped = 0
     KEF.epoch_fused.launches_by_family = dict.fromkeys(
         KEF.epoch_fused.launches_by_family, 0)
 
 
 def kernel_split(fn, reps=1):
-    """Device time of ``fn`` by kernel class from one torch.profiler run:
-    {"K6", "K7", "gemm", "other"} in ms per call, None if it reports no
-    device time."""
+    """Device time of ``fn`` by kernel class from one torch.profiler run,
+    in ms per call: K6, K7, the MoE layer's expert products and its
+    dispatch and combine (every kernel launched inside the
+    ``moe.experts`` or the ``moe.dispatch`` / ``moe.combine`` profiler
+    ranges), the other matrix products, and the rest. None if it reports
+    no device time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -575,23 +615,41 @@ def kernel_split(fn, reps=1):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    out = dict.fromkeys(("K6", "K7", "gemm", "other"), 0.0)
-    for ev in prof.key_averages():
-        t = getattr(ev, "device_time_total", None)
-        if t is None:
-            t = getattr(ev, "cuda_time_total", 0.0)
-        if not t or ev.device_type is None or \
-                "cuda" not in str(ev.device_type).lower():
+    out = dict.fromkeys(("K6", "K7", "experts", "dispatch/combine", "gemm",
+                         "other"), 0.0)
+    spans = {"moe.experts": "experts", "moe.dispatch": "dispatch/combine",
+             "moe.combine": "dispatch/combine"}
+    own = {"flash_attention_kernel": "K6", "rwkv_chunk_kernel": "K7"}
+    # the card's work by name; K6 and K7 are launched through ctypes, so no
+    # operator of torch's owns them, and the rest by the operator (and its
+    # profiler range) that launched it
+    total = linked = 0.0
+    for ev in prof.events():
+        if "cuda" in str(ev.device_type).lower():
+            if getattr(ev, "is_user_annotation", False) or ev.name in spans:
+                continue                  # a range's span on the card
+            dur = ev.time_range.elapsed_us()
+            total += dur
+            for tag, cls in own.items():
+                if tag in ev.name:
+                    out[cls] += dur
             continue
-        name = ev.key.lower()
-        if "flash_attention_kernel" in name:
-            out["K6"] += t
-        elif "rwkv_chunk_kernel" in name:
-            out["K7"] += t
-        elif any(g in name for g in GEMM_NAMES):
-            out["gemm"] += t
-        else:
-            out["other"] += t
+        span, up = None, ev
+        while up is not None and span is None:
+            span, up = spans.get(up.name), up.cpu_parent
+        for kern in ev.kernels:
+            name = kern.name.lower()
+            if kern.name == ev.name or any(t in name for t in own):
+                continue
+            linked += kern.duration
+            if span is not None:
+                out[span] += kern.duration
+            elif any(g in name for g in GEMM_NAMES):
+                out["gemm"] += kern.duration
+            else:
+                out["other"] += kern.duration
+    # what no operator launched besides K6 and K7 (K7's memset)
+    out["other"] += max(total - out["K6"] - out["K7"] - linked, 0.0)
     if sum(out.values()) <= 0:
         return None
     return {k: v / reps / 1e3 for k, v in out.items()}
@@ -617,24 +675,19 @@ def device_ms(fn, what, reps=100):
 
 
 def lm_ran_child() -> int:
-    """``--lm-ran``: what K6 (bf16, at the glm4-9b and phi3-mini-3.8b
-    prefills) and K7 (at the rwkv6-3b prefill) run on the card, from
-    torch.profiler sessions of five calls each in this fresh process (the
-    library built by the parent); prints {row: {name: records}}."""
+    """``--lm-ran``: what K6 (bf16, at every attention model's prefill)
+    and K7 (at the rwkv6-3b prefill) run on the card, from torch.profiler
+    sessions of five calls each in this fresh process (the library built
+    by the parent); prints {row: {name: records}}."""
     dev = torch.device("cuda", 0)
     no_tf32()
     K.library()
-    k6_in, k7_in = lm_cases(dev)
-    k96_in = qkv_case(get_config("phi3-mini-3.8b"), (torch.bfloat16,), 43,
-                      dev)
-    out = {}
-    for key, fn in (
-            ("flash_attention", lambda: FA.flash_attention_bshd(
-                *k6_in[torch.bfloat16], causal=True)),
-            ("flash_attention[hd96]", lambda: FA.flash_attention_bshd(
-                *k96_in[torch.bfloat16], causal=True)),
-            ("rwkv_chunked", lambda: RC.rwkv_chunked_bthd(*k7_in))):
-        out[key] = DT.kernel_counts(fn, 5)
+    k6_in, k7_in = lm_cases(dev, f32=False)
+    out = {key: DT.kernel_counts(
+        lambda qkv=cases[torch.bfloat16]: FA.flash_attention_bshd(
+            *qkv, causal=True), 5) for key, (_, cases) in k6_in.items()}
+    out["rwkv_chunked"] = DT.kernel_counts(
+        lambda: RC.rwkv_chunked_bthd(*k7_in), 5)
     print(json.dumps(out), flush=True)
     return 0
 
@@ -908,7 +961,7 @@ def main() -> int:
     # K6 runs only its tensor-core kernel, K7 only its kernel and its
     # reset (torch.profiler, in a process of their own)
     lm_ran = lm_ran_on_card()
-    for key in ("flash_attention", "flash_attention[hd96]"):
+    for key, _ in K6_ROWS.values():
         ran = sorted(n for n in lm_ran.get(key, {})
                      if "flash_attention" in n)
         check(len(ran) == 1 and "flash_attention_kernel_wgmma" in ran[0],
@@ -1197,11 +1250,7 @@ def main() -> int:
 
     # ---- 2d. K6 and K7 at the LM prefill shapes ---------------------------
     k6_in, k7_in = lm_cases(dev)
-    phi3 = get_config("phi3-mini-3.8b")
-    k96_in = qkv_case(phi3, (torch.bfloat16, torch.float32), 43, dev)
-    for key, cases, cfg in (("flash_attention", k6_in,
-                             get_config("glm4-9b")),
-                            ("flash_attention[hd96]", k96_in, phi3)):
+    for key, (cfg, cases) in k6_in.items():
         k6_row = rows.setdefault(key, dict(max_abs_err=0.0))
         for dt, (q, k, v) in cases.items():
             got = FA.flash_attention_bshd(q, k, v, causal=True)
@@ -1272,11 +1321,10 @@ def main() -> int:
         lambda: KEF.epoch_fused_rows_blocked_ref(*args8, **kw8,
                                                  block_cu=blk_cu),
         TILED["fork"])
-    # K6 at the glm4-9b and phi3-mini prefills in bf16 (the served dtype),
+    # K6 at every attention model's prefill in bf16 (the served dtype),
     # K7 at the rwkv6-3b prefill
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    for key, cases in (("flash_attention", k6_in),
-                       ("flash_attention[hd96]", k96_in)):
+    for key, (_, cases) in k6_in.items():
         q, k, v = cases[torch.bfloat16]
         times[key] = (
             lambda q=q, k=k, v=v: FA.flash_attention_bshd(q, k, v,
@@ -1300,8 +1348,7 @@ def main() -> int:
         lambda: RC.rwkv_chunked_bthd(*k7_in),
         lambda: RC.rwkv_chunked_bthd_ref(*k7_in),
         ("rwkv_chunk_kernel", "Memset (Device)"))
-    rates = {"flash_attention": BF16_FLOP_PER_S,
-             "flash_attention[hd96]": BF16_FLOP_PER_S}
+    rates = dict.fromkeys(k6_in, BF16_FLOP_PER_S)
     # the least device time a call of one launch can take
     floor_ms = device_ms(lambda: torch.cuda._sleep(1), "launch floor")
     for key, (kern, plain, names) in times.items():
@@ -1347,13 +1394,14 @@ def main() -> int:
               f"{card}", flush=True)
     # K6 in bf16 against its bound and the library, and in f32 (the
     # CUDA-core kernel) against the f32 rate's bound
-    for key, cases in (("flash_attention", k6_in),
-                       ("flash_attention[hd96]", k96_in)):
+    for key, (_, cases) in k6_in.items():
         r = rows[key]
-        qf, kf, vf = cases[torch.float32]
-        f32_ms = device_ms(lambda: FA.flash_attention_bshd(
-            qf, kf, vf, causal=True), f"{key} f32", reps=10)
-        f32_bound, _ = bound_ms(nbytes(qf, kf, vf, qf), r["ops"])
+        f32_ms = None
+        if torch.float32 in cases:
+            qf, kf, vf = cases[torch.float32]
+            f32_ms = device_ms(lambda: FA.flash_attention_bshd(
+                qf, kf, vf, causal=True), f"{key} f32", reps=10)
+            f32_bound, _ = bound_ms(nbytes(qf, kf, vf, qf), r["ops"])
         if r["ms"] is not None:
             print(f"{key} bf16 (tensor cores): {r['ms'] * 1e3:.2f} us "
                   f"against its bound {r['bound_ms'] * 1e3:.2f} us (bf16 "
@@ -1374,7 +1422,7 @@ def main() -> int:
     torch.cuda.synchronize()
     check(torch.equal(y1, y2) and torch.equal(S1, S2),
           "rwkv_chunked: two calls bitwise equal")
-    del k6_in, k96_in, y1, y2, S1, S2
+    del k6_in, y1, y2, S1, S2
     torch.cuda.empty_cache()
 
     # ---- 4. the quickstart path -------------------------------------------
@@ -1684,13 +1732,12 @@ def main() -> int:
         check(rep["ed2p_norm"] == grid_rep[(1.0, "ed2p")]["ed2p_norm"],
               f"manager {arch}: report == its grid point")
 
-    # ---- 9. the LM serving path: glm4-9b and phi3-mini (K6), rwkv6-3b (K7)
+    # ---- 9. the LM serving path: K6 (dense, audio, moe), K7 (rwkv6-3b) ----
     for arch in SERVE_ARCHS:
         cfg = get_config(arch)
-        kernel = "K6" if cfg.family == "dense" else "K7"
+        kernel = "K7" if cfg.family == "ssm" else "K6"
         gen = SERVE_GEN[arch]
-        k6_key = "flash_attention" if cfg.resolved_head_dim == 128 \
-            else "flash_attention[hd96]"
+        row_key = K6_ROWS[arch][0] if kernel == "K6" else "rwkv_chunked"
         torch.cuda.empty_cache()
         reset_lm_counts()
         t0 = time.perf_counter()
@@ -1710,6 +1757,15 @@ def main() -> int:
               f"{d['energy_norm']:.4f} delay {d['delay_norm']:.4f} accuracy"
               f" {d['accuracy']:.4f}, {rep['dvfs_requests']} requests, "
               f"steps {d['step_time']['n_steps']}", flush=True)
+        if cfg.moe is not None:
+            # decode never drops (one token, capacity 4): all the prefill's
+            pairs = cfg.n_layers * SERVE_BATCH * SERVE_PROMPT * cfg.moe.top_k
+            dropped = int(MOE.moe_layer.dropped)
+            print(f"  dropped pairs in the prefill: {dropped} of {pairs} "
+                  f"({dropped / pairs:.4%}; {cfg.moe.num_experts} experts "
+                  f"top-{cfg.moe.top_k}, capacity "
+                  f"{MOE.expert_capacity(SERVE_PROMPT, cfg.moe, 1.25)})",
+                  flush=True)
         want6, want7 = (cfg.n_layers, 0) if kernel == "K6" \
             else (0, cfg.n_layers)
         check((n6, n7) == (want6, want7),
@@ -1729,8 +1785,7 @@ def main() -> int:
                                d["accuracy"]]))
               and abs(sum(d["freq_timeshare"]) - 1.0) < 1e-2,
               f"serve {arch}: DVFS report finite, residency sums to 1")
-        rows[k6_key if kernel == "K6" else "rwkv_chunked"][
-            "launches"] = n6 if kernel == "K6" else n7
+        rows[row_key]["launches"] = n6 if kernel == "K6" else n7
         del rep
 
         # decode without the DVFS stream: the same loop, no service threads
@@ -1743,10 +1798,13 @@ def main() -> int:
               f"{card}", flush=True)
         del rep
 
-        # each kernel inside the model: decode 256 tokens one by one from an
-        # empty cache and land on the prefill's logits, in f32 to 2e-2 and
-        # in bf16 to BF16_DECODE_TOL. The bf16 prefill in a batch of 4
-        # against alone is printed beside it as a reading, not a limit.
+        # each kernel inside the model: decode the prompt's tokens one by
+        # one from an empty cache and land on the prefill's logits, in f32
+        # to 2e-2 and in bf16 to BF16_DECODE_TOL; 256 tokens, 4 for the moe
+        # models (MOE_DECODE_S), whose prefill must drop no pair there. The
+        # bf16 prefill in a batch of 4 against alone is printed beside it as
+        # a reading, not a limit.
+        check_s = DECODE_S if cfg.moe is None else MOE_DECODE_S
         for dtype in ("bfloat16", "float32"):
             dcfg = dataclasses.replace(cfg, dtype=dtype)
             torch.cuda.empty_cache()
@@ -1754,20 +1812,31 @@ def main() -> int:
             toks = torch.as_tensor(np.random.default_rng(8).integers(
                 0, cfg.vocab, (SERVE_BATCH, DECODE_S))).to(dev)
             n0 = lm_counts()[:2]
-            full = LM.prefill(params, dcfg, {"tokens": toks[:1]})
+            MOE.moe_layer.dropped = 0
+            full = LM.prefill(params, dcfg, {"tokens": toks[:1, :check_s]})
             check(lm_counts()[:2] == (n0[0] + want6, n0[1] + want7),
-                  f"{arch} {dtype} prefill at S {DECODE_S}: one {kernel} "
+                  f"{arch} {dtype} prefill at S {check_s}: one {kernel} "
                   f"launch per layer")
-            cache = LM.init_cache(dcfg, 1, DECODE_S, device=dev)
-            for i in range(DECODE_S):
+            if cfg.moe is not None:
+                dropped = int(MOE.moe_layer.dropped)
+                check(dropped == 0, f"{arch} {dtype} prefill at S "
+                      f"{check_s}: {dropped} dropped pairs == 0")
+                LM.prefill(params, dcfg, {"tokens": toks[:1]})
+                print(f"  {arch} {dtype} prefill at S {DECODE_S} (a "
+                      f"reading): {int(MOE.moe_layer.dropped)} dropped pairs "
+                      f"of {cfg.n_layers * DECODE_S * cfg.moe.top_k}",
+                      flush=True)
+            cache = LM.init_cache(dcfg, 1, check_s, device=dev)
+            for i in range(check_s):
                 logits, cache = LM.decode_step(params, dcfg, cache,
                                                toks[:1, i])
             del cache
-            tag = f"{arch} {dtype} decode x {DECODE_S} vs prefill logits"
+            tag = f"{arch} {dtype} decode x {check_s} vs prefill logits"
             if dtype == "float32":
                 compare(tag, logits, full, rtol=DECODE_TOL, atol=DECODE_TOL)
             else:
-                four = LM.prefill(params, dcfg, {"tokens": toks})
+                four = LM.prefill(params, dcfg,
+                                  {"tokens": toks[:, :check_s]})
                 gap = float((logits.double() - full.double()).abs().max())
                 spread = float((four[:1].double() - full.double()).abs().max())
                 agree = torch.equal(logits.argmax(-1), full.argmax(-1))
@@ -1800,7 +1869,7 @@ def main() -> int:
                     tot = sum(sp.values())
                     print(f"  {arch} {what} device time {tot:.3f} ms: "
                           + ", ".join(f"{k} {v:.3f} ms ({v / tot:.1%})"
-                                      for k, v in sp.items())
+                                      for k, v in sp.items() if v > 0)
                           + f" on {card}", flush=True)
             del params
         torch.cuda.empty_cache()
@@ -1842,8 +1911,8 @@ def main() -> int:
         "epoch_fused[reactive@304]": "src/repro/kernels/epoch_fused.py:748",
         "epoch_fused[fork]": "src/repro/kernels/epoch_fused.py:748",
         "epoch_fused[fork_blocked]": "src/repro/kernels/epoch_fused.py:648",
-        "flash_attention": "src/repro/kernels/flash_attention.py:73",
-        "flash_attention[hd96]": "src/repro/kernels/flash_attention.py:73",
+        **{key: "src/repro/kernels/flash_attention.py:73"
+           for key, _ in K6_ROWS.values()},
         "rwkv_chunked": "src/repro/kernels/rwkv_chunk.py:79",
     }
     sources = dict.fromkeys(
@@ -1855,8 +1924,8 @@ def main() -> int:
         pc_table_predict="src/repro_torch/kernels/csrc/pc_table.cu",
         pc_table_update="src/repro_torch/kernels/csrc/pc_table.cu",
         rwkv_chunked="src/repro_torch/kernels/csrc/rwkv_chunk.cu",
-        **dict.fromkeys(("flash_attention", "flash_attention[hd96]"),
-                        "src/repro_torch/kernels/csrc/flash_attention.cu"))
+        **{key: "src/repro_torch/kernels/csrc/flash_attention.cu"
+           for key, _ in K6_ROWS.values()})
     kernels = []
     for key in replaces:
         r = rows[key]

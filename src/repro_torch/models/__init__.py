@@ -1,4 +1,5 @@
-"""The LM model zoo (port of ``repro.models``): families dense and ssm."""
+"""The LM model zoo (port of ``repro.models``): families dense, audio, moe
+and ssm."""
 from repro_torch.models.model import (  # noqa: F401
     backbone,
     decode_step,

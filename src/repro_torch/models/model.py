@@ -1,6 +1,9 @@
 """Model zoo: init, prefill and decode (port of ``repro.models.model``),
-families ``dense`` (decoder transformer: GQA, RoPE, SwiGLU) and ``ssm``
-(RWKV6 time-mix / channel-mix).
+families ``dense`` (decoder transformer: GQA, RoPE, SwiGLU), ``audio``
+(the same decoder over EnCodec token ids: the reference's frontend is a
+stub and its audio family takes the dense path), ``moe`` (dense attention
+and a mixture-of-experts FFN, ``models.moe``) and ``ssm`` (RWKV6
+time-mix / channel-mix).
 
 Parameters are an ``nn.Module`` tree whose names follow the reference's
 params tree: ``embed``, ``layers.<i>.attn.wq``, ``layers.<i>.tm.mu_r``,
@@ -26,9 +29,13 @@ from torch import nn
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv as RWKV
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# the families the port serves; hybrid and the vision frontend are not
+# ported yet
+SERVED_FAMILIES = ("dense", "audio", "moe", "ssm")
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -36,12 +43,11 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "ssm") or cfg.moe is not None \
-            or cfg.frontend == "vision":
+    if cfg.family not in SERVED_FAMILIES or cfg.frontend == "vision":
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} (frontend {cfg.frontend!r})"
             " is not ported yet: ROADMAP queue A, the rest of the model zoo"
-            " (moe, hybrid, vision)")
+            " (hybrid, vision)")
 
 
 class Tree(nn.Module):
@@ -111,10 +117,29 @@ def _init_layer(init: _Init, cfg: ModelConfig) -> Tree:
             "wk": init.normal((d, cfg.n_kv_heads, hd), dt),
             "wv": init.normal((d, cfg.n_kv_heads, hd), dt),
             "wo": init.normal((cfg.n_heads, hd, d), dt, out_scale)}
+    if cfg.moe is not None:
+        return Tree({**norms, "attn": Tree(attn),
+                     "moe": Tree(_init_moe(init, cfg, dt, out_scale))})
     mlp = {"w1": init.normal((d, cfg.d_ff), dt),
            "w3": init.normal((d, cfg.d_ff), dt),
            "w2": init.normal((cfg.d_ff, d), dt, out_scale)}
     return Tree({**norms, "attn": Tree(attn), "mlp": Tree(mlp)})
+
+
+def _init_moe(init: _Init, cfg: ModelConfig, dt, out_scale) -> dict:
+    """The reference's ``_init_moe``: an f32 router, the routed experts'
+    (E, d, f) / (E, f, d) SwiGLU and the shared experts' at
+    ``num_shared * (shared_d_ff or expert_d_ff)``."""
+    e, d = cfg.moe, cfg.d_model
+    E, f = e.num_experts, e.expert_d_ff
+    p = {"router": init.normal((d, E), torch.float32),
+         "w1": init.normal((E, d, f), dt), "w3": init.normal((E, d, f), dt),
+         "w2": init.normal((E, f, d), dt, out_scale)}
+    if e.num_shared:
+        fs = e.num_shared * (e.shared_d_ff or e.expert_d_ff)
+        p.update(sw1=init.normal((d, fs), dt), sw3=init.normal((d, fs), dt),
+                 sw2=init.normal((fs, d), dt, out_scale))
+    return p
 
 
 def init_params(cfg: ModelConfig, seed: int = 0,
@@ -167,6 +192,15 @@ def _attn_block(x, p, cfg: ModelConfig, positions):
     return _proj_out(o, p["wo"])
 
 
+def _ffn(h, lp, cfg: ModelConfig):
+    """The block's FFN: the MoE layer (its aux loss is training's) or the
+    dense SwiGLU."""
+    if cfg.moe is not None:
+        return MOE.moe_layer(h, lp["moe"], cfg.moe)[0]
+    mlp = lp["mlp"]
+    return L.swiglu(h, mlp["w1"], mlp["w3"], mlp["w2"])
+
+
 def _layer_fwd(x, lp, cfg: ModelConfig, positions):
     """One block of the prefill."""
     if cfg.family == "ssm":
@@ -182,14 +216,14 @@ def _layer_fwd(x, lp, cfg: ModelConfig, positions):
         return x + y
     h = L.rms_norm(x, lp["norm1"], cfg.norm_eps)
     x = x + _attn_block(h, lp["attn"], cfg, positions)
-    h = L.rms_norm(x, lp["norm2"], cfg.norm_eps)
-    mlp = lp["mlp"]
-    return x + L.swiglu(h, mlp["w1"], mlp["w3"], mlp["w2"])
+    return x + _ffn(L.rms_norm(x, lp["norm2"], cfg.norm_eps), lp, cfg)
 
 
 def embed_inputs(params: Tree, cfg: ModelConfig,
                  batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, int]:
-    """Returns (x (B,S,D), prefix_len); token inputs only."""
+    """Returns (x (B,S,D), prefix_len); token inputs only (the audio
+    family's EnCodec ids are tokens: the frontend is a stub, as in the
+    reference)."""
     _check_family(cfg)
     return params["embed"][batch["tokens"]], 0
 
@@ -294,9 +328,7 @@ def decode_step(params: Tree, cfg: ModelConfig,
             continue
         x = x + _decode_attn(h, lp["attn"], cfg, cache["k"][i],
                              cache["v"][i], pos)
-        h = L.rms_norm(x, lp["norm2"], cfg.norm_eps)
-        mlp = lp["mlp"]
-        x = x + L.swiglu(h, mlp["w1"], mlp["w3"], mlp["w2"])
+        x = x + _ffn(L.rms_norm(x, lp["norm2"], cfg.norm_eps), lp, cfg)
     cache["pos"] = pos + 1
     h = L.rms_norm(x, params["final_norm"], cfg.norm_eps)[:, 0]
     return h.float() @ _emb_out(params).float().T, cache

@@ -1167,3 +1167,114 @@ def test_phi3_shaped_prefill_runs_k6_at_head_dim_96(dev):
         logits, cache = M.decode_step(params, cfg, cache, toks[:, i])
     np.testing.assert_allclose(logits.cpu().numpy(), full.cpu().numpy(),
                                rtol=1e-4, atol=1e-4)
+
+
+# the moe and audio models' K6 layouts (query heads, KV heads, head dim):
+# musicgen-medium, granite-moe-1b-a400m and qwen2-moe-a2.7b, at a reduced
+# sequence; S = 4 is the prompt of chip_smoke.py's moe decode check
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,S,H,Hkv,hd", [
+    (2, 512, 24, 24, 64), (2, 512, 16, 8, 64), (2, 512, 16, 16, 128),
+    (1, 4, 16, 8, 64), (1, 4, 16, 16, 128)],
+    ids=["musicgen", "granite-moe", "qwen2-moe", "granite-moe-S4",
+         "qwen2-moe-S4"])
+def test_flash_attention_kernel_at_the_zoo_layouts(dev, dtype, B, S, H, Hkv,
+                                                   hd):
+    from repro_torch.kernels import flash_attention as FA
+    q, k, v = _qkv(B, S, H, Hkv, hd, dtype, dev, seed=S + H)
+    n0 = FA.flash_attention_bshd.launches
+    got = FA.flash_attention_bshd(q, k, v, causal=True)
+    assert FA.flash_attention_bshd.launches == n0 + 1
+    want = FA.flash_attention_bshd_ref(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    rtol, atol = K6_TOL[dtype]
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=rtol,
+                               atol=atol)
+
+
+def _moe_case(arch, seed):
+    """A smoke config's first moe layer in f32 and a (2, 48, d) input,
+    on the CPU."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    p = M.init_params(cfg, seed, "cpu")["layers"][0]["moe"]
+    x = torch.as_tensor(np.random.default_rng(seed).standard_normal(
+        (2, 48, cfg.d_model)).astype(np.float32))
+    return cfg, {k: v.detach() for k, v in p.named_parameters()}, x
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "qwen2-moe-a2.7b"])
+@pytest.mark.parametrize("capacity_factor", [4.0, 1.25, 0.5])
+def test_moe_layer_on_card_matches_cpu(dev, arch, capacity_factor):
+    """The layer on the card against the same function on the CPU, f32 to
+    1e-5 (TF32 off), at the default capacity factor and where no pair
+    (capacity 96 for 48 tokens) or many drop; the same pairs dropped."""
+    from repro_torch import no_tf32
+    from repro_torch.models import moe as MOE
+    no_tf32()
+    cfg, p, x = _moe_case(arch, 11)
+    MOE.moe_layer.dropped = 0
+    want, aux_want = MOE.moe_layer(x, p, cfg.moe,
+                                   capacity_factor=capacity_factor)
+    n_cpu = int(MOE.moe_layer.dropped)
+    MOE.moe_layer.dropped = 0
+    got, aux = MOE.moe_layer(x.to(dev), {k: v.to(dev) for k, v in p.items()},
+                             cfg.moe, capacity_factor=capacity_factor)
+    assert int(MOE.moe_layer.dropped) == n_cpu
+    if capacity_factor != 1.25:
+        assert (n_cpu > 0) == (capacity_factor < 1)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(float(aux), float(aux_want), rtol=1e-6,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_layer_on_card_is_bitwise_deterministic(dev, dtype):
+    """Two card runs of the layer on the same inputs are bitwise equal
+    (no atomics in dispatch, combine or aux), with pairs dropped."""
+    from repro_torch.models import moe as MOE
+    cfg, p, x = _moe_case("qwen2-moe-a2.7b", 12)
+    dt = getattr(torch, dtype)
+    p = {k: v.to(dev, torch.float32 if k == "router" else dt)
+         for k, v in p.items()}
+    x = x.to(dev, dt)
+    runs = [MOE.moe_layer(x, p, cfg.moe, capacity_factor=0.5)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "qwen2-moe-a2.7b",
+                                  "musicgen-medium"])
+def test_zoo_prefill_runs_k6_per_layer_and_matches_cpu(dev, arch):
+    """A smoke config in f32: the prefill on the card launches K6 once per
+    layer and lands on the CPU's logits (plain K6) to 1e-5; a decode of
+    its 4 tokens (no moe pair can drop at 4) ends at them."""
+    from repro_torch import no_tf32
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import model as M
+    no_tf32()
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    params = M.init_params(cfg, 0, "cpu")
+    toks = torch.as_tensor(np.random.default_rng(8).integers(
+        0, cfg.vocab, (2, 64)))
+    want = M.prefill(params, cfg, {"tokens": toks})
+    params = params.to(dev)
+    n0 = FA.flash_attention_bshd.launches
+    got = M.prefill(params, cfg, {"tokens": toks.to(dev)})
+    assert FA.flash_attention_bshd.launches == n0 + cfg.n_layers
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    full = M.prefill(params, cfg, {"tokens": toks[:1, :4].to(dev)})
+    cache = M.init_cache(cfg, 1, 4, device=dev)
+    for i in range(4):
+        logits, cache = M.decode_step(params, cfg, cache,
+                                      toks[:1, i].to(dev))
+    np.testing.assert_allclose(logits.cpu().numpy(), full.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)

@@ -59,7 +59,8 @@ def test_port_file_list_is_complete():
         "dvfs_runtime/manager.py", "dvfs_runtime/service.py",
         "data/pipeline.py", "kernels/flash_attention.py",
         "kernels/rwkv_chunk.py", "kernels/ops.py", "models/layers.py",
-        "models/rwkv.py", "models/model.py", "models/__init__.py",
+        "models/rwkv.py", "models/moe.py", "models/model.py",
+        "models/__init__.py",
         "launch/serve.py")} | {"chip_smoke.py"} <= names
 
 

@@ -1,8 +1,12 @@
 """The port's LM serving path against the live JAX package on the CPU:
 ``models.layers``, ``models.rwkv``, ``prefill`` and ``decode_step`` of
-smoke configs of glm4-9b (dense, K6's plain version) and rwkv6-3b (ssm,
-K7's plain version), both packages starting from the reference's weights
-(``interop.params_from_numpy``) and the same numpy tokens.
+smoke configs of glm4-9b (dense, K6's plain version), rwkv6-3b (ssm,
+K7's plain version), granite-moe-1b-a400m and qwen2-moe-a2.7b (moe: 4
+experts top-2, without and with a shared expert) and musicgen-medium
+(audio), both packages starting from the reference's weights
+(``interop.params_from_numpy``) and the same numpy tokens. The moe smoke
+prefills drop pairs past their experts' capacity; the port drops the
+same ones (``tests/test_torch_moe.py`` holds the layer itself).
 
 Bounds on the logits (of magnitude ~0.5 here):
 
@@ -46,7 +50,9 @@ ARCHS = ["glm4-9b", "rwkv6-3b"]
 # own: a phi3-shaped smoke model keeps it (2 layers, d 192, 2 MHA heads)
 SHAPES = {"phi3-mini-3.8b": dict(d_model=192, n_heads=2, n_kv_heads=2,
                                  head_dim=96)}
-LM_ARCHS = ARCHS + list(SHAPES)
+# the moe and audio families: attention as the dense family's
+ZOO = ["granite-moe-1b-a400m", "qwen2-moe-a2.7b", "musicgen-medium"]
+LM_ARCHS = ARCHS + list(SHAPES) + ZOO
 
 
 def _np(x):
@@ -239,6 +245,39 @@ def test_params_carry_over_bit_for_bit():
         assert sum(p.numel() for p in pt.parameters()) == n_ref
 
 
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m",
+                                  "qwen2-moe-a2.7b"])
+def test_moe_params_carry_over_bit_for_bit(arch):
+    """The moe subtree under the reference's keys: the router stays f32
+    in a bf16 model, the experts (E, d, f) / (E, f, d), the shared
+    experts (qwen2-moe's smoke config keeps one) at ``num_shared * f``."""
+    cj, ct, pj, pt = _pair(arch, "bfloat16")
+    flat = dict(pt.named_parameters())
+    e = ct.moe
+    assert flat["layers.1.moe.router"].dtype == torch.float32
+    np.testing.assert_array_equal(_np(flat["layers.1.moe.router"]),
+                                  _np(pj["layers"]["moe"]["router"][1]))
+    assert flat["layers.0.moe.w1"].dtype == torch.bfloat16
+    assert flat["layers.0.moe.w1"].shape == (e.num_experts, ct.d_model,
+                                             e.expert_d_ff)
+    assert flat["layers.0.moe.w2"].shape == (e.num_experts, e.expert_d_ff,
+                                             ct.d_model)
+    np.testing.assert_array_equal(_np(flat["layers.1.moe.w2"]),
+                                  _np(pj["layers"]["moe"]["w2"][1]))
+    assert ("layers.0.moe.sw1" in flat) == bool(e.num_shared)
+    if e.num_shared:
+        assert flat["layers.0.moe.sw2"].shape == (
+            e.num_shared * e.shared_d_ff, ct.d_model)
+    assert not any(".mlp." in key for key in flat)
+    n_ref = sum(a.size for a in jax.tree.leaves(pj))
+    assert sum(p.numel() for p in pt.parameters()) == n_ref
+    # the port's own init: the same tree, the router f32
+    own = TM.init_params(ct, 0, "cpu")
+    assert {k: v.shape for k, v in own.named_parameters()} == \
+        {k: v.shape for k, v in flat.items()}
+    assert own["layers"][0]["moe"]["router"].dtype == torch.float32
+
+
 def test_init_params_uses_the_reference_constants():
     cfg = t_smoke("rwkv6-3b")
     p = TM.init_params(cfg, 0, "cpu")
@@ -284,7 +323,7 @@ def test_decode_teacher_forced_matches_reference(arch, dtype):
     assert int(cache_t["pos"]) == int(cache_j["pos"]) == toks.shape[1]
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ZOO)
 def test_decode_after_prefill_starts_from_zero_cache(arch):
     """The serve loop's cache: zero at ``pos = prompt_len`` (the prefill
     writes nothing into it), one step on, as the reference."""
@@ -307,8 +346,8 @@ def test_decode_after_prefill_starts_from_zero_cache(arch):
                                   "hymba-1.5b", "paligemma-3b"])
 def test_unported_families_raise_naming_roadmap(arch):
     cfg = t_smoke(arch)
-    if cfg.family == "dense" and cfg.frontend != "vision":
-        TM.init_params(cfg, 0, "cpu")        # dense is ported
+    if cfg.family in TM.SERVED_FAMILIES and cfg.frontend != "vision":
+        TM.init_params(cfg, 0, "cpu")        # dense and moe are ported
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TM.init_params(cfg, 0, "cpu")
@@ -333,9 +372,33 @@ def test_serve_on_the_cpu():
             TS.serve(cfg, batch=1, prompt_len=8, gen=1)
 
 
+def test_serve_moe_on_the_cpu():
+    """``serve`` of the qwen2-moe smoke config (routed and shared
+    experts): greedy tokens from the prefill's argmax, the DVFS stream
+    (``telemetry`` reads ``cfg.moe``), the dropped pairs counted."""
+    from repro_torch.models import moe as TMOE
+    cfg = t_smoke("qwen2-moe-a2.7b")
+    TMOE.moe_layer.dropped = 0
+    rep = TS.serve(cfg, batch=2, prompt_len=64, gen=3, dvfs=True,
+                   dvfs_stride=2, device="cpu")
+    toks = rep["tokens"]
+    assert toks.shape == (2, 4)
+    assert torch.equal(toks[:, 0], rep["prefill_logits"].argmax(-1).int())
+    assert torch.isfinite(rep["last_logits"]).all()
+    assert rep["dvfs_requests"] == 2 and np.isfinite(rep["dvfs"]["ed2p_norm"])
+    assert int(TMOE.moe_layer.dropped) >= 0
+
+
 def test_serve_cli_smoke(capsys):
     TS.main(["--arch", "glm4-9b", "--smoke", "--device", "cpu",
              "--prompt-len", "32", "--gen", "2", "--batch", "2"])
+    assert "out shape (2, 3)" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ZOO)
+def test_serve_cli_takes_the_moe_and_audio_archs(arch, capsys):
+    TS.main(["--arch", arch, "--smoke", "--device", "cpu",
+             "--prompt-len", "16", "--gen", "2", "--batch", "2"])
     assert "out shape (2, 3)" in capsys.readouterr().out
 
 
@@ -348,13 +411,28 @@ def test_full_configs_are_the_published_widths():
             rwkv.d_ff, rwkv.vocab) == (32, 2560, 64, 8960, 65536)
 
 
+def test_moe_and_audio_configs_are_the_published_widths():
+    gm, qm, mg = (t_config(n) for n in ZOO)
+    assert (gm.n_layers, gm.d_model, gm.n_heads, gm.n_kv_heads,
+            gm.resolved_head_dim, gm.vocab) == (24, 1024, 16, 8, 64, 49155)
+    assert (gm.moe.num_experts, gm.moe.top_k, gm.moe.num_shared,
+            gm.moe.expert_d_ff) == (32, 8, 0, 512)
+    assert (qm.n_layers, qm.d_model, qm.n_heads, qm.n_kv_heads,
+            qm.resolved_head_dim, qm.vocab) == (24, 2048, 16, 16, 128,
+                                                151936)
+    assert (qm.moe.num_experts, qm.moe.top_k, qm.moe.num_shared,
+            qm.moe.expert_d_ff, qm.moe.shared_d_ff) == (60, 4, 4, 1408, 1408)
+    assert (mg.family, mg.n_layers, mg.d_model, mg.n_heads, mg.n_kv_heads,
+            mg.resolved_head_dim, mg.d_ff, mg.vocab) == \
+        ("audio", 48, 1536, 24, 24, 64, 6144, 2048)
+
+
 def _served(cfg):
-    return cfg.family in ("dense", "ssm") and cfg.moe is None \
-        and cfg.frontend != "vision"
+    return cfg.family in TM.SERVED_FAMILIES and cfg.frontend != "vision"
 
 
 @pytest.mark.parametrize("arch", [n for n, c in all_configs().items()
-                                  if _served(c) and c.family == "dense"])
+                                  if _served(c) and c.family != "ssm"])
 def test_served_attention_configs_have_a_k6_head_dim(arch):
     """Every config of an attention family the port serves prefills on
     K6 at its own head dim: the head dim is one K6 is instantiated for."""
