@@ -6,7 +6,7 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and
 drives the port (never JAX, never ``repro``):
 
 1. the card's name and power limit; TF32 off; the kernel library build
-   (registers and spills from nvcc's report); K6 and K7 each run only
+   (registers and spills from nvcc's report); K6, K7 and K8 each run only
    their own kernels (torch.profiler, in a fresh process of this script:
    ``--lm-ran``);
 2. every kernel against its plain PyTorch version on the card, at the
@@ -26,8 +26,10 @@ drives the port (never JAX, never ``repro``):
    against the reference's blocked pair; rows alone against the same
    rows among 42 and among 8 (two CTA widths each), bit for bit; K6 at
    the glm4-9b and phi3-mini-3.8b prefills (bf16 and f32) and at the
-   musicgen-medium, granite-moe-1b-a400m and qwen2-moe-a2.7b prefills
-   (bf16), and K7 at the rwkv6-3b prefill;
+   musicgen-medium, granite-moe-1b-a400m, qwen2-moe-a2.7b and
+   hymba-1.5b prefills (bf16; hymba's with its 1024-token window), K7 at
+   the rwkv6-3b prefill, and K8 (the selective scan) at the hymba-1.5b
+   prefill and at a decode step (S = 1), each from a non-zero state;
 3. times of every kernel (the one method: ``scripts/devtime.py``):
    device time per call against its bound, the per-call time with the
    host, the plain version's and, for K6, ``scaled_dot_product_attention``;
@@ -36,7 +38,7 @@ drives the port (never JAX, never ``repro``):
    (``torch.cuda._sleep(1)`` by the same method);
    the epoch calls (K3, K4, K5) split by kernel (pass A, pass B,
    epilogue) and K7's into its kernel and its memset with torch.profiler;
-   two K7 calls agree bit for bit;
+   two K7 calls agree bit for bit, and two K8 calls;
 4. the quickstart path: ``run_workload`` of static17, crisp, pcstall and
    oracle on ``comd`` for 600 epochs, with the fused epoch kernel's
    launches counted (crisp and pcstall run K3; static17 and the oracle
@@ -66,19 +68,22 @@ drives the port (never JAX, never ``repro``):
    default 16 CUs (K4): ``report`` and a 2 x 2 ``grid_report``;
 9. the LM serving path: ``launch.serve.serve`` of glm4-9b, rwkv6-3b,
    phi3-mini-3.8b, musicgen-medium (audio), granite-moe-1b-a400m and
-   qwen2-moe-a2.7b (moe) at their published widths and depths (random
+   qwen2-moe-a2.7b (moe) and hymba-1.5b (hybrid) at their published
+   widths and depths (random
    weights from a seed), batch 4, a 2048-token prompt, greedy tokens (16
    for the first two, 8 for the rest), telemetry streamed to
    ``DVFSService.for_model`` (K4 at 16 CUs): prefill seconds, decode ms
    per token, K6 (flash attention; head dim 128, 96 for phi3, 64 for
-   musicgen and granite-moe) or K7 (chunked WKV) once per layer of the
-   prefill, the moe prefills' dropped pairs, finite logits, the DVFS
+   musicgen, granite-moe and hymba) or K7 (chunked WKV) once per layer of
+   the prefill, and for hymba K8 (the selective scan) once per layer of
+   the prefill and of each decode step, the moe prefills' dropped pairs,
+   finite logits, the DVFS
    report; the same serve without the DVFS stream; then per model a
    token-by-token decode of 256 tokens (4 for the moe models, where their
    prefill can drop no pair) against the prefill's logits, the model in
    f32 to 2e-2 (as the reference's tests hold it) and in bf16 to a fixed
    limit, and where the device time of a prefill and of a decode step
-   goes (K6/K7, the MoE layer's expert products and its dispatch and
+   goes (K6/K7/K8, the MoE layer's expert products and its dispatch and
    combine, the other matrix products, the rest);
 10. engine and grid wall times;
 11. K4 against its plain version at the learn path's layout (32 CUs x
@@ -144,6 +149,7 @@ from repro_torch.dvfs_runtime.telemetry import arch_program  # noqa: E402
 from repro_torch.kernels import epoch_fused as KEF  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import rwkv_chunk as RC  # noqa: E402
+from repro_torch.kernels import ssm_scan as SS  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.learn import dataset as LDS  # noqa: E402
 from repro_torch.models import model as LM  # noqa: E402
@@ -222,20 +228,25 @@ MANAGER_CU = 16  # DVFSManager.for_model's default
 # reference: the chunked WKV needs S > 128, the block-pair attention
 # S > 1024), 32 greedy tokens, telemetry to DVFSService.for_model
 SERVE_ARCHS = ("glm4-9b", "rwkv6-3b", "phi3-mini-3.8b", "musicgen-medium",
-               "granite-moe-1b-a400m", "qwen2-moe-a2.7b")
+               "granite-moe-1b-a400m", "qwen2-moe-a2.7b", "hymba-1.5b")
 SERVE_BATCH, SERVE_PROMPT = 4, 2048
 # greedy tokens per serve, within the run's time limit
 SERVE_GEN = {"glm4-9b": 16, "rwkv6-3b": 16, "phi3-mini-3.8b": 8,
              "musicgen-medium": 8, "granite-moe-1b-a400m": 8,
-             "qwen2-moe-a2.7b": 8}
+             "qwen2-moe-a2.7b": 8, "hymba-1.5b": 8}
 # K6's row of each attention model's prefill (batch 4, 2048 tokens in
-# bf16) and the numpy seed of its inputs; the first two also in f32
+# bf16, the model's sliding window where it has one) and the numpy seed of
+# its inputs; the first two also in f32
 K6_ROWS = {"glm4-9b": ("flash_attention", 41),
            "phi3-mini-3.8b": ("flash_attention[hd96]", 43),
            "musicgen-medium": ("flash_attention[musicgen-medium]", 44),
            "granite-moe-1b-a400m": ("flash_attention[granite-moe-1b-a400m]",
                                     45),
-           "qwen2-moe-a2.7b": ("flash_attention[qwen2-moe-a2.7b]", 46)}
+           "qwen2-moe-a2.7b": ("flash_attention[qwen2-moe-a2.7b]", 46),
+           "hymba-1.5b": ("flash_attention[hymba-1.5b]", 47)}
+# K8 at the hymba-1.5b prefill (its mamba heads: 25 heads of 64 over the
+# d_model = 1600 channels, state 16) and the numpy seed of its inputs
+K8_ARCH, K8_SEED = "hymba-1.5b", 48
 K6_F32 = ("glm4-9b", "phi3-mini-3.8b")
 # the README's 304-CU configuration on the one-row path (K3)
 WIDE_SIM = SIM.SimConfig(n_cu=304, n_wf=40, pallas_block_cu=38,
@@ -536,10 +547,25 @@ def bound_ms(nb, ops, flop_rate=F32_FLOP_PER_S):
                                        else "operations")
 
 
-def attention_flops(B, S, H, hd):
+def attention_flops(B, S, H, hd, window=0):
     """Operations of causal attention: the two products over the kept
-    (query, key) pairs, S (S + 1) / 2 of them, 2 x hd each."""
-    return 4 * B * H * hd * (S * (S + 1) // 2)
+    (query, key) pairs, 2 x hd each: S (S + 1) / 2 of them, or with a
+    sliding window of W keys W (W + 1) / 2 + (S - W) W."""
+    W = min(window, S) if window > 0 else S
+    return 4 * B * H * hd * (W * (W + 1) // 2 + (S - W) * W)
+
+
+def k6_window(cfg):
+    """The window K6 runs at in ``cfg``'s prefill (0: causal only)."""
+    return cfg.window if cfg.attn_kind == "swa" else 0
+
+
+def scan_flops(B, S, H, hd, N):
+    """Operations of the selective scan: per channel and token dt x, and
+    per state the product with B, the decay's product and the sum into
+    the state, the product with C and the sum into y (5 N + 1); per
+    (batch, token, head) the decay's product and exp."""
+    return B * S * H * (hd * (5 * N + 1) + 2)
 
 
 def rwkv_flops(BH, T, hd):
@@ -585,17 +611,42 @@ def lm_cases(dev, f32=True):
     rk.append(rng.uniform(0.6, 0.999, (B, S, H, hd)).astype(np.float32))
     rk.append(rng.standard_normal((H, hd)).astype(np.float32) * 0.1)
     k7 = [torch.as_tensor(a).to(dev) for a in rk]
-    return k6, k7
+    return k6, k7, scan_cases(dev)
+
+
+def scan_cases(dev):
+    """K8's operands at the hymba-1.5b prefill (batch 4, 2048 tokens) and
+    at a decode step (S = 1), from a numpy seed: xh, dt, B_, C_, A and a
+    non-zero start state h0, f32 as ``models.ssm.ssm_scan`` passes them
+    (dt over the softplus range, A < 0)."""
+    cfg = get_config(K8_ARCH)
+    hd, N = cfg.resolved_head_dim, cfg.ssm.state_size
+    H = cfg.d_model * cfg.ssm.expand // hd
+    rng = np.random.default_rng(K8_SEED)
+    out = {}
+    for key, S in (("prefill", SERVE_PROMPT), ("decode", 1)):
+        B = SERVE_BATCH
+        arrs = (rng.standard_normal((B, S, H, hd)),
+                rng.uniform(0.01, 1.5, (B, S, H)),
+                rng.standard_normal((B, S, N)),
+                rng.standard_normal((B, S, N)),
+                -rng.uniform(0.2, 2.0, H),
+                rng.standard_normal((B, H, hd, N)) * 0.5)
+        out[key] = [torch.as_tensor(a.astype(np.float32)).to(dev)
+                    for a in arrs]
+    return out
 
 
 def lm_counts():
+    """K6, K7 and K8 launches, and the epoch kernels' by family."""
     return (FA.flash_attention_bshd.launches, RC.rwkv_chunked_bthd.launches,
-            dict(KEF.epoch_fused.launches_by_family))
+            SS.ssm_scan.launches, dict(KEF.epoch_fused.launches_by_family))
 
 
 def reset_lm_counts():
     FA.flash_attention_bshd.launches = 0
     RC.rwkv_chunked_bthd.launches = 0
+    SS.ssm_scan.launches = 0
     MOE.moe_layer.dropped = 0
     KEF.epoch_fused.launches_by_family = dict.fromkeys(
         KEF.epoch_fused.launches_by_family, 0)
@@ -603,7 +654,7 @@ def reset_lm_counts():
 
 def kernel_split(fn, reps=1):
     """Device time of ``fn`` by kernel class from one torch.profiler run,
-    in ms per call: K6, K7, the MoE layer's expert products and its
+    in ms per call: K6, K7, K8, the MoE layer's expert products and its
     dispatch and combine (every kernel launched inside the
     ``moe.experts`` or the ``moe.dispatch`` / ``moe.combine`` profiler
     ranges), the other matrix products, and the rest. None if it reports
@@ -615,12 +666,13 @@ def kernel_split(fn, reps=1):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    out = dict.fromkeys(("K6", "K7", "experts", "dispatch/combine", "gemm",
-                         "other"), 0.0)
+    out = dict.fromkeys(("K6", "K7", "K8", "experts", "dispatch/combine",
+                         "gemm", "other"), 0.0)
     spans = {"moe.experts": "experts", "moe.dispatch": "dispatch/combine",
              "moe.combine": "dispatch/combine"}
-    own = {"flash_attention_kernel": "K6", "rwkv_chunk_kernel": "K7"}
-    # the card's work by name; K6 and K7 are launched through ctypes, so no
+    own = {"flash_attention_kernel": "K6", "rwkv_chunk_kernel": "K7",
+           "ssm_scan_kernel": "K8"}
+    # the card's work by name; K6-K8 are launched through ctypes, so no
     # operator of torch's owns them, and the rest by the operator (and its
     # profiler range) that launched it
     total = linked = 0.0
@@ -648,8 +700,9 @@ def kernel_split(fn, reps=1):
                 out["gemm"] += kern.duration
             else:
                 out["other"] += kern.duration
-    # what no operator launched besides K6 and K7 (K7's memset)
-    out["other"] += max(total - out["K6"] - out["K7"] - linked, 0.0)
+    # what no operator launched besides K6-K8 (K7's memset)
+    out["other"] += max(total - out["K6"] - out["K7"] - out["K8"] - linked,
+                        0.0)
     if sum(out.values()) <= 0:
         return None
     return {k: v / reps / 1e3 for k, v in out.items()}
@@ -675,25 +728,29 @@ def device_ms(fn, what, reps=100):
 
 
 def lm_ran_child() -> int:
-    """``--lm-ran``: what K6 (bf16, at every attention model's prefill)
-    and K7 (at the rwkv6-3b prefill) run on the card, from torch.profiler
-    sessions of five calls each in this fresh process (the library built
-    by the parent); prints {row: {name: records}}."""
+    """``--lm-ran``: what K6 (bf16, at every attention model's prefill),
+    K7 (at the rwkv6-3b prefill) and K8 (at the hymba-1.5b prefill) run
+    on the card, from torch.profiler sessions of five calls each in this
+    fresh process (the library built by the parent); prints {row: {name:
+    records}}."""
     dev = torch.device("cuda", 0)
     no_tf32()
     K.library()
-    k6_in, k7_in = lm_cases(dev, f32=False)
+    k6_in, k7_in, k8_in = lm_cases(dev, f32=False)
     out = {key: DT.kernel_counts(
-        lambda qkv=cases[torch.bfloat16]: FA.flash_attention_bshd(
-            *qkv, causal=True), 5) for key, (_, cases) in k6_in.items()}
+        lambda qkv=cases[torch.bfloat16], w=k6_window(cfg):
+        FA.flash_attention_bshd(*qkv, causal=True, window=w), 5)
+        for key, (cfg, cases) in k6_in.items()}
     out["rwkv_chunked"] = DT.kernel_counts(
         lambda: RC.rwkv_chunked_bthd(*k7_in), 5)
+    out["ssm_scan"] = DT.kernel_counts(
+        lambda: SS.ssm_scan(*k8_in["prefill"]), 5)
     print(json.dumps(out), flush=True)
     return 0
 
 
 def lm_ran_on_card() -> dict:
-    """What K6 and K7 run on the card, each by name and records, from
+    """What K6, K7 and K8 run on the card, each by name and records, from
     ``lm_ran_child`` in a process of its own. A long process's profiler
     sessions can keep no record at all (late in this one they did, for
     both kernels, in sessions of either kind); a fresh process's keep
@@ -943,6 +1000,11 @@ def main() -> int:
     print(f"kernel library ready in {time.perf_counter() - t0:.1f} s "
           f"(nvcc build {K.BUILD['seconds']:.1f} s)", flush=True)
     for line in K.BUILD["log"].splitlines():
+        k8 = re.search(r"Function properties for .*?ssm_scan_kernelILi(\d+)"
+                       r"ELi(\d+)E", line)
+        if k8:
+            print(f"  ssm_scan_kernel<hd {k8.group(1)}, N {k8.group(2)}>")
+            continue
         fn = re.search(r"Function properties for .*?(epoch_pass_a|"
                        r"epoch_pass_b|"
                        r"epoch_epilogue|pc_table_\w+?_kernel|"
@@ -971,6 +1033,9 @@ def main() -> int:
     check(len(k7_names) == 1 and set(ran) <= set(k7_names)
           | {"Memset (Device)"},
           f"rwkv_chunked ran only K7's kernel and its memset: {ran}")
+    ran = sorted(lm_ran.get("ssm_scan", {}))
+    check(len(ran) == 1 and "ssm_scan_kernel" in ran[0],
+          f"ssm_scan ran only K8's kernel: {ran}")
 
     # ---- 2. kernels against their plain versions -------------------------
     rows = {}
@@ -1248,25 +1313,27 @@ def main() -> int:
               f"{w_many}) bitwise == each row alone (width {w_one})"
               + (f" (differ in {differ})" if differ else ""))
 
-    # ---- 2d. K6 and K7 at the LM prefill shapes ---------------------------
-    k6_in, k7_in = lm_cases(dev)
+    # ---- 2d. K6, K7 and K8 at the LM prefill shapes ----------------------
+    k6_in, k7_in, k8_in = lm_cases(dev)
     for key, (cfg, cases) in k6_in.items():
         k6_row = rows.setdefault(key, dict(max_abs_err=0.0))
+        w = k6_window(cfg)
         for dt, (q, k, v) in cases.items():
-            got = FA.flash_attention_bshd(q, k, v, causal=True)
-            want = FA.flash_attention_bshd_ref(q, k, v, causal=True)
+            got = FA.flash_attention_bshd(q, k, v, causal=True, window=w)
+            want = FA.flash_attention_bshd_ref(q, k, v, causal=True,
+                                               window=w)
             torch.cuda.synchronize()
             rtol, atol = K6_TOL[dt]
             k6_row["max_abs_err"] = max(k6_row["max_abs_err"], compare(
                 f"{key}[{str(dt).split('.')[-1]}, B {SERVE_BATCH} S "
                 f"{SERVE_PROMPT} H {cfg.n_heads} Hkv {cfg.n_kv_heads} hd "
-                f"{cfg.resolved_head_dim}]", got.float(), want.float(),
-                rtol=rtol, atol=atol))
+                f"{cfg.resolved_head_dim} window {w}]", got.float(),
+                want.float(), rtol=rtol, atol=atol))
             del got, want
         q, k, v = cases[torch.bfloat16]
         k6_row["nbytes"] = nbytes(q, k, v, q)
         k6_row["ops"] = attention_flops(SERVE_BATCH, SERVE_PROMPT,
-                                        q.shape[2], q.shape[3])
+                                        q.shape[2], q.shape[3], w)
     k7_row = rows.setdefault("rwkv_chunked", dict(max_abs_err=0.0))
     got, S_got = RC.rwkv_chunked_bthd(*k7_in, return_state=True)
     want, S_want = RC.rwkv_chunked_bthd_ref(*k7_in, return_state=True)
@@ -1280,6 +1347,25 @@ def main() -> int:
     k7_row["nbytes"] = nbytes(*k7_in, got)
     k7_row["ops"] = rwkv_flops(B7 * H7, T7, hd7)
     del got, want, S_got, S_want
+    # K8 at the hymba-1.5b prefill and at a decode step, from a non-zero
+    # state: y and the final state at the kernel limits RTOL / ATOL (f32,
+    # each step rounded as the plain version's; y's sum over the state in
+    # an order torch's einsum need not keep)
+    k8_row = rows.setdefault("ssm_scan", dict(max_abs_err=0.0))
+    for case, args in k8_in.items():
+        y, h_out = SS.ssm_scan(*args)
+        y_ref, h_ref = SS.ssm_scan_ref(*args)
+        torch.cuda.synchronize()
+        B8, S8, H8, hd8 = args[0].shape
+        N8 = args[2].shape[-1]
+        tag = f"ssm_scan[{case}: B {B8} S {S8} H {H8} hd {hd8} N {N8}]"
+        k8_row["max_abs_err"] = max(
+            k8_row["max_abs_err"], compare(f"{tag}.y", y, y_ref),
+            compare(f"{tag}.h_out", h_out, h_ref))
+        if case == "prefill":
+            k8_row["nbytes"] = nbytes(*args, y, h_out)
+            k8_row["ops"] = scan_flops(B8, S8, H8, hd8, N8)
+        del y, h_out, y_ref, h_ref
     torch.cuda.empty_cache()
 
     # ---- 3. times ----------------------------------------------------------
@@ -1322,24 +1408,34 @@ def main() -> int:
                                                  block_cu=blk_cu),
         TILED["fork"])
     # K6 at every attention model's prefill in bf16 (the served dtype),
-    # K7 at the rwkv6-3b prefill
+    # K7 at the rwkv6-3b prefill, K8 at the hymba-1.5b prefill
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    for key, (_, cases) in k6_in.items():
+    for key, (cfg, cases) in k6_in.items():
         q, k, v = cases[torch.bfloat16]
+        w = k6_window(cfg)
         times[key] = (
-            lambda q=q, k=k, v=v: FA.flash_attention_bshd(q, k, v,
-                                                          causal=True),
-            lambda q=q, k=k, v=v: FA.flash_attention_bshd_ref(q, k, v,
-                                                              causal=True),
+            lambda q=q, k=k, v=v, w=w: FA.flash_attention_bshd(
+                q, k, v, causal=True, window=w),
+            lambda q=q, k=k, v=v, w=w: FA.flash_attention_bshd_ref(
+                q, k, v, causal=True, window=w),
             ("flash_attention_kernel_wgmma",))
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        # the library's causal attention; with a sliding window, its
+        # attention under the same band as a boolean mask
+        lib_kw = dict(is_causal=True)
+        if w:
+            i = torch.arange(SERVE_PROMPT, device=dev)
+            lib_kw = dict(attn_mask=(i[None, :] <= i[:, None])
+                          & (i[None, :] > i[:, None] - w))
         rows[key]["library_ms"] = time_events(
-            lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True),
+            lambda: sdpa(qt, kt, vt, enable_gqa=True, **lib_kw),
             reps=50, warm=5)
-        lib_err = (sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+        lib_err = (sdpa(qt, kt, vt, enable_gqa=True, **lib_kw)
                    .transpose(1, 2).float()
-                   - FA.flash_attention_bshd(q, k, v).float()).abs().max()
-        print(f"library scaled_dot_product_attention (bf16, causal) at "
+                   - FA.flash_attention_bshd(q, k, v, window=w).float()
+                   ).abs().max()
+        print(f"library scaled_dot_product_attention (bf16, causal"
+              f"{f', window {w} as a mask' if w else ''}) at "
               f"{key}'s prefill: {rows[key]['library_ms'] * 1e3:.2f} us per "
               f"call, max |K6 - library| {float(lib_err):.3e} on {card}",
               flush=True)
@@ -1348,6 +1444,10 @@ def main() -> int:
         lambda: RC.rwkv_chunked_bthd(*k7_in),
         lambda: RC.rwkv_chunked_bthd_ref(*k7_in),
         ("rwkv_chunk_kernel", "Memset (Device)"))
+    # K8: one kernel; its plain version is a loop over the 2048 tokens
+    times["ssm_scan"] = (
+        lambda: SS.ssm_scan(*k8_in["prefill"]),
+        lambda: SS.ssm_scan_ref(*k8_in["prefill"]), ("ssm_scan_kernel",))
     rates = dict.fromkeys(k6_in, BF16_FLOP_PER_S)
     # the least device time a call of one launch can take
     floor_ms = device_ms(lambda: torch.cuda._sleep(1), "launch floor")
@@ -1358,7 +1458,7 @@ def main() -> int:
         row["events_ms"] = ev
         row["ms"] = dv
         slow = "fork" in key or "@" in key or key in rates \
-            or key == "rwkv_chunked"
+            or key in ("rwkv_chunked", "ssm_scan")
         row["plain_ms"] = time_events(plain, reps=3 if slow else 50,
                                       warm=1 if slow else 5)
         row["bound_ms"], row["bound_by"] = bound_ms(
@@ -1422,7 +1522,24 @@ def main() -> int:
     torch.cuda.synchronize()
     check(torch.equal(y1, y2) and torch.equal(S1, S2),
           "rwkv_chunked: two calls bitwise equal")
-    del k6_in, y1, y2, S1, S2
+    # two K8 calls agree bit for bit (no atomics; each channel's state in
+    # one thread's registers), and its time per prefill
+    y1, S1 = SS.ssm_scan(*k8_in["prefill"])
+    y2, S2 = SS.ssm_scan(*k8_in["prefill"])
+    torch.cuda.synchronize()
+    check(torch.equal(y1, y2) and torch.equal(S1, S2),
+          "ssm_scan: two calls bitwise equal")
+    r8 = rows["ssm_scan"]
+    if r8["ms"] is not None:
+        L8 = get_config(K8_ARCH).n_layers
+        print(f"ssm_scan (K8) at the {K8_ARCH} prefill: {r8['ms'] * 1e3:.2f} "
+              f"us against its bound {r8['bound_ms'] * 1e3:.2f} us "
+              f"({r8['bound_by']}), {r8['ms'] / r8['bound_ms']:.2f}x; "
+              f"{L8} launches per prefill, {L8 * r8['ms']:.3f} ms; decode "
+              f"step (S = 1): {L8} launches of "
+              f"{time_events(lambda: SS.ssm_scan(*k8_in['decode'])) * 1e3:.2f}"
+              f" us (events) on {card}", flush=True)
+    del k6_in, k8_in, y1, y2, S1, S2
     torch.cuda.empty_cache()
 
     # ---- 4. the quickstart path -------------------------------------------
@@ -1732,19 +1849,26 @@ def main() -> int:
         check(rep["ed2p_norm"] == grid_rep[(1.0, "ed2p")]["ed2p_norm"],
               f"manager {arch}: report == its grid point")
 
-    # ---- 9. the LM serving path: K6 (dense, audio, moe), K7 (rwkv6-3b) ----
+    # ---- 9. the LM serving path: K6 (dense, audio, moe, hybrid), K7
+    # (rwkv6-3b), K8 (hybrid) ----------------------------------------------
     for arch in SERVE_ARCHS:
         cfg = get_config(arch)
-        kernel = "K7" if cfg.family == "ssm" else "K6"
+        L_ = cfg.n_layers
+        hybrid = cfg.family == "hybrid"
+        kernel = "K7" if cfg.family == "ssm" else \
+            "K6 and K8" if hybrid else "K6"
         gen = SERVE_GEN[arch]
-        row_key = K6_ROWS[arch][0] if kernel == "K6" else "rwkv_chunked"
+        # launches per prefill (K6, K7, K8) and per decode step (K8)
+        want = (0, L_, 0) if cfg.family == "ssm" else (L_, 0, L_ if hybrid
+                                                        else 0)
+        want_step = L_ if hybrid else 0
         torch.cuda.empty_cache()
         reset_lm_counts()
         t0 = time.perf_counter()
         rep = serve(cfg, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
                     gen=gen, seed=0, dvfs=True, device=dev)
         wall = time.perf_counter() - t0
-        n6, n7, fams = lm_counts()
+        n6, n7, n8, fams = lm_counts()
         d = rep["dvfs"]
         print(f"serve {arch} ({cfg.n_layers} layers x d {cfg.d_model}, "
               f"batch {SERVE_BATCH}, prompt {SERVE_PROMPT}, gen "
@@ -1752,7 +1876,8 @@ def main() -> int:
               f"decode {rep['decode_s_per_tok'] * 1e3:.3f} ms/token, "
               f"{wall:.2f} s wall incl. init and DVFS on {card}",
               flush=True)
-        print(f"  launches per prefill: K6 {n6}, K7 {n7}; K4 {fams['fork']}"
+        print(f"  launches: K6 {n6}, K7 {n7}, K8 {n8} (the prefill and {gen} "
+              f"decode steps); K4 {fams['fork']}"
               f"; DVFS ED2P {d['ed2p_norm']:.4f} energy "
               f"{d['energy_norm']:.4f} delay {d['delay_norm']:.4f} accuracy"
               f" {d['accuracy']:.4f}, {rep['dvfs_requests']} requests, "
@@ -1766,11 +1891,11 @@ def main() -> int:
                   f"top-{cfg.moe.top_k}, capacity "
                   f"{MOE.expert_capacity(SERVE_PROMPT, cfg.moe, 1.25)})",
                   flush=True)
-        want6, want7 = (cfg.n_layers, 0) if kernel == "K6" \
-            else (0, cfg.n_layers)
-        check((n6, n7) == (want6, want7),
-              f"serve {arch}: K6 {n6} == {want6}, K7 {n7} == {want7} "
-              f"launches (one per layer of the one prefill)")
+        served = (want[0], want[1], want[2] + gen * want_step)
+        check((n6, n7, n8) == served,
+              f"serve {arch}: K6 {n6}, K7 {n7}, K8 {n8} launches == "
+              f"{served} (one per layer of the one prefill; K8 also one per "
+              f"layer of each of the {gen} decode steps)")
         check(fams["fork"] > 0 and fams["pc"] == fams["reactive"] == 0,
               f"serve {arch}: DVFSService.for_model ran K4 "
               f"({fams['fork']} launches, no other epoch kernel)")
@@ -1785,7 +1910,12 @@ def main() -> int:
                                d["accuracy"]]))
               and abs(sum(d["freq_timeshare"]) - 1.0) < 1e-2,
               f"serve {arch}: DVFS report finite, residency sums to 1")
-        rows[row_key]["launches"] = n6 if kernel == "K6" else n7
+        if cfg.family == "ssm":
+            rows["rwkv_chunked"]["launches"] = n7
+        else:
+            rows[K6_ROWS[arch][0]]["launches"] = n6
+        if hybrid:
+            rows["ssm_scan"]["launches"] = n8
         del rep
 
         # decode without the DVFS stream: the same loop, no service threads
@@ -1811,10 +1941,10 @@ def main() -> int:
             params = LM.init_params(dcfg, 1, dev)
             toks = torch.as_tensor(np.random.default_rng(8).integers(
                 0, cfg.vocab, (SERVE_BATCH, DECODE_S))).to(dev)
-            n0 = lm_counts()[:2]
+            n0 = lm_counts()[:3]
             MOE.moe_layer.dropped = 0
             full = LM.prefill(params, dcfg, {"tokens": toks[:1, :check_s]})
-            check(lm_counts()[:2] == (n0[0] + want6, n0[1] + want7),
+            check(lm_counts()[:3] == tuple(a + b for a, b in zip(n0, want)),
                   f"{arch} {dtype} prefill at S {check_s}: one {kernel} "
                   f"launch per layer")
             if cfg.moe is not None:
@@ -1827,10 +1957,15 @@ def main() -> int:
                       f"of {cfg.n_layers * DECODE_S * cfg.moe.top_k}",
                       flush=True)
             cache = LM.init_cache(dcfg, 1, check_s, device=dev)
+            n0 = lm_counts()[:3]
             for i in range(check_s):
                 logits, cache = LM.decode_step(params, dcfg, cache,
                                                toks[:1, i])
             del cache
+            check(lm_counts()[:3] == (n0[0], n0[1],
+                                      n0[2] + check_s * want_step),
+                  f"{arch} {dtype} decode x {check_s}: {want_step} K8 "
+                  f"launches per step, no K6 or K7")
             tag = f"{arch} {dtype} decode x {check_s} vs prefill logits"
             if dtype == "float32":
                 compare(tag, logits, full, rtol=DECODE_TOL, atol=DECODE_TOL)
@@ -1914,6 +2049,8 @@ def main() -> int:
         **{key: "src/repro/kernels/flash_attention.py:73"
            for key, _ in K6_ROWS.values()},
         "rwkv_chunked": "src/repro/kernels/rwkv_chunk.py:79",
+        # K8 replaces no TPU kernel: the reference's scan is a lax.scan
+        "ssm_scan": "src/repro/models/ssm.py:16",
     }
     sources = dict.fromkeys(
         ("epoch_fused[pc]", "epoch_fused[reactive]", "epoch_fused[pc@304]",
@@ -1924,6 +2061,7 @@ def main() -> int:
         pc_table_predict="src/repro_torch/kernels/csrc/pc_table.cu",
         pc_table_update="src/repro_torch/kernels/csrc/pc_table.cu",
         rwkv_chunked="src/repro_torch/kernels/csrc/rwkv_chunk.cu",
+        ssm_scan="src/repro_torch/kernels/csrc/ssm_scan.cu",
         **{key: "src/repro_torch/kernels/csrc/flash_attention.cu"
            for key, _ in K6_ROWS.values()})
     kernels = []

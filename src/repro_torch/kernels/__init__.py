@@ -1,6 +1,6 @@
 """Hand-written CUDA kernels of the port (sm_90a).
 
-Seven kernels, one shared library. The DVFS engine's hot path:
+Eight kernels, one shared library. The DVFS engine's hot path:
 
 * ``pc_table.pc_table_predict`` / ``pc_table.pc_table_update`` — the PC
   table predict/update pair (``csrc/pc_table.cu``);
@@ -11,16 +11,21 @@ Seven kernels, one shared library. The DVFS engine's hot path:
   sweep family at once, mechanism chosen per row by a traced id (family
   ``fork``; the same kernels).
 
-The LM model zoo's prefill (``ops.py`` holds the reference's public
-wrappers):
+The LM model zoo's prefill and decode (``ops.py`` holds the reference's
+public wrappers):
 
 * ``flash_attention.flash_attention_bshd`` — K6, online-softmax attention
   with causal and sliding-window masks over grouped KV heads
   (``csrc/flash_attention.cu``): bf16 on the tensor cores (``wgmma``,
   TMA-staged K/V, p split into two bf16 terms), f32 on the CUDA cores;
 * ``rwkv_chunk.rwkv_chunked_bthd`` — K7, the chunked RWKV6 WKV
-  (``csrc/rwkv_chunk.cu``): one CTA per (batch, head, chunk), the state
-  carried from chunk to chunk through a chain of flags.
+  (``csrc/rwkv_chunk.cu``): persistent CTAs walk the (batch, head,
+  chunk) tiles, the state carried from chunk to chunk through a chain of
+  flags;
+* ``ssm_scan.ssm_scan`` — K8, the selective scan of the hybrid family's
+  mamba heads (``csrc/ssm_scan.cu``): one CTA per (batch, head), one
+  thread per channel, tiles of tokens staged in shared memory. It
+  replaces no TPU kernel (the reference's scan is a ``lax.scan``).
 
 Every wrapper launches its kernel on a CUDA tensor and runs the kernel's
 plain PyTorch version on a CPU tensor; there is no fallback between the
@@ -66,6 +71,7 @@ SIGNATURES = {
     "epoch_fused_cta_width": (_CI, [_CI] * 3),
     "flash_attention_launch": (_CI, [_VP] * 4 + [_CI] * 9 + [_VP]),
     "rwkv_chunk_launch": (_CI, [_VP] * 8 + [_CI] * 7 + [_VP]),
+    "ssm_scan_launch": (_CI, [_VP] * 8 + [_CI] * 5 + [_VP]),
     "repro_error_string": (ctypes.c_char_p, [_CI]),
 }
 

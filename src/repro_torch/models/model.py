@@ -2,8 +2,9 @@
 families ``dense`` (decoder transformer: GQA, RoPE, SwiGLU), ``audio``
 (the same decoder over EnCodec token ids: the reference's frontend is a
 stub and its audio family takes the dense path), ``moe`` (dense attention
-and a mixture-of-experts FFN, ``models.moe``) and ``ssm`` (RWKV6
-time-mix / channel-mix).
+and a mixture-of-experts FFN, ``models.moe``), ``hybrid`` (hymba: each
+block runs sliding-window attention and a mamba head, ``models.ssm``, side
+by side on the same input) and ``ssm`` (RWKV6 time-mix / channel-mix).
 
 Parameters are an ``nn.Module`` tree whose names follow the reference's
 params tree: ``embed``, ``layers.<i>.attn.wq``, ``layers.<i>.tm.mu_r``,
@@ -31,11 +32,11 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv as RWKV
+from repro_torch.models import ssm as SSM
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-# the families the port serves; hybrid and the vision frontend are not
-# ported yet
-SERVED_FAMILIES = ("dense", "audio", "moe", "ssm")
+# the families the port serves; the vision frontend is not ported yet
+SERVED_FAMILIES = ("dense", "audio", "moe", "hybrid", "ssm")
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -47,7 +48,7 @@ def _check_family(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} (frontend {cfg.frontend!r})"
             " is not ported yet: ROADMAP queue A, the rest of the model zoo"
-            " (hybrid, vision)")
+            " (vision)")
 
 
 class Tree(nn.Module):
@@ -123,7 +124,29 @@ def _init_layer(init: _Init, cfg: ModelConfig) -> Tree:
     mlp = {"w1": init.normal((d, cfg.d_ff), dt),
            "w3": init.normal((d, cfg.d_ff), dt),
            "w2": init.normal((cfg.d_ff, d), dt, out_scale)}
+    if cfg.family == "hybrid":
+        return Tree({**norms, "attn": Tree(attn),
+                     "mamba": Tree(_init_mamba(init, cfg, dt, out_scale)),
+                     "norm_a": init.full((d,), 0.0),
+                     "norm_s": init.full((d,), 0.0), "mlp": Tree(mlp)})
     return Tree({**norms, "attn": Tree(attn), "mlp": Tree(mlp)})
+
+
+def _init_mamba(init: _Init, cfg: ModelConfig, dt, out_scale) -> dict:
+    """The reference's ``_init_mamba``: ``w_dt``, ``dt_bias`` (-2),
+    ``a_log`` (0) and ``d_skip`` (1) in f32, the conv kernel at scale 0.5,
+    inner width ``d_model * expand``."""
+    d = cfg.d_model
+    di = d * cfg.ssm.expand
+    H = di // cfg.resolved_head_dim
+    n = cfg.ssm.state_size
+    return {"w_in": init.normal((d, 2 * di), dt),
+            "conv_k": init.normal((cfg.ssm.conv_width, di), dt, 0.5),
+            "w_dt": init.normal((di, H), torch.float32),
+            "dt_bias": init.full((H,), -2.0),
+            "w_b": init.normal((di, n), dt), "w_c": init.normal((di, n), dt),
+            "a_log": init.full((H,), 0.0), "d_skip": init.full((H,), 1.0),
+            "w_out": init.normal((di, d), dt, out_scale)}
 
 
 def _init_moe(init: _Init, cfg: ModelConfig, dt, out_scale) -> dict:
@@ -215,8 +238,23 @@ def _layer_fwd(x, lp, cfg: ModelConfig, positions):
         y, _ = RWKV.channel_mix(h, zeros, lp["cm"])
         return x + y
     h = L.rms_norm(x, lp["norm1"], cfg.norm_eps)
-    x = x + _attn_block(h, lp["attn"], cfg, positions)
+    a = _attn_block(h, lp["attn"], cfg, positions)
+    if cfg.family == "hybrid":
+        hd, ssm = cfg.resolved_head_dim, cfg.ssm
+        st = SSM.init_mamba_state(x.shape[0], cfg.d_model * ssm.expand, hd,
+                                  ssm.state_size, ssm.conv_width, x.dtype,
+                                  x.device)
+        s, _ = SSM.mamba_head(h, lp["mamba"], st, hd, ssm.state_size)
+        a = _mix_heads(a, s, lp, cfg)
+    x = x + a
     return x + _ffn(L.rms_norm(x, lp["norm2"], cfg.norm_eps), lp, cfg)
+
+
+def _mix_heads(a, s, lp, cfg: ModelConfig):
+    """The hybrid block's attention and mamba outputs, each normed, then
+    averaged."""
+    return 0.5 * (L.rms_norm(a, lp["norm_a"], cfg.norm_eps)
+                  + L.rms_norm(s, lp["norm_s"], cfg.norm_eps))
 
 
 def embed_inputs(params: Tree, cfg: ModelConfig,
@@ -280,6 +318,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, fill: int = 0,
     c["k"] = torch.zeros((Lr, batch, W, cfg.n_kv_heads, hd), dtype=dt,
                          device=dev)
     c["v"] = torch.zeros_like(c["k"])
+    if cfg.family == "hybrid":
+        ssm = cfg.ssm
+        di = cfg.d_model * ssm.expand
+        c["ssm_h"] = torch.zeros((Lr, batch, di // hd, hd, ssm.state_size),
+                                 dtype=torch.float32, device=dev)
+        c["conv"] = torch.zeros((Lr, batch, ssm.conv_width - 1, di),
+                                dtype=dt, device=dev)
     return c
 
 
@@ -326,8 +371,17 @@ def decode_step(params: Tree, cfg: ModelConfig,
             cache["x_cm"][i].copy_(xcm)
             x = x + y
             continue
-        x = x + _decode_attn(h, lp["attn"], cfg, cache["k"][i],
-                             cache["v"][i], pos)
+        a = _decode_attn(h, lp["attn"], cfg, cache["k"][i], cache["v"][i],
+                         pos)
+        if cfg.family == "hybrid":
+            s, st = SSM.mamba_head(
+                h, lp["mamba"], {"h": cache["ssm_h"][i],
+                                 "conv": cache["conv"][i]},
+                hd, cfg.ssm.state_size)
+            cache["ssm_h"][i].copy_(st["h"])
+            cache["conv"][i].copy_(st["conv"])
+            a = _mix_heads(a, s, lp, cfg)
+        x = x + a
         x = x + _ffn(L.rms_norm(x, lp["norm2"], cfg.norm_eps), lp, cfg)
     cache["pos"] = pos + 1
     h = L.rms_norm(x, params["final_norm"], cfg.norm_eps)[:, 0]

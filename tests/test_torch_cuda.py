@@ -902,6 +902,8 @@ def _qkv(B, S, H, Hkv, hd, dtype, dev, seed=0, q_scale=1.0):
     (2, 512, 8, 2, 96, True, 0, 1.0),
     (1, 384, 4, 4, 96, True, 100, 1.0),
     (1, 384, 4, 2, 96, False, 0, 8.0),
+    # hymba-1.5b's layout: a GQA group of 5 with its 1024-token window
+    (1, 2048, 25, 5, 64, True, 1024, 1.0),
 ])
 def test_flash_attention_kernel_matches_plain(dev, dtype, B, S, H, Hkv, hd,
                                               causal, window, q_scale):
@@ -1277,4 +1279,97 @@ def test_zoo_prefill_runs_k6_per_layer_and_matches_cpu(dev, arch):
         logits, cache = M.decode_step(params, cfg, cache,
                                       toks[:1, i].to(dev))
     np.testing.assert_allclose(logits.cpu().numpy(), full.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+
+
+# K8 (the selective scan) against its plain version: y and h_out within
+# 1e-4 + 1e-5 |ref| (the kernel sums y over the state in another order)
+def _scan_case(B, S, H, hd, N, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    arrs = (rng.standard_normal((B, S, H, hd)).astype(f),
+            rng.uniform(0.01, 1.5, (B, S, H)).astype(f),
+            rng.standard_normal((B, S, N)).astype(f),
+            rng.standard_normal((B, S, N)).astype(f),
+            -rng.uniform(0.2, 2.0, H).astype(f),
+            rng.standard_normal((B, H, hd, N)).astype(f) * 0.5)
+    return [torch.as_tensor(a).to(dev) for a in arrs]
+
+
+@pytest.mark.parametrize("B,S,H,hd,N", [
+    (1, 1, 2, 64, 16),        # a decode step
+    (2, 33, 3, 16, 8),        # S past one 32-token tile, not a multiple
+    (3, 100, 4, 32, 16),
+    (2, 64, 2, 128, 8),
+    (4, 257, 25, 64, 16),     # hymba's heads and state
+])
+def test_ssm_scan_kernel_matches_plain(dev, B, S, H, hd, N):
+    from repro_torch.kernels import ssm_scan as SS
+    args = _scan_case(B, S, H, hd, N, dev, seed=S)
+    n0 = SS.ssm_scan.launches
+    y, h = SS.ssm_scan(*args)
+    assert SS.ssm_scan.launches == n0 + 1
+    y_ref, h_ref = SS.ssm_scan_ref(*args)
+    torch.cuda.synchronize()
+    assert y.shape == (B, S, H, hd) and h.shape == (B, H, hd, N)
+    _close(y, y_ref, "y")
+    _close(h, h_ref, "h_out")
+
+
+def test_ssm_scan_kernel_two_calls_bitwise_equal(dev):
+    from repro_torch.kernels import ssm_scan as SS
+    args = _scan_case(2, 300, 5, 64, 16, dev, seed=1)
+    y1, h1 = SS.ssm_scan(*args)
+    y2, h2 = SS.ssm_scan(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(h1, h2)
+
+
+@pytest.mark.parametrize("hd,N", [(48, 16), (64, 12)])
+def test_ssm_scan_kernel_refuses_other_shapes(dev, hd, N):
+    """A head dim or state size K8 has no kernel for raises before any
+    launch; so does an operand that is not f32."""
+    from repro_torch.kernels import ssm_scan as SS
+    args = _scan_case(1, 8, 2, hd, N, dev)
+    n0 = SS.ssm_scan.launches
+    with pytest.raises(ValueError, match="K8 has kernels"):
+        SS.ssm_scan(*args)
+    args = _scan_case(1, 8, 2, 64, 16, dev)
+    args[0] = args[0].double()
+    with pytest.raises(ValueError, match="dtype"):
+        SS.ssm_scan(*args)
+    assert SS.ssm_scan.launches == n0
+
+
+@pytest.mark.parametrize("window", [1024, 16])
+def test_hybrid_prefill_runs_k6_and_k8_per_layer_and_matches_cpu(dev,
+                                                                 window):
+    """The hymba smoke config in f32: the prefill on the card launches K6
+    and K8 once per layer and lands on the CPU's logits (plain versions)
+    to 1e-5; a token-by-token decode of 64 tokens (K8 once per layer and
+    step) ends at the card's prefill logits."""
+    from repro_torch import no_tf32
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssm_scan as SS
+    from repro_torch.models import model as M
+    no_tf32()
+    cfg = dataclasses.replace(get_smoke_config("hymba-1.5b"),
+                              dtype="float32", window=window)
+    params = M.init_params(cfg, 0, "cpu")
+    toks = torch.as_tensor(np.random.default_rng(9).integers(
+        0, cfg.vocab, (2, 64)))
+    want = M.prefill(params, cfg, {"tokens": toks})
+    params = params.to(dev)
+    n6, n8 = FA.flash_attention_bshd.launches, SS.ssm_scan.launches
+    got = M.prefill(params, cfg, {"tokens": toks.to(dev)})
+    assert FA.flash_attention_bshd.launches == n6 + cfg.n_layers
+    assert SS.ssm_scan.launches == n8 + cfg.n_layers
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    cache = M.init_cache(cfg, 2, 64, device=dev)
+    for i in range(64):
+        logits, cache = M.decode_step(params, cfg, cache, toks[:, i].to(dev))
+    assert SS.ssm_scan.launches == n8 + cfg.n_layers * 65
+    np.testing.assert_allclose(logits.cpu().numpy(), got.cpu().numpy(),
                                rtol=1e-4, atol=1e-4)

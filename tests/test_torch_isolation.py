@@ -5,7 +5,7 @@
   in the AST.
 * The ctypes declarations of the kernel library match the C sources: each
   entry point's parameter count and kinds, and the field order of the
-  fused epoch kernel's argument struct (K1-K7). A mismatch would not fail to
+  fused epoch kernel's argument struct (K1-K8). A mismatch would not fail to
   build; it would hand the kernel garbage pointers on the card.
 * A program too long for a CTA's shared memory: the code the C entry
   point returns for it is the one the wrapper turns into an error naming
@@ -58,8 +58,9 @@ def test_port_file_list_is_complete():
         "configs/granite_moe_1b_a400m.py", "dvfs_runtime/telemetry.py",
         "dvfs_runtime/manager.py", "dvfs_runtime/service.py",
         "data/pipeline.py", "kernels/flash_attention.py",
-        "kernels/rwkv_chunk.py", "kernels/ops.py", "models/layers.py",
-        "models/rwkv.py", "models/moe.py", "models/model.py",
+        "kernels/rwkv_chunk.py", "kernels/ssm_scan.py", "kernels/ops.py",
+        "models/layers.py", "models/rwkv.py", "models/moe.py",
+        "models/ssm.py", "models/model.py",
         "models/__init__.py",
         "launch/serve.py")} | {"chip_smoke.py"} <= names
 
@@ -82,7 +83,8 @@ def test_ctypes_signatures_match_c_sources():
     c = _c_entry_points()
     assert set(c) == set(K.SIGNATURES)
     assert {"epoch_fused_launch", "epoch_fused_cta_width",
-            "flash_attention_launch", "rwkv_chunk_launch"} <= set(c)
+            "flash_attention_launch", "rwkv_chunk_launch",
+            "ssm_scan_launch"} <= set(c)
     for name, (_, argtypes) in K.SIGNATURES.items():
         kinds = ["ptr" if t is ctypes.c_void_p else "int" for t in argtypes]
         assert kinds == c[name], name
@@ -150,3 +152,17 @@ def test_flash_attention_limits_match_c_source():
                                  re.findall(r"case (\d+):", src))
     assert FA.MAX_BLK_K == int(re.search(r"kMaxBlkK = (\d+);", src)
                                .group(1))
+
+
+def test_ssm_scan_limits_match_c_source():
+    """The head dims and state sizes K8 is instantiated for, as the
+    wrapper checks them before a launch: the state sizes are the entry
+    point's switch, the head dims ``launch_hd``'s."""
+    from repro_torch.kernels import ssm_scan as SS
+    src = (CSRC / "ssm_scan.cu").read_text()
+    entry = src[src.index('extern "C" int ssm_scan_launch'):]
+    hd_switch = src[src.index("int launch_hd("):src.index("}  // namespace")]
+    assert SS.STATE_SIZES == tuple(int(x) for x in
+                                   re.findall(r"case (\d+):", entry))
+    assert SS.HEAD_DIMS == tuple(int(x) for x in
+                                 re.findall(r"case (\d+):", hd_switch))

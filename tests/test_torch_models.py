@@ -2,11 +2,14 @@
 ``models.layers``, ``models.rwkv``, ``prefill`` and ``decode_step`` of
 smoke configs of glm4-9b (dense, K6's plain version), rwkv6-3b (ssm,
 K7's plain version), granite-moe-1b-a400m and qwen2-moe-a2.7b (moe: 4
-experts top-2, without and with a shared expert) and musicgen-medium
-(audio), both packages starting from the reference's weights
+experts top-2, without and with a shared expert), musicgen-medium
+(audio) and hymba-1.5b (hybrid: 2 layers, d 64, 4 query heads over 1 KV
+head of 16, window 1024, SSM state 8; K6's and K8's plain versions),
+both packages starting from the reference's weights
 (``interop.params_from_numpy``) and the same numpy tokens. The moe smoke
 prefills drop pairs past their experts' capacity; the port drops the
-same ones (``tests/test_torch_moe.py`` holds the layer itself).
+same ones (``tests/test_torch_moe.py`` holds the layer itself,
+``tests/test_torch_ssm.py`` the mamba head).
 
 Bounds on the logits (of magnitude ~0.5 here):
 
@@ -52,7 +55,9 @@ SHAPES = {"phi3-mini-3.8b": dict(d_model=192, n_heads=2, n_kv_heads=2,
                                  head_dim=96)}
 # the moe and audio families: attention as the dense family's
 ZOO = ["granite-moe-1b-a400m", "qwen2-moe-a2.7b", "musicgen-medium"]
-LM_ARCHS = ARCHS + list(SHAPES) + ZOO
+# the hybrid family: attention (sliding window) and a mamba head per block
+HYBRID = ["hymba-1.5b"]
+LM_ARCHS = ARCHS + list(SHAPES) + ZOO + HYBRID
 
 
 def _np(x):
@@ -65,9 +70,10 @@ def _t(a, dtype=torch.float32):
     return torch.from_numpy(np.array(a, np.float32)).to(dtype)
 
 
-def _pair(arch, dtype, seed=3):
-    """Both packages' configs and the reference's weights in both."""
-    over = dict(SHAPES.get(arch, {}), dtype=dtype)
+def _pair(arch, dtype, seed=3, **over):
+    """Both packages' configs (``over`` replaces fields of the smoke
+    config) and the reference's weights in both."""
+    over = dict(SHAPES.get(arch, {}), dtype=dtype, **over)
     cj = dataclasses.replace(j_smoke(arch), **over)
     ct = dataclasses.replace(t_smoke(arch), **over)
     pj = JM.init_params(cj, jax.random.key(seed))
@@ -441,3 +447,145 @@ def test_served_attention_configs_have_a_k6_head_dim(arch):
     TM.init_params(dataclasses.replace(t_smoke(arch), n_layers=1), 0, "cpu")
     assert cfg.resolved_head_dim in FA.HEAD_DIMS, (arch,
                                                    cfg.resolved_head_dim)
+
+
+# ---------------------------------------------------------------------------
+# the hybrid family (hymba-1.5b)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_hybrid_prefill_with_a_window_matches_reference(dtype):
+    """The smoke window of 1024 masks nothing at S = 256; a window of 64
+    does, through K6's sliding-window mask."""
+    cj, ct, pj, pt = _pair("hymba-1.5b", dtype, window=64)
+    toks = _tokens(cj, 2, 256, 4)
+    want = JM.prefill(pj, cj, {"tokens": jnp.asarray(toks)})
+    got = TM.prefill(pt, ct, {"tokens": torch.from_numpy(toks).long()})
+    tol = LOGIT_TOL[dtype]
+    np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+    full = TM.prefill(pt, dataclasses.replace(ct, window=1024),
+                      {"tokens": torch.from_numpy(toks).long()})
+    assert float((full - got).abs().max()) > 10 * tol
+
+
+@pytest.mark.parametrize("window,steps", [(1024, 8), (16, 40)],
+                         ids=["window1024-8", "ring16-40"])
+def test_hybrid_decode_matches_reference_cache_and_all(window, steps):
+    """Teacher-forced decode in f32 from an empty cache: every step's
+    logits and, after the last, every cache key (the SWA ring, the SSM
+    state ``ssm_h`` and the conv carry) to 1e-5. At window 16 the ring
+    wraps twice in 40 steps."""
+    cj, ct, pj, pt = _pair("hymba-1.5b", "float32", window=window)
+    toks = _tokens(cj, 2, steps, 5)
+    cache_j = JM.init_cache(cj, 2, steps)
+    cache_t = TM.init_cache(ct, 2, steps, device="cpu")
+    assert cache_t["k"].shape[2] == min(window, steps)
+    step_j = jax.jit(JM.decode_step, static_argnums=1)
+    for i in range(steps):
+        lj, cache_j = step_j(pj, cj, cache_j, jnp.asarray(toks[:, i]))
+        lt, cache_t = TM.decode_step(pt, ct, cache_t,
+                                     torch.from_numpy(toks[:, i]).long())
+        np.testing.assert_allclose(_np(lt), _np(lj), rtol=1e-5, atol=1e-5,
+                                   err_msg=f"step {i}")
+    assert set(cache_t) == set(cache_j)
+    for key in cache_t:
+        np.testing.assert_allclose(_np(cache_t[key]), _np(cache_j[key]),
+                                   rtol=1e-5, atol=1e-5, err_msg=key)
+    assert float(cache_t["ssm_h"].abs().max()) > 0
+
+
+def test_hybrid_decode_after_prefill_starts_from_zero_cache():
+    """The serve loop's cache for hymba: zero at ``pos = prompt_len``, one
+    step on, every key as the reference's."""
+    cj, ct, pj, pt = _pair("hymba-1.5b", "float32")
+    tok = _tokens(cj, 2, 1, 3)[:, 0]
+    lj, cj2 = JM.decode_step(pj, cj, JM.init_cache(cj, 2, 40, fill=32),
+                             jnp.asarray(tok))
+    lt, ct2 = TM.decode_step(pt, ct, TM.init_cache(ct, 2, 40, fill=32,
+                                                   device="cpu"),
+                             torch.from_numpy(tok).long())
+    np.testing.assert_allclose(_np(lt), _np(lj), rtol=1e-5, atol=1e-5)
+    assert int(ct2["pos"]) == int(cj2["pos"]) == 33
+    for key in ct2:
+        np.testing.assert_allclose(_np(ct2[key]), _np(cj2[key]),
+                                   rtol=1e-5, atol=1e-5, err_msg=key)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_hybrid_init_cache_matches_reference(dtype):
+    """Keys, shapes and dtypes: ``k``/``v`` the SWA ring in the activation
+    dtype, ``ssm_h`` (L,B,H,hd,N) in f32, ``conv`` (L,B,K-1,Di) in the
+    activation dtype."""
+    cj = dataclasses.replace(j_smoke("hymba-1.5b"), dtype=dtype)
+    ct = dataclasses.replace(t_smoke("hymba-1.5b"), dtype=dtype)
+    want = JM.init_cache(cj, 3, 2000, fill=5)
+    got = TM.init_cache(ct, 3, 2000, fill=5, device="cpu")
+    assert set(got) == set(want) == {"pos", "k", "v", "ssm_h", "conv"}
+    for key in want:
+        assert tuple(got[key].shape) == want[key].shape, key
+        assert str(got[key].dtype).split(".")[-1] == str(want[key].dtype), \
+            key
+    assert got["k"].shape[2] == ct.window and int(got["pos"]) == 5
+    assert got["ssm_h"].dtype == torch.float32
+
+
+def test_hybrid_params_carry_over_bit_for_bit():
+    """The hybrid subtree under the reference's keys (``attn``, ``mamba``,
+    ``norm_a``, ``norm_s``, ``mlp``): the mamba head's f32 leaves stay f32
+    in a bf16 model, every leaf carries its bits, the counts are equal,
+    and the port's own init builds the same tree."""
+    cj, ct, pj, pt = _pair("hymba-1.5b", "bfloat16")
+    flat = dict(pt.named_parameters())
+    mj = pj["layers"]["mamba"]
+    for key in ("w_dt", "dt_bias", "a_log", "d_skip"):
+        assert flat[f"layers.1.mamba.{key}"].dtype == torch.float32, key
+    for key in ("w_in", "conv_k", "w_b", "w_c", "w_out"):
+        assert flat[f"layers.1.mamba.{key}"].dtype == torch.bfloat16, key
+    for key in mj:
+        np.testing.assert_array_equal(_np(flat[f"layers.1.mamba.{key}"]),
+                                      _np(mj[key][1]), err_msg=key)
+    for key in ("norm_a", "norm_s"):
+        np.testing.assert_array_equal(_np(flat[f"layers.0.{key}"]),
+                                      _np(pj["layers"][key][0]))
+    np.testing.assert_array_equal(_np(flat["layers.0.attn.wq"]),
+                                  _np(pj["layers"]["attn"]["wq"][0]))
+    n_ref = sum(a.size for a in jax.tree.leaves(pj))
+    assert sum(p.numel() for p in pt.parameters()) == n_ref
+    own = TM.init_params(ct, 0, "cpu")
+    assert {k: (v.shape, v.dtype) for k, v in own.named_parameters()} == \
+        {k: (v.shape, v.dtype) for k, v in flat.items()}
+    m = own["layers"][0]["mamba"]
+    assert float(m["dt_bias"][0]) == -2.0 and float(m["d_skip"][0]) == 1.0
+    assert float(m["a_log"].abs().max()) == 0.0
+    assert abs(float(m["conv_k"].float().std()) - 0.5) < 0.1
+
+
+def test_serve_hybrid_on_the_cpu():
+    """``serve`` of the hymba smoke config with the DVFS stream: greedy
+    tokens from the prefill's argmax, finite logits, the stream reports
+    (``telemetry`` reads the hybrid family)."""
+    cfg = t_smoke("hymba-1.5b")
+    rep = TS.serve(cfg, batch=2, prompt_len=64, gen=3, dvfs=True,
+                   dvfs_stride=2, device="cpu")
+    toks = rep["tokens"]
+    assert toks.shape == (2, 4) and toks.dtype == torch.int32
+    assert torch.equal(toks[:, 0], rep["prefill_logits"].argmax(-1).int())
+    assert torch.isfinite(rep["prefill_logits"]).all()
+    assert torch.isfinite(rep["last_logits"]).all()
+    assert rep["dvfs_requests"] == 2 and np.isfinite(rep["dvfs"]["ed2p_norm"])
+
+
+def test_serve_cli_takes_the_hybrid_arch(capsys):
+    TS.main(["--arch", "hymba-1.5b", "--smoke", "--device", "cpu",
+             "--prompt-len", "16", "--gen", "2", "--batch", "2"])
+    assert "out shape (2, 3)" in capsys.readouterr().out
+
+
+def test_hybrid_config_is_the_published_widths():
+    hy = t_config("hymba-1.5b")
+    assert (hy.family, hy.n_layers, hy.d_model, hy.n_heads, hy.n_kv_heads,
+            hy.resolved_head_dim, hy.d_ff, hy.vocab) == \
+        ("hybrid", 32, 1600, 25, 5, 64, 5504, 32001)
+    assert (hy.attn_kind, hy.window, hy.ssm.state_size, hy.ssm.conv_width,
+            hy.ssm.expand) == ("swa", 1024, 16, 4, 1)
