@@ -7,8 +7,9 @@ drives the port (never JAX, never ``repro``):
 
 1. the card's name and power limit; TF32 off; the kernel library build
    (registers and spills from nvcc's report); K6, K7 and K8 each run only
-   their own kernels (torch.profiler, in a fresh process of this script:
-   ``--lm-ran``);
+   their own kernels, and a paligemma-3b prefill runs K6 once per layer
+   and no other attention kernel (torch.profiler, in a fresh process of
+   this script: ``--lm-ran``);
 2. every kernel against its plain PyTorch version on the card, at the
    main path's shapes (64 CUs x 40 WFs, 64 tables x 128 slots, 10 V/f
    states, 1024-block Table II programs), from numpy-seeded inputs: the
@@ -27,12 +28,16 @@ drives the port (never JAX, never ``repro``):
    rows among 42 and among 8 (two CTA widths each), bit for bit; K6 at
    the glm4-9b and phi3-mini-3.8b prefills (bf16 and f32) and at the
    musicgen-medium, granite-moe-1b-a400m, qwen2-moe-a2.7b and
-   hymba-1.5b prefills (bf16; hymba's with its 1024-token window), K7 at
+   hymba-1.5b prefills (bf16; hymba's with its 1024-token window) and at
+   the paligemma-3b prefill (bf16 and f32: head dim 256, 8 over 1 heads,
+   prefix-LM over its 256 patch embeddings), K7 at
    the rwkv6-3b prefill, and K8 (the selective scan) at the hymba-1.5b
    prefill and at a decode step (S = 1), each from a non-zero state;
 3. times of every kernel (the one method: ``scripts/devtime.py``):
    device time per call against its bound, the per-call time with the
-   host, the plain version's and, for K6, ``scaled_dot_product_attention``;
+   host, the plain version's and, for K6, ``scaled_dot_product_attention``
+   (under K6's mask as a boolean tensor where the row has a window or a
+   prefix);
    K1 and K2 as the v1 epoch calls them (int64 slots, 0-dim scalars),
    their kernels alone (torch.profiler) and the launch floor
    (``torch.cuda._sleep(1)`` by the same method);
@@ -68,21 +73,25 @@ drives the port (never JAX, never ``repro``):
    default 16 CUs (K4): ``report`` and a 2 x 2 ``grid_report``;
 9. the LM serving path: ``launch.serve.serve`` of glm4-9b, rwkv6-3b,
    phi3-mini-3.8b, musicgen-medium (audio), granite-moe-1b-a400m and
-   qwen2-moe-a2.7b (moe) and hymba-1.5b (hybrid) at their published
-   widths and depths (random
+   qwen2-moe-a2.7b (moe), hymba-1.5b (hybrid) and paligemma-3b (vlm: 256
+   bf16 patch embeddings, then 1792 tokens) at their published widths
+   and depths (random
    weights from a seed), batch 4, a 2048-token prompt, greedy tokens (16
    for the first two, 8 for the rest), telemetry streamed to
    ``DVFSService.for_model`` (K4 at 16 CUs): prefill seconds, decode ms
    per token, K6 (flash attention; head dim 128, 96 for phi3, 64 for
-   musicgen, granite-moe and hymba) or K7 (chunked WKV) once per layer of
-   the prefill, and for hymba K8 (the selective scan) once per layer of
+   musicgen, granite-moe and hymba, 256 with a 256-key prefix for
+   paligemma) or K7 (chunked WKV) once per layer of the prefill, and for
+   hymba K8 (the selective scan) once per layer of
    the prefill and of each decode step, the moe prefills' dropped pairs,
    finite logits, the DVFS
    report; the same serve without the DVFS stream; then per model a
    token-by-token decode of 256 tokens (4 for the moe models, where their
    prefill can drop no pair) against the prefill's logits, the model in
    f32 to 2e-2 (as the reference's tests hold it) and in bf16 to a fixed
-   limit, and where the device time of a prefill and of a decode step
+   limit (paligemma's on its text-only path at head dim 256: a token
+   decode cannot rebuild a bidirectional prefix of patch embeddings), and
+   where the device time of a prefill and of a decode step
    goes (K6/K7/K8, the MoE layer's expert products and its dispatch and
    combine, the other matrix products, the rest);
 10. engine and grid wall times;
@@ -228,26 +237,34 @@ MANAGER_CU = 16  # DVFSManager.for_model's default
 # reference: the chunked WKV needs S > 128, the block-pair attention
 # S > 1024), 32 greedy tokens, telemetry to DVFSService.for_model
 SERVE_ARCHS = ("glm4-9b", "rwkv6-3b", "phi3-mini-3.8b", "musicgen-medium",
-               "granite-moe-1b-a400m", "qwen2-moe-a2.7b", "hymba-1.5b")
+               "granite-moe-1b-a400m", "qwen2-moe-a2.7b", "hymba-1.5b",
+               "paligemma-3b")
 SERVE_BATCH, SERVE_PROMPT = 4, 2048
 # greedy tokens per serve, within the run's time limit
 SERVE_GEN = {"glm4-9b": 16, "rwkv6-3b": 16, "phi3-mini-3.8b": 8,
              "musicgen-medium": 8, "granite-moe-1b-a400m": 8,
-             "qwen2-moe-a2.7b": 8, "hymba-1.5b": 8}
+             "qwen2-moe-a2.7b": 8, "hymba-1.5b": 8, "paligemma-3b": 8}
 # K6's row of each attention model's prefill (batch 4, 2048 tokens in
-# bf16, the model's sliding window where it has one) and the numpy seed of
-# its inputs; the first two also in f32
+# bf16, the model's sliding window or prefix where it has one) and the
+# numpy seed of its inputs; those of K6_F32 also in f32
 K6_ROWS = {"glm4-9b": ("flash_attention", 41),
            "phi3-mini-3.8b": ("flash_attention[hd96]", 43),
            "musicgen-medium": ("flash_attention[musicgen-medium]", 44),
            "granite-moe-1b-a400m": ("flash_attention[granite-moe-1b-a400m]",
                                     45),
            "qwen2-moe-a2.7b": ("flash_attention[qwen2-moe-a2.7b]", 46),
-           "hymba-1.5b": ("flash_attention[hymba-1.5b]", 47)}
+           "hymba-1.5b": ("flash_attention[hymba-1.5b]", 47),
+           "paligemma-3b": ("flash_attention[paligemma-3b]", 49)}
 # K8 at the hymba-1.5b prefill (its mamba heads: 25 heads of 64 over the
 # d_model = 1600 channels, state 16) and the numpy seed of its inputs
 K8_ARCH, K8_SEED = "hymba-1.5b", 48
-K6_F32 = ("glm4-9b", "phi3-mini-3.8b")
+K6_F32 = ("glm4-9b", "phi3-mini-3.8b", "paligemma-3b")
+# the vlm whose whole prefill --lm-ran profiles, and the names of an
+# attention kernel of torch's (SDPA's flash, memory-efficient or cuDNN
+# kernels) that must not stand in for K6 there
+VLM_ARCH = "paligemma-3b"
+LIBRARY_ATTENTION = ("fmha", "flash_fwd", "attention", "cudnn", "sdpa",
+                     "efficient")
 # the README's 304-CU configuration on the one-row path (K3)
 WIDE_SIM = SIM.SimConfig(n_cu=304, n_wf=40, pallas_block_cu=38,
                          n_epochs=300)
@@ -547,17 +564,54 @@ def bound_ms(nb, ops, flop_rate=F32_FLOP_PER_S):
                                        else "operations")
 
 
-def attention_flops(B, S, H, hd, window=0):
+def attention_flops(B, S, H, hd, window=0, prefix=0):
     """Operations of causal attention: the two products over the kept
-    (query, key) pairs, 2 x hd each: S (S + 1) / 2 of them, or with a
-    sliding window of W keys W (W + 1) / 2 + (S - W) W."""
+    (query, key) pairs, 2 x hd each. Row i keeps the keys of its window,
+    max(0, i - W + 1) .. i with W the window or S, and the first
+    ``prefix`` keys besides: S (S + 1) / 2 pairs causal, W (W + 1) / 2 +
+    (S - W) W with a window, P^2 + (S (S + 1) - P (P + 1)) / 2 with a
+    prefix of P."""
     W = min(window, S) if window > 0 else S
-    return 4 * B * H * hd * (W * (W + 1) // 2 + (S - W) * W)
+    i = np.arange(S, dtype=np.int64)
+    lo = np.maximum(0, i - W + 1)
+    kept = (i - lo + 1) + np.minimum(prefix, lo) \
+        + np.maximum(0, prefix - 1 - i)
+    return 4 * B * H * hd * int(kept.sum())
 
 
 def k6_window(cfg):
     """The window K6 runs at in ``cfg``'s prefill (0: causal only)."""
     return cfg.window if cfg.attn_kind == "swa" else 0
+
+
+def k6_prefix(cfg):
+    """The prefix K6 runs at in ``cfg``'s prefill: the vision frontend's
+    patch embeddings (0: none)."""
+    return cfg.n_patches if cfg.frontend == "vision" else 0
+
+
+def k6_mask(cfg, S, dev):
+    """K6's mask at ``cfg``'s prefill as a boolean (S, S) tensor, (causal
+    & window) | prefix, for the library's attention."""
+    i = torch.arange(S, device=dev)
+    keep = i[None, :] <= i[:, None]
+    if k6_window(cfg):
+        keep = keep & (i[None, :] > i[:, None] - k6_window(cfg))
+    return keep | (i[None, :] < k6_prefix(cfg))
+
+
+def prefill_batch(cfg, B, S, seed, dev):
+    """A prefill's inputs at total length S from a numpy seed: S tokens,
+    or for the vision frontend ``n_patches`` bf16 patch embeddings and S -
+    n_patches tokens."""
+    rng = np.random.default_rng(seed)
+    n = k6_prefix(cfg)
+    batch = {"tokens": torch.as_tensor(
+        rng.integers(0, cfg.vocab, (B, S - n))).to(dev)}
+    if n:
+        batch["patch_embeds"] = torch.as_tensor(rng.standard_normal(
+            (B, n, cfg.d_model)).astype(np.float32)).to(dev, torch.bfloat16)
+    return batch
 
 
 def scan_flops(B, S, H, hd, N):
@@ -730,21 +784,29 @@ def device_ms(fn, what, reps=100):
 def lm_ran_child() -> int:
     """``--lm-ran``: what K6 (bf16, at every attention model's prefill),
     K7 (at the rwkv6-3b prefill) and K8 (at the hymba-1.5b prefill) run
-    on the card, from torch.profiler sessions of five calls each in this
-    fresh process (the library built by the parent); prints {row: {name:
-    records}}."""
+    on the card, from torch.profiler sessions of five calls each, and what
+    one bf16 paligemma-3b prefill at full width (batch 4, 256 patch
+    embeddings and 1792 tokens) runs, in this fresh process (the library
+    built by the parent); prints {row: {name: records}}."""
     dev = torch.device("cuda", 0)
     no_tf32()
     K.library()
     k6_in, k7_in, k8_in = lm_cases(dev, f32=False)
     out = {key: DT.kernel_counts(
-        lambda qkv=cases[torch.bfloat16], w=k6_window(cfg):
-        FA.flash_attention_bshd(*qkv, causal=True, window=w), 5)
+        lambda qkv=cases[torch.bfloat16], w=k6_window(cfg),
+        p=k6_prefix(cfg): FA.flash_attention_bshd(
+            *qkv, causal=True, window=w, prefix_len=p), 5)
         for key, (cfg, cases) in k6_in.items()}
     out["rwkv_chunked"] = DT.kernel_counts(
         lambda: RC.rwkv_chunked_bthd(*k7_in), 5)
     out["ssm_scan"] = DT.kernel_counts(
         lambda: SS.ssm_scan(*k8_in["prefill"]), 5)
+    del k6_in, k7_in, k8_in
+    cfg = get_config(VLM_ARCH)
+    params = LM.init_params(cfg, 0, dev)
+    batch = prefill_batch(cfg, SERVE_BATCH, SERVE_PROMPT, 10, dev)
+    out[f"{VLM_ARCH} prefill"] = DT.kernel_counts(
+        lambda: LM.prefill(params, cfg, batch), 1)
     print(json.dumps(out), flush=True)
     return 0
 
@@ -1005,6 +1067,12 @@ def main() -> int:
         if k8:
             print(f"  ssm_scan_kernel<hd {k8.group(1)}, N {k8.group(2)}>")
             continue
+        k6 = re.search(r"Function properties for .*?"
+                       r"flash_attention_kernel_wgmmaILi(\d+)ELb([01])E", line)
+        if k6:
+            print(f"  flash_attention_kernel_wgmma<hd {k6.group(1)}, "
+                  f"prefix {'yes' if k6.group(2) == '1' else 'no'}>")
+            continue
         fn = re.search(r"Function properties for .*?(epoch_pass_a|"
                        r"epoch_pass_b|"
                        r"epoch_epilogue|pc_table_\w+?_kernel|"
@@ -1036,6 +1104,17 @@ def main() -> int:
     ran = sorted(lm_ran.get("ssm_scan", {}))
     check(len(ran) == 1 and "ssm_scan_kernel" in ran[0],
           f"ssm_scan ran only K8's kernel: {ran}")
+    # a whole paligemma prefill: K6 (its bf16 kernel) once per layer, and
+    # no attention kernel of the library in its place
+    ran = lm_ran.get(f"{VLM_ARCH} prefill", {})
+    k6 = {n: c for n, c in ran.items() if "flash_attention_kernel" in n}
+    other = sorted(n for n in ran if n not in k6 and any(
+        t in n.lower() for t in LIBRARY_ATTENTION))
+    layers = get_config(VLM_ARCH).n_layers
+    check(len(k6) == 1 and "flash_attention_kernel_wgmma" in next(iter(k6))
+          and sum(k6.values()) == layers and not other,
+          f"{VLM_ARCH} prefill ran K6 once per layer ({layers}) and no "
+          f"other attention kernel: {k6}, others {other}")
 
     # ---- 2. kernels against their plain versions -------------------------
     rows = {}
@@ -1317,23 +1396,24 @@ def main() -> int:
     k6_in, k7_in, k8_in = lm_cases(dev)
     for key, (cfg, cases) in k6_in.items():
         k6_row = rows.setdefault(key, dict(max_abs_err=0.0))
-        w = k6_window(cfg)
+        w, pre = k6_window(cfg), k6_prefix(cfg)
         for dt, (q, k, v) in cases.items():
-            got = FA.flash_attention_bshd(q, k, v, causal=True, window=w)
+            got = FA.flash_attention_bshd(q, k, v, causal=True, window=w,
+                                          prefix_len=pre)
             want = FA.flash_attention_bshd_ref(q, k, v, causal=True,
-                                               window=w)
+                                               window=w, prefix_len=pre)
             torch.cuda.synchronize()
             rtol, atol = K6_TOL[dt]
             k6_row["max_abs_err"] = max(k6_row["max_abs_err"], compare(
                 f"{key}[{str(dt).split('.')[-1]}, B {SERVE_BATCH} S "
                 f"{SERVE_PROMPT} H {cfg.n_heads} Hkv {cfg.n_kv_heads} hd "
-                f"{cfg.resolved_head_dim} window {w}]", got.float(),
-                want.float(), rtol=rtol, atol=atol))
+                f"{cfg.resolved_head_dim} window {w} prefix {pre}]",
+                got.float(), want.float(), rtol=rtol, atol=atol))
             del got, want
         q, k, v = cases[torch.bfloat16]
         k6_row["nbytes"] = nbytes(q, k, v, q)
         k6_row["ops"] = attention_flops(SERVE_BATCH, SERVE_PROMPT,
-                                        q.shape[2], q.shape[3], w)
+                                        q.shape[2], q.shape[3], w, pre)
     k7_row = rows.setdefault("rwkv_chunked", dict(max_abs_err=0.0))
     got, S_got = RC.rwkv_chunked_bthd(*k7_in, return_state=True)
     want, S_want = RC.rwkv_chunked_bthd_ref(*k7_in, return_state=True)
@@ -1412,30 +1492,31 @@ def main() -> int:
     sdpa = torch.nn.functional.scaled_dot_product_attention
     for key, (cfg, cases) in k6_in.items():
         q, k, v = cases[torch.bfloat16]
-        w = k6_window(cfg)
+        w, pre = k6_window(cfg), k6_prefix(cfg)
         times[key] = (
-            lambda q=q, k=k, v=v, w=w: FA.flash_attention_bshd(
-                q, k, v, causal=True, window=w),
-            lambda q=q, k=k, v=v, w=w: FA.flash_attention_bshd_ref(
-                q, k, v, causal=True, window=w),
+            lambda q=q, k=k, v=v, w=w, pre=pre: FA.flash_attention_bshd(
+                q, k, v, causal=True, window=w, prefix_len=pre),
+            lambda q=q, k=k, v=v, w=w, pre=pre: FA.flash_attention_bshd_ref(
+                q, k, v, causal=True, window=w, prefix_len=pre),
             ("flash_attention_kernel_wgmma",))
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        # the library's causal attention; with a sliding window, its
-        # attention under the same band as a boolean mask
+        # the library's causal attention; with a sliding window or a
+        # prefix, its attention under K6's mask as a boolean tensor
         lib_kw = dict(is_causal=True)
-        if w:
-            i = torch.arange(SERVE_PROMPT, device=dev)
-            lib_kw = dict(attn_mask=(i[None, :] <= i[:, None])
-                          & (i[None, :] > i[:, None] - w))
+        if w or pre:
+            lib_kw = dict(attn_mask=k6_mask(cfg, SERVE_PROMPT, dev))
         rows[key]["library_ms"] = time_events(
             lambda: sdpa(qt, kt, vt, enable_gqa=True, **lib_kw),
             reps=50, warm=5)
         lib_err = (sdpa(qt, kt, vt, enable_gqa=True, **lib_kw)
                    .transpose(1, 2).float()
-                   - FA.flash_attention_bshd(q, k, v, window=w).float()
+                   - FA.flash_attention_bshd(q, k, v, window=w,
+                                             prefix_len=pre).float()
                    ).abs().max()
         print(f"library scaled_dot_product_attention (bf16, causal"
-              f"{f', window {w} as a mask' if w else ''}) at "
+              f"{f', window {w}' if w else ''}"
+              f"{f', prefix {pre}' if pre else ''}"
+              f"{' as a mask' if w or pre else ''}) at "
               f"{key}'s prefill: {rows[key]['library_ms'] * 1e3:.2f} us per "
               f"call, max |K6 - library| {float(lib_err):.3e} on {card}",
               flush=True)
@@ -1494,13 +1575,14 @@ def main() -> int:
               f"{card}", flush=True)
     # K6 in bf16 against its bound and the library, and in f32 (the
     # CUDA-core kernel) against the f32 rate's bound
-    for key, (_, cases) in k6_in.items():
+    for key, (cfg, cases) in k6_in.items():
         r = rows[key]
         f32_ms = None
         if torch.float32 in cases:
             qf, kf, vf = cases[torch.float32]
             f32_ms = device_ms(lambda: FA.flash_attention_bshd(
-                qf, kf, vf, causal=True), f"{key} f32", reps=10)
+                qf, kf, vf, causal=True, window=k6_window(cfg),
+                prefix_len=k6_prefix(cfg)), f"{key} f32", reps=10)
             f32_bound, _ = bound_ms(nbytes(qf, kf, vf, qf), r["ops"])
         if r["ms"] is not None:
             print(f"{key} bf16 (tensor cores): {r['ms'] * 1e3:.2f} us "
@@ -1849,7 +1931,7 @@ def main() -> int:
         check(rep["ed2p_norm"] == grid_rep[(1.0, "ed2p")]["ed2p_norm"],
               f"manager {arch}: report == its grid point")
 
-    # ---- 9. the LM serving path: K6 (dense, audio, moe, hybrid), K7
+    # ---- 9. the LM serving path: K6 (dense, audio, moe, hybrid, vlm), K7
     # (rwkv6-3b), K8 (hybrid) ----------------------------------------------
     for arch in SERVE_ARCHS:
         cfg = get_config(arch)
@@ -1933,10 +2015,15 @@ def main() -> int:
         # to 2e-2 and in bf16 to BF16_DECODE_TOL; 256 tokens, 4 for the moe
         # models (MOE_DECODE_S), whose prefill must drop no pair there. The
         # bf16 prefill in a batch of 4 against alone is printed beside it as
-        # a reading, not a limit.
+        # a reading, not a limit. A token decode cannot rebuild the vlm's
+        # bidirectional prefix of patch embeddings, so paligemma's check
+        # runs on the same weights with frontend "none": its text-only
+        # path, K6 at head dim 256 without a prefix (the prefix is held by
+        # its K6 row above and by the CPU tests against the reference).
         check_s = DECODE_S if cfg.moe is None else MOE_DECODE_S
         for dtype in ("bfloat16", "float32"):
-            dcfg = dataclasses.replace(cfg, dtype=dtype)
+            vcfg = dataclasses.replace(cfg, dtype=dtype)
+            dcfg = dataclasses.replace(vcfg, frontend="none")
             torch.cuda.empty_cache()
             params = LM.init_params(dcfg, 1, dev)
             toks = torch.as_tensor(np.random.default_rng(8).integers(
@@ -1982,18 +2069,18 @@ def main() -> int:
                       f"{float(full.abs().max()):.3f}, argmax "
                       f"{'agrees' if agree else 'differs'}")
                 del four
-                # where a prefill's and a decode step's device time goes,
-                # in the served dtype
-                ptoks = torch.as_tensor(np.random.default_rng(9).integers(
-                    0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT))).to(dev)
-                LM.prefill(params, dcfg, {"tokens": ptoks})
+                # where a prefill's (the vlm's with its patch embeddings)
+                # and a decode step's device time goes, in the served dtype
+                pbatch = prefill_batch(vcfg, SERVE_BATCH, SERVE_PROMPT, 9,
+                                       dev)
+                LM.prefill(params, vcfg, pbatch)
                 split = kernel_split(lambda: LM.prefill(
-                    params, dcfg, {"tokens": ptoks}))
+                    params, vcfg, pbatch))
                 dcache = LM.init_cache(dcfg, SERVE_BATCH,
                                        SERVE_PROMPT + gen,
                                        fill=SERVE_PROMPT, device=dev)
                 dsplit = kernel_split(lambda: LM.decode_step(
-                    params, dcfg, dcache, ptoks[:, 0]), reps=8)
+                    params, dcfg, dcache, pbatch["tokens"][:, 0]), reps=8)
                 del dcache
                 for what, sp in (("prefill", split),
                                  ("decode step", dsplit)):

@@ -48,12 +48,12 @@ B, S, H, HKV, HD = 4, 2048, 32, 2, 128
 # variant -> (old, new) text replacements in flash_attention.cu
 VARIANTS = {
     "shipped": [],
-    "p_once": [("      wgmma_rs_n128(acc, lo[kk], dv);\n", ""),
+    "p_once": [("      wgmma_rs_n128<0>(acc, lo[kk], dv);\n", ""),
                ("      wgmma_rs_n64(acc, lo[kk], dv);\n", "")],
     "no_exp": [("expf(s[e] - ((e & 2) ? mn1 : mn0))",
                 "(s[e] - ((e & 2) ? mn1 : mn0))")],
-    "no_pv": [("      wgmma_rs_n128(acc, hi[kk], dv);\n"
-               "      wgmma_rs_n128(acc, lo[kk], dv);\n", "")],
+    "no_pv": [("      wgmma_rs_n128<0>(acc, hi[kk], dv);\n"
+               "      wgmma_rs_n128<0>(acc, lo[kk], dv);\n", "")],
     "no_qk": [("    if (kk == 0)\n      wgmma_ss_n64_first(s, da, db);\n"
                "    else\n      wgmma_ss_n64_acc(s, da, db);\n",
                "    if (kk == 0)\n"
@@ -73,7 +73,7 @@ _STAMP = ("if ((threadIdx.x & 127) == 0 && blockIdx.x < {n} && {{jj}} < {b}) "
           "clock64();").format(n=NCTA, b=NBLK, p=NPT)
 
 
-def _stamp(k, jj="j - jb0"):
+def _stamp(k, jj="j"):
     return _STAMP.format(k=k, jj=jj)
 
 
@@ -84,20 +84,21 @@ VARIANTS["trace"] = [
     ("  mbar_wait(bar_q, 0);\n",
      "  " + _stamp(7, "0") + "\n  mbar_wait(bar_q, 0);\n  " + _stamp(6, "0")
      + "\n"),
-    ("  for (int j = jb0; j < jb1; ++j, c += nsub) {\n    for (int i = 0;",
-     "  for (int j = jb0; j < jb1; ++j, c += nsub) {\n    " + _stamp(5)
-     + "\n    for (int i = 0;"),
-    ("    if (nsub > 2) {\n",
-     "    " + _stamp(0) + "\n    if (nsub > 2) {\n"),
+    ("  for (int j = 0; j < jb1; ++j) {\n    if (keys_dead(",
+     "  for (int j = 0; j < jb1; ++j) {\n    " + _stamp(5)
+     + "\n    if (keys_dead("),
+    ("    if (nsub == 1)\n",
+     "    " + _stamp(0) + "\n    if (nsub == 1)\n"),
     ("    if constexpr (N == 2) fence_regs(s1);\n",
      "    if constexpr (N == 2) fence_regs(s1);\n    " + _stamp(1) + "\n"),
     ("    rescale(acc, m0, m1, l0, l1, mb0, mb1);\n    float ls0 = 0.f, "
-     "ls1 = 0.f;\n    uint32_t hi0",
+     "ls1 = 0.f;\n    exponentiate(s0, t0",
      "    rescale(acc, m0, m1, l0, l1, mb0, mb1);\n    " + _stamp(2)
-     + "\n    float ls0 = 0.f, ls1 = 0.f;\n    uint32_t hi0"),
-    ("    mbar_wait(full_v + 8 * (c % kStages), parity(c));\n",
-     "    " + _stamp(3) + "\n"
-     "    mbar_wait(full_v + 8 * (c % kStages), parity(c));\n"),
+     + "\n    float ls0 = 0.f, ls1 = 0.f;\n    exponentiate(s0, t0"),
+    ("      split_p(s0, hi0, lo0);\n"
+     "      mbar_wait(full_v + 8 * (c % kStages), parity(c));\n",
+     "      split_p(s0, hi0, lo0);\n      " + _stamp(3) + "\n"
+     "      mbar_wait(full_v + 8 * (c % kStages), parity(c));\n"),
     ("    wgmma_wait<0>();\n    fence_regs(acc);\n#pragma unroll\n"
      "    for (int i = 0; i < N; ++i) release(empty_v, c + i);\n",
      "    wgmma_wait<0>();\n    fence_regs(acc);\n    " + _stamp(4)
@@ -195,7 +196,7 @@ def main() -> int:
             out = torch.empty_like(q)
             code = libs[name](q.data_ptr(), k.data_ptr(), v.data_ptr(),
                               out.data_ptr(), B, S, H, HKV, HD, 128, 1, 0,
-                              1, stream)
+                              0, 1, stream)
             if code:
                 raise RuntimeError(f"{name}: cuda error {code}")
             return out

@@ -15,9 +15,10 @@ The LM model zoo's prefill and decode (``ops.py`` holds the reference's
 public wrappers):
 
 * ``flash_attention.flash_attention_bshd`` — K6, online-softmax attention
-  with causal and sliding-window masks over grouped KV heads
-  (``csrc/flash_attention.cu``): bf16 on the tensor cores (``wgmma``,
-  TMA-staged K/V, p split into two bf16 terms), f32 on the CUDA cores;
+  with causal, sliding-window and prefix-LM masks over grouped KV heads at
+  head dims 16, 32, 64, 96, 128 and 256 (``csrc/flash_attention.cu``):
+  bf16 on the tensor cores (``wgmma``, TMA-staged K/V, p split into two
+  bf16 terms), f32 on the CUDA cores;
 * ``rwkv_chunk.rwkv_chunked_bthd`` — K7, the chunked RWKV6 WKV
   (``csrc/rwkv_chunk.cu``): persistent CTAs walk the (batch, head,
   chunk) tiles, the state carried from chunk to chunk through a chain of
@@ -69,7 +70,7 @@ SIGNATURES = {
                                + [_VP] * 2),
     "epoch_fused_launch": (_CI, [_VP, _VP]),
     "epoch_fused_cta_width": (_CI, [_CI] * 3),
-    "flash_attention_launch": (_CI, [_VP] * 4 + [_CI] * 9 + [_VP]),
+    "flash_attention_launch": (_CI, [_VP] * 4 + [_CI] * 10 + [_VP]),
     "rwkv_chunk_launch": (_CI, [_VP] * 8 + [_CI] * 7 + [_VP]),
     "ssm_scan_launch": (_CI, [_VP] * 8 + [_CI] * 5 + [_VP]),
     "repro_error_string": (ctypes.c_char_p, [_CI]),

@@ -9,7 +9,11 @@
 // the product), masked to -1e30; m_new = max(m, the block's row max);
 // p = exp(s - m_new) zeroed where masked; alpha = exp(max(m - m_new, -80));
 // l = l alpha + sum p; acc = acc alpha + p V; at the end acc / max(l,
-// 1e-20) in q's dtype (round to nearest). A key block that the mask
+// 1e-20) in q's dtype (round to nearest). The mask is the reference's
+// (causal & window) | prefix: with a prefix (prefix-LM, the vision
+// frontend's patch embeddings) every row also sees the first `prefix`
+// keys, so a tile's key range reaches the prefix's last key whatever its
+// rows and starts at key 0 whatever the window. A key block that the mask
 // removes for every row a tile holds is skipped: there the reference's
 // step leaves m, l and acc exactly as they were (so does a 64-key
 // sub-tile of the bf16 kernel's that the mask removes: skipped in a block
@@ -20,35 +24,42 @@
 // Bound on this card: at the glm4-9b prefill (B 4, S 2048, H 32, Hkv 2,
 // hd 128, causal) the two products are ~137.5 GFLOP, ~139 us at the
 // tensor cores' bf16 rate and ~2.05 ms at the f32 rate outside them; the
-// bytes (q, k, v read once, o written once) take ~43 us. Both kernels
-// are bound by the operations.
+// bytes (q, k, v read once, o written once) take ~43 us. At the
+// paligemma-3b prefill (H 8, Hkv 1, hd 256, prefix 256) the kept pairs
+// give ~69.8 GFLOP, ~70.6 us at the bf16 rate, against ~22.5 us of bytes.
+// Both kernels are bound by the operations.
 //
 // bf16: flash_attention_kernel_wgmma, on the tensor cores. One CTA of
 // three warpgroups per (128 query rows, head, batch row), launched with
 // the query tiles that walk the most key blocks first (a causal prefill's
 // long tiles do not form the tail). Warpgroup 2 gives up its registers
 // (setmaxnreg 24) and one of its threads issues every load: Q once, then
-// K and V in sub-tiles of 64 keys through two 4-stage rings, each a TMA
-// copy (cp.async.bulk.tensor, 128-byte swizzle, 64-column panels) that
-// completes on an mbarrier; each consumer warp releases a stage on
-// another. Warpgroups 0 and 1 (setmaxnreg 240) own 64 query rows each:
+// K and V in sub-tiles of 64 keys through two rings of 4 stages (2 at head
+// dim 256, where Q's 64 KB and four 32 KB sub-tiles a ring would pass the
+// 227 KB a CTA may hold: a key block is then at most 128 keys), each a TMA
+// copy (cp.async.bulk.tensor, 128-byte swizzle, 64-column panels: four at
+// head dim 256) that completes on an mbarrier; each consumer warp
+// releases a stage on another. Warpgroups 0 and 1 (setmaxnreg 240) own 64
+// query rows each:
 //   scores  wgmma m64n64k16 bf16 x bf16 -> f32, Q and the K sub-tile both
 //           from shared memory (K-major, hd contiguous), hd / 16 k-steps
 //           per sub-tile; a block of up to 128 keys (the model's) keeps
 //           both sub-tiles' scores in registers until its max is known; a
-//           wider block (up to 256 keys, 4 sub-tiles, all in the K ring)
-//           takes its max over every sub-tile first and computes each
-//           sub-tile's scores again for p, since a 64 x 256 f32 score tile
-//           beside the 64 x 128 accumulator spills;
+//           wider block (up to 256 keys, 4 sub-tiles, all in the K ring),
+//           and at head dim 256 a block of two sub-tiles, takes its max
+//           over every sub-tile first and computes each sub-tile's scores
+//           again for p, since its f32 score tile beside the accumulator
+//           (64 x 128, or 64 x 256: 128 registers a thread) spills;
 //   softmax on the accumulator fragment: a row lives on the 4 threads of
 //           a quad, so its max and sum take two __shfl_xor_sync steps;
 //   p V     wgmma m64nHDk16 with A = p from registers and B = the V
 //           sub-tile from shared memory in its (key, hd) layout, which is
-//           MN-major (the transpose bit). p is split as p_hi = bf16(p),
-//           p_lo = bf16(p - p_hi), and both products go into the same f32
-//           accumulator: p keeps 16 of f32's 24 significand bits (2^-17
-//           relative) where one bf16 rounding keeps 8 (2^-9), so the
-//           result stays within one bf16 ulp of the f32 reference; the
+//           MN-major (the transpose bit); at head dim 256 two m64n128k16
+//           products, one per half of the columns. p is split as p_hi =
+//           bf16(p), p_lo = bf16(p - p_hi), and both products go into the
+//           same f32 accumulator: p keeps 16 of f32's 24 significand bits
+//           (2^-17 relative) where one bf16 rounding keeps 8 (2^-9), so
+//           the result stays within one bf16 ulp of the f32 reference; the
 //           split costs half again the tensor work of an unsplit p V.
 //           Sub-tile 1's exponentials run while sub-tile 0's p V does.
 // Each consumer warp hands a K stage back once its scores are done and a V
@@ -64,7 +75,9 @@
 // dims 16, 32 and 96 fill their last panel with zeros past hd (nothing of
 // the next head is read), the scores take hd / 16 k-steps, and the p V
 // columns past hd come out zero and are not stored. Head dim 96 runs p V
-// at n = 128, a third more tensor work than its 96 columns need.
+// at n = 128, a third more tensor work than its 96 columns need. The
+// kernel is instantiated for head dims 16, 32, 64, 96, 128 and 256, each
+// without and with a prefix.
 //
 // f32: flash_attention_kernel, on the CUDA cores. The tensor cores would
 // take f32 only as TF32 (10 significand bits), which the port does not use.
@@ -75,12 +88,14 @@
 //   scores   each thread a 4 x 4 register tile of the 64 x 64 sub-tile,
 //            dot over hd, then x scale, into the block's score tile;
 //   softmax  4 threads per query row, the reference's step above, acc the
-//            row's hd / 4 columns.
+//            row's hd / 4 columns (64 floats at head dim 256).
 // Shared-memory rows are padded to hd + 1 floats so the column-strided
 // reads fall in distinct banks.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <climits>
 
 #include <type_traits>
 
@@ -92,12 +107,36 @@ constexpr int kMaxBlkK = 256;
 constexpr int kMaxSmem = 232448;
 constexpr float kNegInf = -1e30f;
 
+// The mask: query row `row` keeps key `col` where the causal and the
+// window conditions hold, or where the key lies in the prefix (prefix-LM:
+// every row sees the first `prefix` keys), in the reference's order
+// (causal & window) | prefix. The mask travels as three ints, as the
+// kernels take it: a struct of them made the bf16 kernel slower (the
+// compiler rereads its fields inside the loops).
 __device__ __forceinline__ bool keep(int row, int col, int causal,
-                                     int window) {
+                                     int window, int prefix) {
   bool k = true;
   if (causal) k = k && (col <= row);
   if (window > 0) k = k && (col > row - window);
-  return k;
+  return k || col < prefix;
+}
+
+// no key of [k0, k1) is kept for any row of [r0, r1] (with a window and
+// causal, a range this lets through may still keep nothing: its p is 0)
+__device__ __forceinline__ bool keys_dead(int k0, int k1, int r0, int r1,
+                                          int causal, int window,
+                                          int prefix) {
+  if (k0 < prefix) return false;
+  return (causal && k0 > r1) || (window > 0 && k1 - 1 <= r0 - window);
+}
+
+// every key of [k0, k1) is kept for every row of [r0, r1]
+__device__ __forceinline__ bool keys_whole(int k0, int k1, int r0, int r1,
+                                           int causal, int window,
+                                           int prefix) {
+  if (k1 - 1 < prefix) return true;
+  const int lo = max(k0, prefix);  // the first key past the prefix
+  return !(causal && k1 - 1 > r0) && !(window > 0 && lo <= r1 - window);
 }
 
 // ---------------------------------------------------------------------------
@@ -108,11 +147,13 @@ constexpr int kQT = 64;       // query rows per CTA
 constexpr int kKT = 64;       // keys per staged sub-tile
 constexpr int kThreads = 256;
 
+// (kThreads, 1): ptxas may take the registers it needs (at most 146, at
+// head dim 256) rather than spill to keep more CTAs on an SM
 template <int HD>
-__global__ void __launch_bounds__(kThreads) flash_attention_kernel(
+__global__ void __launch_bounds__(kThreads, 1) flash_attention_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, float* __restrict__ o, int S, int H,
-    int Hkv, int BK, int causal, int window, float scale) {
+    int Hkv, int BK, int causal, int window, int prefix, float scale) {
   extern __shared__ float smem[];
   constexpr int LD = HD + 1;
   constexpr int ND = HD / 4;
@@ -150,8 +191,9 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
 
   const int q_last = min(q0 + kQT, S) - 1;
   for (int k0 = 0; k0 < S; k0 += BK) {
-    if (causal && k0 > q_last) break;
-    if (window > 0 && k0 + BK - 1 <= q0 - window) continue;
+    if (causal && k0 > max(q_last, prefix - 1)) break;
+    if (keys_dead(k0, k0 + BK, q0, q_last, causal, window, prefix))
+      continue;
     for (int t0 = 0; t0 < BK; t0 += kKT) {
       const int nk = min(kKT, BK - t0);
       __syncthreads();
@@ -189,7 +231,8 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
     float* srow = sS + pr * LS;
     float mb = kNegInf;
     for (int c = ps; c < BK; c += 4) {
-      const float s = keep(qrow, k0 + c, causal, window) ? srow[c] : kNegInf;
+      const bool kept = keep(qrow, k0 + c, causal, window, prefix);
+      const float s = kept ? srow[c] : kNegInf;
       srow[c] = s;
       mb = fmaxf(mb, s);
     }
@@ -198,8 +241,8 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
     const float m_new = fmaxf(m, mb);
     float ls = 0.f;
     for (int c = ps; c < BK; c += 4) {
-      const float p =
-          keep(qrow, k0 + c, causal, window) ? expf(srow[c] - m_new) : 0.f;
+      const bool kept = keep(qrow, k0 + c, causal, window, prefix);
+      const float p = kept ? expf(srow[c] - m_new) : 0.f;
       srow[c] = p;
       ls += p;
     }
@@ -237,7 +280,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
 template <int HD>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
                int S, int H, int Hkv, int blk_k, int causal, int window,
-               cudaStream_t stream) {
+               int prefix, cudaStream_t stream) {
   const size_t bytes =
       sizeof(float) * ((size_t)(kQT + kKT) * (HD + 1) +
                        (size_t)kQT * (blk_k + 1));
@@ -250,7 +293,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid((S + kQT - 1) / kQT, H, B);
   kern<<<grid, kThreads, bytes, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o, S, H,
-      Hkv, blk_k, causal, window, scale);
+      Hkv, blk_k, causal, window, prefix, scale);
   return (int)cudaGetLastError();
 }
 
@@ -262,7 +305,6 @@ namespace tc {
 
 constexpr int kRows = 128;     // query rows per CTA: 2 consumer warpgroups
 constexpr int kKeys = 64;      // keys per staged K/V sub-tile
-constexpr int kStages = 4;     // stages of each ring: a 256-key block
 constexpr int kThreads = 384;  // warpgroups 0-1 consume, 2 loads
 constexpr int kPanel = 64;     // bf16 columns of one 128-byte panel
 constexpr int kEmptyArrivals = 8;  // one per consumer warp
@@ -429,10 +471,14 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
 }
 
 // D (64 x 128, f32) += A (64 x 16, bf16 in registers) . B (16 x 128,
-// shared, MN-major: the transpose bit)
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+// shared, MN-major: the transpose bit), D the accumulator's registers
+// OFF..OFF+63 (OFF 64: columns 128-255 of a 256-column accumulator, whose
+// fragment is two 128-column ones side by side)
+template <int OFF, int N>
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[N],
                                              const uint32_t (&a)[4],
                                              uint64_t db) {
+  static_assert(OFF + 64 <= N, "accumulator too short");
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
@@ -445,36 +491,45 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       " %48, %49, %50, %51, %52, %53, %54, %55,"
       " %56, %57, %58, %59, %60, %61, %62, %63}, "
       "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "+f"(d[OFF+0]), "+f"(d[OFF+1]), "+f"(d[OFF+2]), "+f"(d[OFF+3]),
+        "+f"(d[OFF+4]), "+f"(d[OFF+5]), "+f"(d[OFF+6]), "+f"(d[OFF+7]),
+        "+f"(d[OFF+8]), "+f"(d[OFF+9]), "+f"(d[OFF+10]), "+f"(d[OFF+11]),
+        "+f"(d[OFF+12]), "+f"(d[OFF+13]), "+f"(d[OFF+14]), "+f"(d[OFF+15]),
+        "+f"(d[OFF+16]), "+f"(d[OFF+17]), "+f"(d[OFF+18]), "+f"(d[OFF+19]),
+        "+f"(d[OFF+20]), "+f"(d[OFF+21]), "+f"(d[OFF+22]), "+f"(d[OFF+23]),
+        "+f"(d[OFF+24]), "+f"(d[OFF+25]), "+f"(d[OFF+26]), "+f"(d[OFF+27]),
+        "+f"(d[OFF+28]), "+f"(d[OFF+29]), "+f"(d[OFF+30]), "+f"(d[OFF+31]),
+        "+f"(d[OFF+32]), "+f"(d[OFF+33]), "+f"(d[OFF+34]), "+f"(d[OFF+35]),
+        "+f"(d[OFF+36]), "+f"(d[OFF+37]), "+f"(d[OFF+38]), "+f"(d[OFF+39]),
+        "+f"(d[OFF+40]), "+f"(d[OFF+41]), "+f"(d[OFF+42]), "+f"(d[OFF+43]),
+        "+f"(d[OFF+44]), "+f"(d[OFF+45]), "+f"(d[OFF+46]), "+f"(d[OFF+47]),
+        "+f"(d[OFF+48]), "+f"(d[OFF+49]), "+f"(d[OFF+50]), "+f"(d[OFF+51]),
+        "+f"(d[OFF+52]), "+f"(d[OFF+53]), "+f"(d[OFF+54]), "+f"(d[OFF+55]),
+        "+f"(d[OFF+56]), "+f"(d[OFF+57]), "+f"(d[OFF+58]), "+f"(d[OFF+59]),
+        "+f"(d[OFF+60]), "+f"(d[OFF+61]), "+f"(d[OFF+62]), "+f"(d[OFF+63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
         "r"(1));
 }
 
 // query row `row` keeps key `col` of a block that ends at `kend`
 __device__ __forceinline__ bool keep_key(int row, int col, int kend,
-                                         int causal, int window) {
-  return col < kend && keep(row, col, causal, window);
+                                         int causal, int window, int prefix) {
+  return col < kend && keep(row, col, causal, window, prefix);
 }
 
 template <int HD>
 struct Tile {
-  static constexpr int NP = HD > kPanel ? 2 : 1;  // 64-column panels
-  static constexpr int HDP = NP * kPanel;         // columns p V computes
+  // 64-column panels (head dims 96 and 128 pad to two, 256 is four)
+  static constexpr int NP = (HD + kPanel - 1) / kPanel;
+  static constexpr int HDP = NP * kPanel;  // columns p V computes
+  // stages of each ring: four (a 256-key block) up to head dim 128; two
+  // (a 128-key block) at 256, where Q (64 KB) and two rings of four
+  // 32 KB sub-tiles would pass the 227 KB a CTA may hold
+  static constexpr int kStages = HD > 128 ? 2 : 4;
+  // a block's scores in registers, one sub-tile (64 x 64 f32: 32 a
+  // thread) for each of its sub-tiles; at head dim 256 the 64 x 256
+  // accumulator (128 a thread) leaves room for one
+  static constexpr int kScoreTiles = HD > 128 ? 1 : 2;
   static constexpr uint32_t kQPanel = kRows * 128;
   static constexpr uint32_t kKVPanel = kKeys * 128;
   static constexpr uint32_t kKV = NP * kKVPanel;  // one K or V sub-tile
@@ -482,6 +537,7 @@ struct Tile {
   // + 1024 to align the base; barriers: full K, empty K, full V, empty V
   // rings, then Q's
   static constexpr uint32_t kSmem = 1024 + kBars + 8 * (4 * kStages + 1);
+  static_assert(kSmem <= (uint32_t)kMaxSmem, "shared memory");
 };
 
 // Where a 64-key sub-tile of a key block stands for a warpgroup's rows:
@@ -493,16 +549,16 @@ struct Sub {
 };
 
 __device__ __forceinline__ Sub sub_tile(int k0, int kend, int i, int qlo,
-                                        int qhi, bool rows_live, int causal,
-                                        int window) {
+                                        int qhi, bool rows_live,
+                                        int causal, int window, int prefix) {
   Sub t;
   t.kb = k0 + i * kKeys;
   t.kend = kend;
   const int ke = min(t.kb + kKeys, kend);
-  t.live = rows_live && !(causal && t.kb > qhi) &&
-           !(window > 0 && ke - 1 <= qlo - window);
-  t.whole = ke == t.kb + kKeys && !(causal && ke - 1 > qlo) &&
-            !(window > 0 && t.kb <= qhi - window);
+  t.live =
+      rows_live && !keys_dead(t.kb, ke, qlo, qhi, causal, window, prefix);
+  t.whole = ke == t.kb + kKeys &&
+            keys_whole(t.kb, ke, qlo, qhi, causal, window, prefix);
   return t;
 }
 
@@ -542,15 +598,16 @@ __device__ __forceinline__ void issue_qk(float (&s)[32], uint32_t q_base,
 // way the code is straight-line, with no branch per element.
 __device__ __forceinline__ void scale_mask(float (&s)[32], const Sub& t,
                                            const Frag& f, int causal,
-                                           int window, float scale,
-                                           float& mb0, float& mb1) {
+                                           int window, int prefix,
+                                           float scale, float& mb0,
+                                           float& mb1) {
 #pragma unroll
   for (int e = 0; e < 32; ++e) s[e] = s[e] * scale;
   if (!(t.live && t.whole)) {
 #pragma unroll
     for (int e = 0; e < 32; ++e) {
       const bool kept = t.live && keep_key(f.row(e), t.kb + f.col(e),
-                                           t.kend, causal, window);
+                                           t.kend, causal, window, prefix);
       s[e] = kept ? s[e] : kNegInf;
     }
   }
@@ -568,9 +625,9 @@ __device__ __forceinline__ void scale_mask(float (&s)[32], const Sub& t,
 // masked -1e30 is 0 or, in a row with nothing kept yet, 1, and is dropped).
 __device__ __forceinline__ void exponentiate(float (&s)[32], const Sub& t,
                                              const Frag& f, int causal,
-                                             int window, float mn0,
-                                             float mn1, float& ls0,
-                                             float& ls1) {
+                                             int window, int prefix,
+                                             float mn0, float mn1,
+                                             float& ls0, float& ls1) {
   const bool whole = t.live && t.whole;
 #pragma unroll
   for (int e = 0; e < 32; ++e) {
@@ -581,7 +638,7 @@ __device__ __forceinline__ void exponentiate(float (&s)[32], const Sub& t,
 #pragma unroll
     for (int e = 0; e < 32; ++e) {
       const bool kept = t.live && keep_key(f.row(e), t.kb + f.col(e),
-                                           t.kend, causal, window);
+                                           t.kend, causal, window, prefix);
       s[e] = kept ? s[e] : 0.f;
     }
   }
@@ -594,23 +651,28 @@ __device__ __forceinline__ void exponentiate(float (&s)[32], const Sub& t,
   }
 }
 
-// p as two bf16 A fragments, p_hi = bf16(p) and p_lo = bf16(p - p_hi):
-// the accumulator's (row, 2 columns) pairs are the A fragment's, and
-// k-step kk takes column groups 2 kk and 2 kk + 1
+// k-step kk of p as two bf16 A fragments, p_hi = bf16(p) and p_lo =
+// bf16(p - p_hi): the accumulator's (row, 2 columns) pairs are the A
+// fragment's, and k-step kk takes column groups 2 kk and 2 kk + 1
+__device__ __forceinline__ void split_step(const float (&s)[32], int kk,
+                                           uint32_t (&hi)[4],
+                                           uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    // r: (row0, group 2kk), (row1, 2kk), (row0, 2kk+1), (row1, 2kk+1)
+    const int e = 4 * (2 * kk + (r >> 1)) + 2 * (r & 1);
+    const __nv_bfloat162 h2 = __floats2bfloat162_rn(s[e], s[e + 1]);
+    hi[r] = *reinterpret_cast<const uint32_t*>(&h2);
+    lo[r] = pack_bf16(s[e] - __low2float(h2), s[e + 1] - __high2float(h2));
+  }
+}
+
+// every k-step of p as p_hi / p_lo fragments
 __device__ __forceinline__ void split_p(const float (&s)[32],
                                         uint32_t (&hi)[4][4],
                                         uint32_t (&lo)[4][4]) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      // r: (row0, group 2kk), (row1, 2kk), (row0, 2kk+1), (row1, 2kk+1)
-      const int e = 4 * (2 * kk + (r >> 1)) + 2 * (r & 1);
-      const __nv_bfloat162 h2 = __floats2bfloat162_rn(s[e], s[e + 1]);
-      hi[kk][r] = *reinterpret_cast<const uint32_t*>(&h2);
-      lo[kk][r] = pack_bf16(s[e] - __low2float(h2), s[e + 1] -
-                                                        __high2float(h2));
-    }
+  for (int kk = 0; kk < 4; ++kk) split_step(s, kk, hi[kk], lo[kk]);
 }
 
 // issue acc += p_hi V + p_lo V for one sub-tile: 16 keys (rows of 128
@@ -626,12 +688,42 @@ __device__ __forceinline__ void issue_pv(float (&acc)[NA],
   for (int kk = 0; kk < 4; ++kk) {
     const uint64_t dv = sw128_desc(vt + kk * 16 * 128, panel, 1024);
     if constexpr (NA == 64) {
-      wgmma_rs_n128(acc, hi[kk], dv);
-      wgmma_rs_n128(acc, lo[kk], dv);
+      wgmma_rs_n128<0>(acc, hi[kk], dv);
+      wgmma_rs_n128<0>(acc, lo[kk], dv);
     } else {
       wgmma_rs_n64(acc, hi[kk], dv);
       wgmma_rs_n64(acc, lo[kk], dv);
     }
+  }
+}
+
+// acc (64 x 256) += p_hi V + p_lo V for one sub-tile at head dim 256,
+// from p in f32 (fenced, issued and waited here). 256 columns are two
+// n = 128 products, the second from V's third panel into the
+// accumulator's second half (its fragment is two 128-column ones side by
+// side). Each k-step's fragments are split just before its four products
+// and retired with them, so 8 fragment registers, not 32, stand beside
+// the 128-float accumulator and p (with all 32, a consumer thread needs
+// more than its 240).
+__device__ __forceinline__ void pv_256(float (&acc)[128],
+                                       const float (&s)[32], uint32_t vt,
+                                       uint32_t panel) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    uint32_t hi[4], lo[4];
+    split_step(s, kk, hi, lo);
+    const uint64_t dv0 = sw128_desc(vt + kk * 16 * 128, panel, 1024);
+    const uint64_t dv1 =
+        sw128_desc(vt + 2 * panel + kk * 16 * 128, panel, 1024);
+    fence_regs(acc);
+    wgmma_fence();
+    wgmma_rs_n128<0>(acc, hi, dv0);
+    wgmma_rs_n128<64>(acc, hi, dv1);
+    wgmma_rs_n128<0>(acc, lo, dv0);
+    wgmma_rs_n128<64>(acc, lo, dv1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
   }
 }
 
@@ -664,17 +756,18 @@ __device__ __forceinline__ void rescale(float (&acc)[NA], float& m0,
 }
 
 // One consumer warpgroup's whole life: its 64 query rows over the key
-// blocks jb0..jb1-1, each of nsub sub-tiles taken from the rings in the
-// order the producer fills them.
+// blocks below jb1 that the tile does not skip, each of nsub sub-tiles
+// taken from the rings in the order the producer fills them.
 template <int HD>
 __device__ __forceinline__ void consume(
     uint32_t sQ, uint32_t sK, uint32_t sV, uint32_t full_k,
     uint32_t empty_k, uint32_t full_v, uint32_t empty_v, uint32_t bar_q,
     __nv_bfloat16* __restrict__ o, int S, int H, int BK, int causal,
-    int window, float scale, int h, int b, int q0, int jb0, int jb1,
-    int nsub) {
+    int window, int prefix, float scale, int h, int b, int q0, int q_last,
+    int jb1, int nsub) {
   using T = Tile<HD>;
   constexpr int NA = T::HDP / 2;  // accumulator floats per thread
+  constexpr int kStages = T::kStages;
   const int g = warpgroup();
   const int w = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
   const int qlo = q0 + 64 * g;
@@ -698,7 +791,7 @@ __device__ __forceinline__ void consume(
   };
   auto sub = [&](int j, int i) {
     return sub_tile(j * BK, j * BK + BK, i, qlo, qhi, rows_live, causal,
-                    window);
+                    window, prefix);
   };
 
   // A block of one or two sub-tiles (up to 128 keys, the model's) keeps its
@@ -729,22 +822,27 @@ __device__ __forceinline__ void consume(
 #pragma unroll
     for (int i = 0; i < N; ++i) release(empty_k, c + i);
     float mb0 = kNegInf, mb1 = kNegInf;
-    scale_mask(s0, t0, f, causal, window, scale, mb0, mb1);
+    scale_mask(s0, t0, f, causal, window, prefix, scale, mb0, mb1);
     if constexpr (N == 2)
-      scale_mask(s1, t1, f, causal, window, scale, mb0, mb1);
+      scale_mask(s1, t1, f, causal, window, prefix, scale, mb0, mb1);
     rescale(acc, m0, m1, l0, l1, mb0, mb1);
     float ls0 = 0.f, ls1 = 0.f;
-    uint32_t hi0[4][4], lo0[4][4];
-    exponentiate(s0, t0, f, causal, window, m0, m1, ls0, ls1);
-    split_p(s0, hi0, lo0);
-    mbar_wait(full_v + 8 * (c % kStages), parity(c));
-    fence_regs(acc);
-    wgmma_fence();
-    issue_pv(acc, hi0, lo0, vslot(c), T::kKVPanel);
-    wgmma_commit();
+    exponentiate(s0, t0, f, causal, window, prefix, m0, m1, ls0, ls1);
+    if constexpr (NA == 128) {
+      mbar_wait(full_v + 8 * (c % kStages), parity(c));
+      pv_256(acc, s0, vslot(c), T::kKVPanel);
+    } else {
+      uint32_t hi0[4][4], lo0[4][4];
+      split_p(s0, hi0, lo0);
+      mbar_wait(full_v + 8 * (c % kStages), parity(c));
+      fence_regs(acc);
+      wgmma_fence();
+      issue_pv(acc, hi0, lo0, vslot(c), T::kKVPanel);
+      wgmma_commit();
+    }
     if constexpr (N == 2) {
       uint32_t hi1[4][4], lo1[4][4];
-      exponentiate(s1, t1, f, causal, window, m0, m1, ls0, ls1);
+      exponentiate(s1, t1, f, causal, window, prefix, m0, m1, ls0, ls1);
       split_p(s1, hi1, lo1);
       mbar_wait(full_v + 8 * ((c + 1) % kStages), parity(c + 1));
       wgmma_fence();
@@ -759,10 +857,11 @@ __device__ __forceinline__ void consume(
     for (int i = 0; i < N; ++i) release(empty_v, c + i);
   };
 
-  // A wider block (up to 256 keys, 4 sub-tiles, all in the K ring): its max
-  // over every sub-tile first, then each sub-tile's scores again for p and
-  // p V, since a 64 x 256 f32 score tile beside the accumulator spills.
-  // Sub-tiles the mask removes are skipped.
+  // A block of more sub-tiles than the registers hold scores for (up to
+  // 256 keys, 4 sub-tiles, below head dim 256; 128 keys, 2, at 256), all
+  // in the K ring: its max over every sub-tile first, then each sub-tile's
+  // scores again for p and p V, since the block's f32 score tile beside
+  // the accumulator spills. Sub-tiles the mask removes are skipped.
   auto two_pass = [&](int j, int c) {
     float s0[32];  // one sub-tile's scores, then p
     float mb0 = kNegInf, mb1 = kNegInf;
@@ -776,7 +875,7 @@ __device__ __forceinline__ void consume(
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(s0);
-      scale_mask(s0, t, f, causal, window, scale, mb0, mb1);
+      scale_mask(s0, t, f, causal, window, prefix, scale, mb0, mb1);
     }
     if (any) rescale(acc, m0, m1, l0, l1, mb0, mb1);
     float ls0 = 0.f, ls1 = 0.f;
@@ -790,19 +889,24 @@ __device__ __forceinline__ void consume(
         wgmma_wait<0>();
         fence_regs(s0);
         float unused0 = kNegInf, unused1 = kNegInf;
-        scale_mask(s0, t, f, causal, window, scale, unused0, unused1);
-        exponentiate(s0, t, f, causal, window, m0, m1, ls0, ls1);
-        split_p(s0, hi, lo);
+        scale_mask(s0, t, f, causal, window, prefix, scale, unused0,
+                   unused1);
+        exponentiate(s0, t, f, causal, window, prefix, m0, m1, ls0, ls1);
+        if constexpr (NA != 128) split_p(s0, hi, lo);
       }
       release(empty_k, c + i);
       mbar_wait(full_v + 8 * ((c + i) % kStages), parity(c + i));
       if (t.live) {
-        fence_regs(acc);
-        wgmma_fence();
-        issue_pv(acc, hi, lo, vslot(c + i), T::kKVPanel);
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(acc);
+        if constexpr (NA == 128) {
+          pv_256(acc, s0, vslot(c + i), T::kKVPanel);
+        } else {
+          fence_regs(acc);
+          wgmma_fence();
+          issue_pv(acc, hi, lo, vslot(c + i), T::kKVPanel);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(acc);
+        }
       }
       release(empty_v, c + i);
     }
@@ -813,17 +917,18 @@ __device__ __forceinline__ void consume(
   };
 
   int c = 0;  // sub-tiles consumed so far
-  for (int j = jb0; j < jb1; ++j, c += nsub) {
+  for (int j = 0; j < jb1; ++j) {
+    if (keys_dead(j * BK, j * BK + BK, q0, q_last, causal, window, prefix))
+      continue;
     for (int i = 0; i < nsub; ++i)
       mbar_wait(full_k + 8 * ((c + i) % kStages), parity(c + i));
-    if (nsub > 2) {
-      two_pass(j, c);
-      continue;
-    }
     if (nsub == 1)
       in_registers(std::integral_constant<int, 1>{}, j, c);
-    else
+    else if (nsub > T::kScoreTiles)
+      two_pass(j, c);
+    else if constexpr (T::kScoreTiles == 2)
       in_registers(std::integral_constant<int, 2>{}, j, c);
+    c += nsub;
   }
 
   // ---- out = acc / max(l, 1e-20) in bf16; rows past S are not stored --
@@ -843,15 +948,22 @@ __device__ __forceinline__ void consume(
   }
 }
 
-template <int HD>
+// PREFIX: the instance takes a prefix. Without one the prefix is INT_MIN,
+// so every prefix term of the mask (col < prefix, max(k0, prefix)) folds
+// away at compile time and the mask is the causal and window form; a
+// prefix of 0 does not fold (nothing tells the compiler a key index is not
+// negative) and made the prefix-free layouts slower.
+template <int HD, bool PREFIX>
 __global__ void __launch_bounds__(kThreads, 1) flash_attention_kernel_wgmma(
-    const __grid_constant__ CUtensorMap mq,
-    const __grid_constant__ CUtensorMap mk,
-    const __grid_constant__ CUtensorMap mv, __nv_bfloat16* __restrict__ o,
+    const __grid_constant__ CUtensorMap map_q,
+    const __grid_constant__ CUtensorMap map_k,
+    const __grid_constant__ CUtensorMap map_v, __nv_bfloat16* __restrict__ o,
     int B, int S, int H, int Hkv, int BK, int causal, int window,
-    float scale) {
+    int prefix_len, float scale) {
   using T = Tile<HD>;
+  const int prefix = PREFIX ? prefix_len : INT_MIN;
   constexpr int NP = T::NP;
+  constexpr int kStages = T::kStages;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sQ = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t sK = sQ + NP * T::kQPanel;
@@ -870,11 +982,13 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_kernel_wgmma(
   const int hk = h / (H / Hkv);
   const int q0 = tile * kRows;
   const int q_last = min(q0 + kRows, S) - 1;
-  // the key blocks a row of this tile sees: from the block that holds the
-  // first key row q0 keeps (window) to the block that holds q_last (causal)
-  int jb0 = 0, jb1 = S / BK;
-  if (window > 0 && q0 - window + 1 > 0) jb0 = (q0 - window + 1) / BK;
-  if (causal) jb1 = min(jb1, q_last / BK + 1);
+  // the key blocks a row of this tile sees: up to the block that holds
+  // q_last or the prefix's last key (causal); below that, a block the mask
+  // removes for every row of the tile (older than the window, past the
+  // prefix) is skipped by producer and consumers alike
+  int jb1 = S / BK;
+  if (causal)
+    jb1 = min(jb1, (PREFIX ? max(q_last, prefix - 1) : q_last) / BK + 1);
   const int nsub = (BK + kKeys - 1) / kKeys;
 
   const int tid = threadIdx.x;
@@ -896,11 +1010,14 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_kernel_wgmma(
     if (tid == 2 * 128) {
       mbar_expect_tx(bar_q, NP * T::kQPanel);
       for (int p = 0; p < NP; ++p)
-        tma_load(sQ + p * T::kQPanel, &mq, bar_q, p * kPanel, h, q0, b);
+        tma_load(sQ + p * T::kQPanel, &map_q, bar_q, p * kPanel, h, q0, b);
       int c = 0;  // sub-tiles issued so far
-      for (int j = jb0; j < jb1; ++j, c += nsub) {
+      for (int j = 0; j < jb1; ++j) {
+        if (keys_dead(j * BK, j * BK + BK, q0, q_last, causal, window,
+                      prefix))
+          continue;
         for (int kv = 0; kv < 2; ++kv) {  // the block's K, then its V
-          const CUtensorMap* map = kv ? &mv : &mk;
+          const CUtensorMap* map = kv ? &map_v : &map_k;
           const uint32_t full = kv ? full_v : full_k;
           const uint32_t empty = kv ? empty_v : empty_k;
           const uint32_t ring = kv ? sV : sK;
@@ -914,13 +1031,15 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_kernel_wgmma(
                        b);
           }
         }
+        c += nsub;
       }
     }
   } else {
     // ---- consumer warpgroups: 64 query rows each ------------------------
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
     consume<HD>(sQ, sK, sV, full_k, empty_k, full_v, empty_v, bar_q, o, S,
-                H, BK, causal, window, scale, h, b, q0, jb0, jb1, nsub);
+                H, BK, causal, window, prefix, scale, h, b, q0, q_last, jb1,
+                nsub);
   }
 }
 
@@ -968,23 +1087,27 @@ bool encode(CUtensorMap* map, const void* ptr, int B, int S, int heads,
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int S, int H, int Hkv, int blk_k, int causal, int window,
-           cudaStream_t stream) {
-  CUtensorMap mq, mk, mv;
+           int prefix, cudaStream_t stream) {
+  // every sub-tile of a key block sits in the K ring at once
+  if ((blk_k + kKeys - 1) / kKeys > Tile<HD>::kStages)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap mq, mkey, mv;
   if (!encode(&mq, q, B, S, H, HD, kRows) ||
-      !encode(&mk, k, B, S, Hkv, HD, kKeys) ||
+      !encode(&mkey, k, B, S, Hkv, HD, kKeys) ||
       !encode(&mv, v, B, S, Hkv, HD, kKeys))
     return (int)cudaErrorInvalidValue;
   const long long grid = (long long)((S + kRows - 1) / kRows) * H * B;
   if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  auto kern = flash_attention_kernel_wgmma<HD>;
+  auto kern = prefix > 0 ? flash_attention_kernel_wgmma<HD, true>
+                         : flash_attention_kernel_wgmma<HD, false>;
   const uint32_t bytes = Tile<HD>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const float scale = (float)(1.0 / sqrt((double)HD));
   kern<<<(unsigned)grid, kThreads, bytes, stream>>>(
-      mq, mk, mv, (__nv_bfloat16*)o, B, S, H, Hkv, blk_k, causal, window,
-      scale);
+      mq, mkey, mv, (__nv_bfloat16*)o, B, S, H, Hkv, blk_k, causal,
+      window, prefix, scale);
   return (int)cudaGetLastError();
 }
 
@@ -993,12 +1116,12 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 template <bool TC>
 int launch_hd(const void* q, const void* k, const void* v, void* o, int B,
               int S, int H, int Hkv, int hd, int blk_k, int causal,
-              int window, cudaStream_t stream) {
+              int window, int prefix, cudaStream_t stream) {
 #define FA_LAUNCH(HD)                                                      \
   return TC ? tc::launch<HD>(q, k, v, o, B, S, H, Hkv, blk_k, causal,      \
-                             window, stream)                               \
+                             window, prefix, stream)                       \
             : launch_f32<HD>(q, k, v, o, B, S, H, Hkv, blk_k, causal,      \
-                             window, stream)
+                             window, prefix, stream)
   switch (hd) {
     case 16:
       FA_LAUNCH(16);
@@ -1010,6 +1133,8 @@ int launch_hd(const void* q, const void* k, const void* v, void* o, int B,
       FA_LAUNCH(96);
     case 128:
       FA_LAUNCH(128);
+    case 256:
+      FA_LAUNCH(256);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -1020,21 +1145,22 @@ int launch_hd(const void* q, const void* k, const void* v, void* o, int B,
 
 // q (B,S,H,hd), k/v (B,S,Hkv,hd), o (B,S,H,hd), all contiguous, dtype 0 =
 // f32 (CUDA cores), 1 = bf16 (tensor cores); keys walked in blocks of
-// blk_k (S % blk_k == 0).
+// blk_k (S % blk_k == 0; at head dim 256 in bf16 at most 128, the K ring);
+// every row sees the first `prefix` keys (0 <= prefix <= S).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int S,
                                       int H, int Hkv, int hd, int blk_k,
-                                      int causal, int window, int dtype,
-                                      void* stream) {
+                                      int causal, int window, int prefix,
+                                      int dtype, void* stream) {
   if (B < 1 || S < 1 || Hkv < 1 || H % Hkv != 0 || blk_k < 1 ||
-      blk_k > kMaxBlkK || S % blk_k != 0)
+      blk_k > kMaxBlkK || S % blk_k != 0 || prefix < 0 || prefix > S)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
     return launch_hd<false>(q, k, v, o, B, S, H, Hkv, hd, blk_k, causal,
-                            window, st);
+                            window, prefix, st);
   if (dtype == 1)
     return launch_hd<true>(q, k, v, o, B, S, H, Hkv, hd, blk_k, causal,
-                           window, st);
+                           window, prefix, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -16,14 +16,18 @@ from repro_torch.kernels import rwkv_chunk as _rc
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0, blk_q: int = 128,
+                    causal: bool = True, window: int = 0,
+                    prefix_len: int = 0, blk_q: int = 128,
                     blk_k: int = 128) -> torch.Tensor:
     """q (B,S,H,hd), k/v (B,S,Hkv,hd) with H % Hkv == 0. Returns
     (B,S,H,hd) in q's dtype. ``blk_q`` is the reference's and has no
     effect (K6 tiles its own query rows); keys are walked in blocks of
-    ``min(blk_k, S)``, which must divide S."""
+    ``min(blk_k, S)``, which must divide S. ``prefix_len`` (the port's,
+    the reference's jnp attention has it): every row also sees the first
+    ``prefix_len`` keys."""
     return _fa.flash_attention_bshd(q, k, v, causal=causal, window=window,
-                                    blk_q=blk_q, blk_k=blk_k)
+                                    prefix_len=prefix_len, blk_q=blk_q,
+                                    blk_k=blk_k)
 
 
 def rwkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

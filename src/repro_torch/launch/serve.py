@@ -7,7 +7,11 @@ state cache (port of ``repro.launch.serve``).
         --smoke --device cpu --prompt-len 64 --gen 8           # the CPU
 
 The prefill runs the model's kernels (K6 for attention, K7 for the RWKV
-WKV) on a CUDA device; the decode steps are plain PyTorch, the argmax
+WKV, K8 for the hybrid family's selective scan) on a CUDA device. For the
+vision frontend (paligemma-3b) the prompt is ``n_patches`` patch
+embeddings, drawn in bf16 as the reference draws them, then
+``prompt_len - n_patches`` text tokens. The decode steps are plain
+PyTorch (K8 in the hybrid family's), the argmax
 stays on the device (no host sync per token). With ``dvfs`` the loop's
 per-step telemetry streams through :class:`DVFSService` every
 ``dvfs_stride`` tokens, as the reference's does.
@@ -42,12 +46,18 @@ def serve(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
     params = init_params(cfg, seed, dev)
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
-    toks = torch.randint(0, cfg.vocab, (batch, prompt_len), generator=g,
-                         device=dev)
+    vision = cfg.frontend == "vision"
+    St = prompt_len - cfg.n_patches if vision else prompt_len
+    pbatch = {"tokens": torch.randint(0, cfg.vocab, (batch, St),
+                                      generator=g, device=dev)}
+    if vision:
+        pbatch["patch_embeds"] = torch.randn(
+            (batch, cfg.n_patches, cfg.d_model), generator=g, device=dev,
+            dtype=torch.bfloat16)
 
     _sync(dev)
     t0 = time.perf_counter()
-    first = prefill(params, cfg, {"tokens": toks})
+    first = prefill(params, cfg, pbatch)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
 

@@ -2,9 +2,13 @@
 ``repro.models.layers``).
 
 ``attention`` computes what the reference's block-wise jnp attention
-computes for a causal or sliding-window prompt, through the flash-attention
-kernel K6 (``kernels.ops.flash_attention``): the kernel on a CUDA tensor,
-its plain version on a CPU tensor. The reference's ``_mha_block`` and
+computes for a causal, sliding-window or prefix-LM prompt (the vision
+frontend: every position sees the first ``prefix_len``), through the
+flash-attention kernel K6 (``kernels.ops.flash_attention``): the kernel on
+a CUDA tensor, its plain version on a CPU tensor. Where a window and a
+prefix meet at S > ``q_block`` the reference's sliding-window path hides
+prefix keys older than its key slice; K6 keeps every prefix key visible,
+as the reference's other paths do. The reference's ``_mha_block`` and
 ``_causal_pair_attention`` are its jnp route to the same function and are
 not ported; the reference rounds softmax probabilities to the value dtype
 before the second product (``_mha_block``), K6 keeps them in f32 (in
@@ -51,16 +55,14 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: int = 0,
               prefix_len: int = 0) -> torch.Tensor:
     """q (B,S,H,hd), k/v (B,S,Hkv,hd). ``window > 0``: each query sees the
-    previous ``window`` keys. Keys are walked in blocks of 128 (of the
-    largest common divisor of S and 128 where 128 does not divide S)."""
-    if prefix_len:
-        raise NotImplementedError(
-            "prefix-LM attention (the vision frontend) is not ported yet: "
-            "ROADMAP queue A, the rest of the model zoo")
+    previous ``window`` keys; ``prefix_len > 0``: the first ``prefix_len``
+    positions are seen by every query (prefix-LM). Keys are walked in
+    blocks of 128 (of the largest common divisor of S and 128 where 128
+    does not divide S)."""
     S = q.shape[1]
     blk = min(128, S) if S % min(128, S) == 0 else math.gcd(S, 128)
     return ops.flash_attention(q, k, v, causal=causal, window=window,
-                               blk_k=blk)
+                               prefix_len=prefix_len, blk_k=blk)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

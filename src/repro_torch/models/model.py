@@ -4,7 +4,11 @@ families ``dense`` (decoder transformer: GQA, RoPE, SwiGLU), ``audio``
 stub and its audio family takes the dense path), ``moe`` (dense attention
 and a mixture-of-experts FFN, ``models.moe``), ``hybrid`` (hymba: each
 block runs sliding-window attention and a mamba head, ``models.ssm``, side
-by side on the same input) and ``ssm`` (RWKV6 time-mix / channel-mix).
+by side on the same input), ``vlm`` (paligemma: the dense decoder behind
+the vision frontend, whose ``n_patches`` patch embeddings come before the
+text and are seen by every position, prefix-LM attention through K6; the
+SigLIP tower is a stub, as in the reference) and ``ssm`` (RWKV6
+time-mix / channel-mix).
 
 Parameters are an ``nn.Module`` tree whose names follow the reference's
 params tree: ``embed``, ``layers.<i>.attn.wq``, ``layers.<i>.tm.mu_r``,
@@ -35,8 +39,8 @@ from repro_torch.models import rwkv as RWKV
 from repro_torch.models import ssm as SSM
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-# the families the port serves; the vision frontend is not ported yet
-SERVED_FAMILIES = ("dense", "audio", "moe", "hybrid", "ssm")
+# the families the port serves (every family of the model zoo)
+SERVED_FAMILIES = ("dense", "audio", "moe", "hybrid", "vlm", "ssm")
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -44,11 +48,11 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in SERVED_FAMILIES or cfg.frontend == "vision":
+    if cfg.family not in SERVED_FAMILIES or \
+            cfg.frontend not in ("none", "audio", "vision"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} (frontend {cfg.frontend!r})"
-            " is not ported yet: ROADMAP queue A, the rest of the model zoo"
-            " (vision)")
+            " is not ported: ROADMAP queue A, the rest of the model zoo")
 
 
 class Tree(nn.Module):
@@ -206,12 +210,13 @@ def _proj_out(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return o.reshape(*o.shape[:-2], h * k) @ w.reshape(h * k, d)
 
 
-def _attn_block(x, p, cfg: ModelConfig, positions):
+def _attn_block(x, p, cfg: ModelConfig, positions, prefix_len=0):
     q = L.apply_rope(_proj_heads(x, p["wq"]), positions, cfg.rope_theta)
     k = L.apply_rope(_proj_heads(x, p["wk"]), positions, cfg.rope_theta)
     v = _proj_heads(x, p["wv"])
     window = cfg.window if cfg.attn_kind == "swa" else 0
-    o = L.attention(q, k, v.contiguous(), causal=True, window=window)
+    o = L.attention(q, k, v.contiguous(), causal=True, window=window,
+                    prefix_len=prefix_len)
     return _proj_out(o, p["wo"])
 
 
@@ -224,7 +229,7 @@ def _ffn(h, lp, cfg: ModelConfig):
     return L.swiglu(h, mlp["w1"], mlp["w3"], mlp["w2"])
 
 
-def _layer_fwd(x, lp, cfg: ModelConfig, positions):
+def _layer_fwd(x, lp, cfg: ModelConfig, positions, prefix_len=0):
     """One block of the prefill."""
     if cfg.family == "ssm":
         B, d = x.shape[0], cfg.d_model
@@ -238,7 +243,7 @@ def _layer_fwd(x, lp, cfg: ModelConfig, positions):
         y, _ = RWKV.channel_mix(h, zeros, lp["cm"])
         return x + y
     h = L.rms_norm(x, lp["norm1"], cfg.norm_eps)
-    a = _attn_block(h, lp["attn"], cfg, positions)
+    a = _attn_block(h, lp["attn"], cfg, positions, prefix_len)
     if cfg.family == "hybrid":
         hd, ssm = cfg.resolved_head_dim, cfg.ssm
         st = SSM.init_mamba_state(x.shape[0], cfg.d_model * ssm.expand, hd,
@@ -259,23 +264,26 @@ def _mix_heads(a, s, lp, cfg: ModelConfig):
 
 def embed_inputs(params: Tree, cfg: ModelConfig,
                  batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, int]:
-    """Returns (x (B,S,D), prefix_len); token inputs only (the audio
-    family's EnCodec ids are tokens: the frontend is a stub, as in the
-    reference)."""
+    """Returns (x (B,S,D), prefix_len). The vision frontend puts
+    ``batch["patch_embeds"]`` (B, n_patches, D), cast to the embeddings'
+    dtype, in front of the text's and returns ``prefix_len = n_patches``;
+    the audio family's EnCodec ids are tokens (its frontend is a stub, as
+    in the reference)."""
     _check_family(cfg)
-    return params["embed"][batch["tokens"]], 0
+    tok = params["embed"][batch["tokens"]]
+    if cfg.frontend == "vision":
+        pe = batch["patch_embeds"].to(tok.dtype)
+        return torch.cat([pe, tok], dim=1), cfg.n_patches
+    return tok, 0
 
 
 def backbone(params: Tree, cfg: ModelConfig, x: torch.Tensor,
              prefix_len: int = 0) -> torch.Tensor:
-    """Run every layer; returns the final-normed hidden (B,S,D)."""
-    if prefix_len:
-        raise NotImplementedError(
-            "prefix-LM inputs (the vision frontend) are not ported yet: "
-            "ROADMAP queue A, the rest of the model zoo")
+    """Run every layer; returns the final-normed hidden (B,S,D). The first
+    ``prefix_len`` positions are seen by every position (prefix-LM)."""
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     for lp in params["layers"]:
-        x = _layer_fwd(x, lp, cfg, positions)
+        x = _layer_fwd(x, lp, cfg, positions, prefix_len)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 

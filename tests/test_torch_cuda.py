@@ -904,6 +904,9 @@ def _qkv(B, S, H, Hkv, hd, dtype, dev, seed=0, q_scale=1.0):
     (1, 384, 4, 2, 96, False, 0, 8.0),
     # hymba-1.5b's layout: a GQA group of 5 with its 1024-token window
     (1, 2048, 25, 5, 64, True, 1024, 1.0),
+    # head dim 256 (paligemma-3b): GQA with a window, MQA with scores x 8
+    (1, 512, 8, 2, 256, True, 100, 1.0),
+    (2, 384, 8, 1, 256, True, 0, 8.0),
 ])
 def test_flash_attention_kernel_matches_plain(dev, dtype, B, S, H, Hkv, hd,
                                               causal, window, q_scale):
@@ -938,6 +941,62 @@ def test_flash_attention_kernel_key_blocks(dev, dtype, S, blk):
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), rtol=rtol,
                                atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,S,H,Hkv,hd,causal,window,prefix,blk", [
+    (4, 2048, 8, 1, 256, True, 0, 256, 128),   # paligemma-3b's prefill
+    (1, 512, 4, 2, 64, True, 0, 200, 128),     # not a multiple of the block
+    # a prefix with a window: key blocks between the two are skipped
+    (1, 1024, 4, 2, 128, True, 100, 150, 128),
+    (1, 1024, 4, 1, 256, True, 64, 100, 128),  # the same at head dim 256
+    (1, 384, 2, 1, 64, False, 100, 50, 128),   # non-causal, a window
+    (2, 256, 8, 1, 256, True, 0, 256, 128),    # prefix_len = S
+    (1, 384, 4, 2, 32, True, 0, 384, 96),      # prefix_len = S, 96 keys
+    (1, 512, 4, 1, 256, True, 0, 70, 64),      # head dim 256, 64-key blocks
+    (1, 512, 4, 2, 64, True, 0, 300, 256),     # 256-key blocks
+], ids=["paligemma", "p200", "p150-w100", "hd256-p100-w64",
+        "noncausal-p50-w100", "hd256-pS", "hd32-pS-blk96", "hd256-blk64",
+        "blk256"])
+def test_flash_attention_kernel_prefix_lm_matches_plain(
+        dev, dtype, B, S, H, Hkv, hd, causal, window, prefix, blk):
+    """K6 with ``prefix_len``: (causal & window) | (key < prefix_len)
+    against its plain version, one launch a call."""
+    from repro_torch.kernels import flash_attention as FA
+    q, k, v = _qkv(B, S, H, Hkv, hd, dtype, dev, seed=prefix)
+    kw = dict(causal=causal, window=window, prefix_len=prefix, blk_k=blk)
+    n0 = FA.flash_attention_bshd.launches
+    got = FA.flash_attention_bshd(q, k, v, **kw)
+    assert FA.flash_attention_bshd.launches == n0 + 1
+    want = FA.flash_attention_bshd_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    rtol, atol = K6_TOL[dtype]
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=rtol,
+                               atol=atol)
+
+
+def test_flash_attention_kernel_refuses_a_bad_prefix_and_a_long_ring(dev):
+    """A ``prefix_len`` outside [0, S], and at head dim 256 in bf16 a key
+    block past the two 64-key sub-tiles its K ring holds, raise before
+    any launch (f32 takes the 256-key block)."""
+    from repro_torch.kernels import flash_attention as FA
+    q, k, v = _qkv(1, 512, 2, 1, 256, torch.bfloat16, dev)
+    n0 = FA.flash_attention_bshd.launches
+    for prefix in (-1, 513):
+        with pytest.raises(ValueError, match="prefix_len"):
+            FA.flash_attention_bshd(q, k, v, prefix_len=prefix)
+    with pytest.raises(ValueError, match="K ring"):
+        FA.flash_attention_bshd(q, k, v, blk_k=256)
+    assert FA.flash_attention_bshd.launches == n0
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    got = FA.flash_attention_bshd(qf, kf, vf, blk_k=256)
+    assert FA.flash_attention_bshd.launches == n0 + 1
+    np.testing.assert_allclose(
+        got.cpu().numpy(),
+        FA.flash_attention_bshd_ref(qf, kf, vf, blk_k=256).cpu().numpy(),
+        rtol=2e-5, atol=2e-5)
 
 
 def test_flash_attention_kernel_ignores_blk_q(dev):
@@ -987,14 +1046,15 @@ def test_flash_attention_kernel_refuses_bad_operands(dev):
 
 def test_flash_attention_bf16_kernel_is_wgmma_without_spills(dev):
     """The bf16 kernel runs on the tensor cores: its SASS holds HGMMA (the
-    warpgroup matrix multiply), and ptxas spills none of its registers."""
+    warpgroup matrix multiply), and ptxas spills none of its registers, in
+    either instance (without and with a prefix) of any head dim."""
     lib = K.library()
     props = re.findall(
         r"Function properties for (\S*flash_attention_kernel_wgmma\S*)\n"
         r"\s*(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) "
         r"bytes spill loads", K.BUILD["log"])
-    assert len(props) == 5, \
-        "one ptxas report per head dim (16/32/64/96/128)"
+    assert len(props) == 12, \
+        "two ptxas reports per head dim (16/32/64/96/128/256)"
     for name, _, stores, loads in props:
         assert (stores, loads) == ("0", "0"), f"{name} spills"
     tool = shutil.which("cuobjdump") or str(
@@ -1006,9 +1066,22 @@ def test_flash_attention_bf16_kernel_is_wgmma_without_spills(dev):
     funcs = re.split(r"\n\s*Function : ", sass)
     tc = [f for f in funcs
           if "flash_attention_kernel_wgmma" in f.split("\n", 1)[0]]
-    assert len(tc) == 5
+    assert len(tc) == 12
     for f in tc:
         assert "HGMMA" in f, f.split("\n", 1)[0]
+
+
+def test_flash_attention_f32_kernel_spills_nothing(dev):
+    """ptxas spills none of the f32 kernel's registers at any head dim
+    (16/32/64/96/128/256)."""
+    K.library()
+    props = re.findall(
+        r"Function properties for (\S*flash_attention_kernelI\S*)\n"
+        r"\s*(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) "
+        r"bytes spill loads", K.BUILD["log"])
+    assert len(props) == 6, "one ptxas report per head dim"
+    for name, _, stores, loads in props:
+        assert (stores, loads) == ("0", "0"), f"{name} spills"
 
 
 def _rwkv_case(B, T, H, hd, lo, hi, dev, seed=0):
@@ -1278,6 +1351,42 @@ def test_zoo_prefill_runs_k6_per_layer_and_matches_cpu(dev, arch):
     for i in range(4):
         logits, cache = M.decode_step(params, cfg, cache,
                                       toks[:1, i].to(dev))
+    np.testing.assert_allclose(logits.cpu().numpy(), full.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("head_dim", [16, 256])
+def test_vlm_prefill_runs_k6_per_layer_and_matches_cpu(dev, head_dim):
+    """The paligemma smoke config in f32 (and at paligemma's head dim 256):
+    4 patch embeddings before 60 tokens; the prefill on the card launches
+    K6 once per layer with the prefix and lands on the CPU's logits (plain
+    K6) to 1e-5; a token decode (the vlm decodes without the vision step)
+    of the text alone ends at the text-only prefill's logits."""
+    from repro_torch import no_tf32
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import model as M
+    no_tf32()
+    cfg = dataclasses.replace(get_smoke_config("paligemma-3b"),
+                              dtype="float32", head_dim=head_dim)
+    params = M.init_params(cfg, 0, "cpu")
+    rng = np.random.default_rng(10)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (2, 60))),
+             "patch_embeds": torch.as_tensor(rng.standard_normal(
+                 (2, cfg.n_patches, cfg.d_model)).astype(np.float32))}
+    want = M.prefill(params, cfg, batch)
+    params = params.to(dev)
+    n0 = FA.flash_attention_bshd.launches
+    got = M.prefill(params, cfg, {k: v.to(dev) for k, v in batch.items()})
+    assert FA.flash_attention_bshd.launches == n0 + cfg.n_layers
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    text = dataclasses.replace(cfg, frontend="none")
+    toks = batch["tokens"][:1, :32].to(dev)
+    full = M.prefill(params, text, {"tokens": toks})
+    cache = M.init_cache(cfg, 1, 32, device=dev)
+    for i in range(32):
+        logits, cache = M.decode_step(params, cfg, cache, toks[:, i])
     np.testing.assert_allclose(logits.cpu().numpy(), full.cpu().numpy(),
                                rtol=1e-4, atol=1e-4)
 

@@ -2,7 +2,9 @@
 against the live JAX package on the CPU: the reference's Pallas kernels in
 interpret mode (``repro.kernels.ops``) and its oracles
 (``repro.kernels.ref``), on the shapes of ``tests/test_kernels.py``, from
-the same numpy inputs.
+the same numpy inputs. K6's prefix-LM mask (``prefix_len``, which the
+reference's Pallas kernel lacks) is held against the reference's jnp
+``repro.models.layers.attention``.
 
 Tolerances are the reference's own for its kernels: K6 2e-5 in f32 and
 2e-2 in bf16, K7 1e-4.
@@ -15,6 +17,7 @@ import torch
 
 from repro.kernels import ops as JOPS
 from repro.kernels import ref as JREF
+from repro.models import layers as JL
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ops as TOPS
 from repro_torch.kernels import ref as TREF
@@ -54,6 +57,7 @@ def _qkv(B, S, H, Hkv, hd, dtype, seed=0):
     (2, 512, 2, 2, 32),
     (1, 128, 4, 4, 96),    # head dim 96 (phi3-mini), MHA
     (2, 256, 4, 2, 96),    # head dim 96, GQA
+    (1, 256, 2, 1, 256),   # head dim 256 (paligemma), MQA
 ])
 def test_flash_attention_plain_vs_reference(B, S, H, Hkv, hd, dtype):
     (jq, tq), (jk, tk), (jv, tv) = _qkv(B, S, H, Hkv, hd, dtype)
@@ -104,6 +108,49 @@ def test_flash_attention_plain_bhsd_matches_reference_kernel():
         got = FA.flash_attention_bhsd(q[1], k[1], v[1], causal=causal,
                                       window=window)
         np.testing.assert_allclose(_np(got), _np(want), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,Hkv,hd,prefix,window,q_block,blk_k", [
+    (2, 64, 4, 2, 16, 0, 0, 1024, 16),    # no prefix, S <= q_block, GQA
+    (2, 64, 4, 2, 16, 5, 0, 1024, 16),    # inside the first key block
+    (2, 64, 4, 1, 16, 40, 0, 1024, 16),   # across block edges, MQA
+    (1, 64, 4, 2, 16, 24, 0, 16, 16),     # S > q_block, GQA
+    (1, 64, 4, 4, 16, 16, 0, 16, 32),     # S > q_block, at a q-block edge
+    (1, 64, 2, 1, 256, 20, 0, 16, 32),    # head dim 256, S > q_block, MQA
+    (1, 64, 2, 1, 256, 10, 0, 1024, 64),  # head dim 256, S <= q_block
+    (1, 64, 4, 2, 16, 12, 24, 1024, 16),  # a window, S <= q_block
+    (1, 64, 4, 2, 16, 64, 0, 16, 16),     # prefix_len = S: bidirectional
+], ids=["p0", "p5-block0", "p40-edges-mqa", "p24-qblock16", "p16-qedge",
+        "hd256-qblock16", "hd256", "window24", "pS"])
+def test_flash_attention_plain_prefix_lm_vs_reference(
+        B, S, H, Hkv, hd, prefix, window, q_block, blk_k, dtype):
+    """The prefix-LM mask, (causal & window) | (key < prefix_len), against
+    the reference's jnp ``layers.attention(..., prefix_len)`` through its
+    single-block (S <= q_block) and per-q-block (S > q_block) paths. The
+    reference's sliding-window path with a prefix at S > q_block hides
+    prefix keys older than its key slice (ROADMAP, "Stated differences"),
+    so a window is held only at S <= q_block."""
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(B, S, H, Hkv, hd, dtype, seed=11)
+    got = TOPS.flash_attention(tq, tk, tv, causal=True, window=window,
+                               prefix_len=prefix, blk_k=blk_k)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    want = JL.attention(jq, jk, jv, causal=True, window=window,
+                        prefix_len=prefix, q_block=q_block)
+    tol = K6_TOL[dtype]
+    np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+    if prefix:
+        # the prefix changes the result where it reaches past the diagonal
+        plain = TOPS.flash_attention(tq, tk, tv, causal=True, window=window,
+                                     blk_k=blk_k)
+        assert float((plain.float() - got.float()).abs().max()) > 10 * tol
+
+
+def test_flash_attention_plain_refuses_a_bad_prefix():
+    q = torch.zeros((1, 32, 2, 16))
+    for prefix in (-1, 33):
+        with pytest.raises(ValueError, match="prefix_len"):
+            TOPS.flash_attention(q, q, q, prefix_len=prefix)
 
 
 def test_flash_attention_plain_rejects_ragged_blocks():
@@ -166,7 +213,7 @@ def _bf16_kernel_numerics(q, k, v, *, split, blk_k=128):
     return out.transpose(1, 2).bfloat16()
 
 
-@pytest.mark.parametrize("hd,q_scale", [(64, 1.0), (128, 8.0)])
+@pytest.mark.parametrize("hd,q_scale", [(64, 1.0), (128, 8.0), (256, 8.0)])
 def test_flash_attention_bf16_split_p_keeps_one_ulp(hd, q_scale):
     """Why the card's bf16 kernel splits p: with p_hi + p_lo its result
     lands within one bf16 ulp (rtol 2^-7, atol 1e-5, the card tests'

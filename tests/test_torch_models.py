@@ -3,8 +3,11 @@
 smoke configs of glm4-9b (dense, K6's plain version), rwkv6-3b (ssm,
 K7's plain version), granite-moe-1b-a400m and qwen2-moe-a2.7b (moe: 4
 experts top-2, without and with a shared expert), musicgen-medium
-(audio) and hymba-1.5b (hybrid: 2 layers, d 64, 4 query heads over 1 KV
-head of 16, window 1024, SSM state 8; K6's and K8's plain versions),
+(audio), hymba-1.5b (hybrid: 2 layers, d 64, 4 query heads over 1 KV
+head of 16, window 1024, SSM state 8; K6's and K8's plain versions) and
+paligemma-3b (vlm: 2 layers, d 64, 4 query heads over 1 KV head of 16,
+4 patch embeddings in front of the text, prefix-LM attention through K6's
+plain version; also at head dim 256, paligemma's own),
 both packages starting from the reference's weights
 (``interop.params_from_numpy``) and the same numpy tokens. The moe smoke
 prefills drop pairs past their experts' capacity; the port drops the
@@ -58,6 +61,12 @@ ZOO = ["granite-moe-1b-a400m", "qwen2-moe-a2.7b", "musicgen-medium"]
 # the hybrid family: attention (sliding window) and a mamba head per block
 HYBRID = ["hymba-1.5b"]
 LM_ARCHS = ARCHS + list(SHAPES) + ZOO + HYBRID
+# the vlm family: patch embeddings before the text, prefix-LM attention.
+# Its prefill takes ``patch_embeds`` beside the tokens, so it has tests of
+# its own; the smoke config keeps head dim 16, paligemma's 256 is a K6
+# instance of its own
+VLM = ["paligemma-3b"]
+VLM_SHAPES = {"hd16": {}, "hd256": dict(head_dim=256)}
 
 
 def _np(x):
@@ -134,10 +143,24 @@ def test_attention_matches_reference(S, window, dtype):
     np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
 
 
-def test_attention_prefix_lm_is_not_ported():
-    q = torch.zeros((1, 8, 2, 16))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TL.attention(q, q, q, prefix_len=4)
+@pytest.mark.parametrize("S,prefix,window,dtype", [
+    (32, 8, 0, "float32"), (256, 100, 0, "float32"),
+    (256, 128, 0, "bfloat16"), (256, 40, 64, "float32"),
+    (2048, 256, 0, "float32")])
+def test_attention_prefix_lm_matches_reference(S, prefix, window, dtype):
+    """The port's ``attention`` with ``prefix_len`` (K6's plain version,
+    key blocks of 128) against the reference's block-wise jnp attention;
+    S = 2048 takes its per-q-block path (a window there is a stated
+    difference, ROADMAP)."""
+    rng = np.random.default_rng(12)
+    shapes = ((1, S, 4, 16), (1, S, 1, 16), (1, S, 1, 16))
+    arrs = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    j = [jnp.asarray(a, getattr(jnp, dtype)) for a in arrs]
+    t = [_t(_np(a), getattr(torch, dtype)) for a in j]
+    got = TL.attention(*t, causal=True, window=window, prefix_len=prefix)
+    want = JL.attention(*j, causal=True, window=window, prefix_len=prefix)
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
 
 
 def test_decode_attention_matches_reference():
@@ -352,11 +375,22 @@ def test_decode_after_prefill_starts_from_zero_cache(arch):
                                   "hymba-1.5b", "paligemma-3b"])
 def test_unported_families_raise_naming_roadmap(arch):
     cfg = t_smoke(arch)
-    if cfg.family in TM.SERVED_FAMILIES and cfg.frontend != "vision":
-        TM.init_params(cfg, 0, "cpu")        # dense and moe are ported
+    if cfg.family in TM.SERVED_FAMILIES:
+        TM.init_params(cfg, 0, "cpu")        # every family is ported
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TM.init_params(cfg, 0, "cpu")
+
+
+@pytest.mark.parametrize("over", [dict(family="encoder"),
+                                  dict(frontend="video")],
+                         ids=["family", "frontend"])
+def test_unknown_family_or_frontend_raises_naming_roadmap(over):
+    cfg = dataclasses.replace(t_smoke("paligemma-3b"), **over)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TM.init_params(cfg, 0, "cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TM.embed_inputs(None, cfg, {})
 
 
 def test_serve_on_the_cpu():
@@ -434,7 +468,7 @@ def test_moe_and_audio_configs_are_the_published_widths():
 
 
 def _served(cfg):
-    return cfg.family in TM.SERVED_FAMILIES and cfg.frontend != "vision"
+    return cfg.family in TM.SERVED_FAMILIES
 
 
 @pytest.mark.parametrize("arch", [n for n, c in all_configs().items()
@@ -589,3 +623,148 @@ def test_hybrid_config_is_the_published_widths():
         ("hybrid", 32, 1600, 25, 5, 64, 5504, 32001)
     assert (hy.attn_kind, hy.window, hy.ssm.state_size, hy.ssm.conv_width,
             hy.ssm.expand) == ("swa", 1024, 16, 4, 1)
+
+
+# ---------------------------------------------------------------------------
+# the vlm family (paligemma-3b)
+# ---------------------------------------------------------------------------
+
+
+def _vlm_batch(cfg, B, S, seed):
+    """A vlm prefill's inputs at total length S: ``n_patches`` patch
+    embeddings (numpy, f32) and S - n_patches tokens."""
+    rng = np.random.default_rng(seed)
+    pe = rng.standard_normal((B, cfg.n_patches, cfg.d_model)) \
+        .astype(np.float32)
+    toks = rng.integers(0, cfg.vocab, (B, S - cfg.n_patches)) \
+        .astype(np.int32)
+    return ({"tokens": jnp.asarray(toks), "patch_embeds": jnp.asarray(pe)},
+            {"tokens": torch.from_numpy(toks).long(),
+             "patch_embeds": torch.from_numpy(pe)})
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", list(VLM_SHAPES))
+def test_vlm_embed_inputs_matches_reference(shape, dtype):
+    """The patch embeddings, cast to the token embeddings' dtype, in front
+    of the text's; ``prefix_len = n_patches``."""
+    cj, ct, pj, pt = _pair("paligemma-3b", dtype, **VLM_SHAPES[shape])
+    bj, bt = _vlm_batch(ct, 2, 16, 1)
+    xj, pre_j = JM.embed_inputs(pj, cj, bj)
+    xt, pre_t = TM.embed_inputs(pt, ct, bt)
+    assert pre_t == pre_j == ct.n_patches == 4
+    assert xt.shape == (2, 16, ct.d_model)
+    assert xt.dtype == getattr(torch, dtype)
+    np.testing.assert_array_equal(_np(xt), _np(xj))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S", [32, 256])
+@pytest.mark.parametrize("shape", list(VLM_SHAPES))
+def test_vlm_prefill_matches_reference(shape, S, dtype):
+    """The prefill with patch embeddings (prefix-LM attention over the 4
+    patches) against the reference's: the logits at ``LOGIT_TOL`` and, in
+    f32, the backbone's hidden states at every position, the patches' too.
+    The prefix changes the first position's hidden state (it sees every
+    patch) by more than ``LOGIT_TOL`` (at random init the attention is a
+    small part of the residual stream: ~0.05 in bf16)."""
+    cj, ct, pj, pt = _pair("paligemma-3b", dtype, **VLM_SHAPES[shape])
+    bj, bt = _vlm_batch(ct, 2, S, 2)
+    want = JM.prefill(pj, cj, bj)
+    got = TM.prefill(pt, ct, bt)
+    assert got.shape == (2, ct.vocab) and got.dtype == torch.float32
+    tol = LOGIT_TOL[dtype]
+    np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+    xj, pre = JM.embed_inputs(pj, cj, bj)
+    xt, _ = TM.embed_inputs(pt, ct, bt)
+    h = TM.backbone(pt, ct, xt, pre)
+    if dtype == "float32":
+        np.testing.assert_allclose(
+            _np(h), _np(JM.backbone(pj, cj, xj, pre)[0]), rtol=tol, atol=tol)
+    causal = TM.backbone(pt, ct, xt, 0)
+    assert float((causal[:, 0] - h[:, 0]).float().abs().max()) > tol
+
+
+@pytest.mark.parametrize("shape", list(VLM_SHAPES))
+def test_vlm_decode_teacher_forced_matches_reference(shape):
+    """Token decode in f32 from an empty cache (the vlm decodes on the
+    dense branch, without a vision step, as the reference): every step's
+    logits and, after the last, every cache key to 1e-5."""
+    cj, ct, pj, pt = _pair("paligemma-3b", "float32", **VLM_SHAPES[shape])
+    toks = _tokens(cj, 2, 8, 6)
+    cache_j = JM.init_cache(cj, 2, 12)
+    cache_t = TM.init_cache(ct, 2, 12, device="cpu")
+    for i in range(toks.shape[1]):
+        lj, cache_j = JM.decode_step(pj, cj, cache_j, jnp.asarray(toks[:, i]))
+        lt, cache_t = TM.decode_step(pt, ct, cache_t,
+                                     torch.from_numpy(toks[:, i]).long())
+        np.testing.assert_allclose(_np(lt), _np(lj), rtol=1e-5, atol=1e-5,
+                                   err_msg=f"step {i}")
+    assert set(cache_t) == set(cache_j) == {"pos", "k", "v"}
+    for key in cache_t:
+        np.testing.assert_allclose(_np(cache_t[key]), _np(cache_j[key]),
+                                   rtol=1e-5, atol=1e-5, err_msg=key)
+    assert cache_t["k"].shape[-1] == ct.resolved_head_dim
+
+
+@pytest.mark.parametrize("shape", list(VLM_SHAPES))
+def test_vlm_params_carry_over_bit_for_bit(shape):
+    """``interop.params_from_numpy`` carries paligemma's tree unchanged:
+    the untied ``lm_head``, every leaf's bits, the parameter counts; the
+    port's own init builds the same tree."""
+    cj, ct, pj, pt = _pair("paligemma-3b", "bfloat16", **VLM_SHAPES[shape])
+    flat = dict(pt.named_parameters())
+    assert not ct.tie_embeddings and "lm_head" in flat
+    leaves = {"embed": pj["embed"], "lm_head": pj["lm_head"],
+              "final_norm": pj["final_norm"]}
+    for i in range(ct.n_layers):
+        for grp in ("attn", "mlp"):
+            for key, val in pj["layers"][grp].items():
+                leaves[f"layers.{i}.{grp}.{key}"] = val[i]
+        for key in ("norm1", "norm2"):
+            leaves[f"layers.{i}.{key}"] = pj["layers"][key][i]
+    assert set(flat) == set(leaves)
+    for key, val in leaves.items():
+        np.testing.assert_array_equal(_np(flat[key]), _np(val),
+                                      err_msg=key)
+    assert flat["layers.0.attn.wq"].shape == (
+        ct.d_model, ct.n_heads, ct.resolved_head_dim)
+    n_ref = sum(a.size for a in jax.tree.leaves(pj))
+    assert sum(p.numel() for p in pt.parameters()) == n_ref
+    own = TM.init_params(ct, 0, "cpu")
+    assert {k: (v.shape, v.dtype) for k, v in own.named_parameters()} == \
+        {k: (v.shape, v.dtype) for k, v in flat.items()}
+
+
+def test_serve_vlm_on_the_cpu():
+    """``serve`` of the paligemma smoke config with the DVFS stream: the
+    prompt is 4 patch embeddings and 28 tokens; greedy tokens from the
+    prefill's argmax, finite logits, the stream reports."""
+    cfg = t_smoke("paligemma-3b")
+    rep = TS.serve(cfg, batch=2, prompt_len=32, gen=3, dvfs=True,
+                   dvfs_stride=2, device="cpu")
+    toks = rep["tokens"]
+    assert toks.shape == (2, 4) and toks.dtype == torch.int32
+    assert torch.equal(toks[:, 0], rep["prefill_logits"].argmax(-1).int())
+    assert torch.isfinite(rep["prefill_logits"]).all()
+    assert torch.isfinite(rep["last_logits"]).all()
+    assert rep["dvfs_requests"] == 2 and np.isfinite(rep["dvfs"]["ed2p_norm"])
+
+
+def test_serve_cli_takes_the_vlm_arch(capsys):
+    TS.main(["--arch", "paligemma-3b", "--smoke", "--device", "cpu",
+             "--prompt-len", "16", "--gen", "2", "--batch", "2", "--dvfs"])
+    out = capsys.readouterr().out
+    assert "out shape (2, 3)" in out and "[dvfs]" in out
+
+
+def test_vlm_config_is_the_published_widths():
+    pg = t_config("paligemma-3b")
+    assert (pg.family, pg.n_layers, pg.d_model, pg.n_heads, pg.n_kv_heads,
+            pg.resolved_head_dim, pg.d_ff, pg.vocab) == \
+        ("vlm", 18, 2048, 8, 1, 256, 16384, 257216)
+    assert (pg.frontend, pg.n_patches, pg.attn_kind, pg.rope_theta,
+            pg.tie_embeddings) == ("vision", 256, "full", 10_000.0, False)
+    sm = t_smoke("paligemma-3b")
+    assert (sm.n_layers, sm.d_model, sm.n_heads, sm.n_kv_heads,
+            sm.resolved_head_dim, sm.n_patches) == (2, 64, 4, 1, 16, 4)
