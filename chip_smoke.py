@@ -88,7 +88,9 @@ drives the port (never JAX, never ``repro``):
    report; the same serve without the DVFS stream; then per model a
    token-by-token decode of 256 tokens (4 for the moe models, where their
    prefill can drop no pair) against the prefill's logits, the model in
-   f32 to 2e-2 (as the reference's tests hold it) and in bf16 to a fixed
+   f32 cut to its first 8 layers (a depth cut that keeps the script in its
+   time with phase 12) to 2e-2 (as the reference's tests hold it) and in
+   bf16 at full depth to a fixed
    limit (paligemma's on its text-only path at head dim 256: a token
    decode cannot rebuild a bidirectional prefix of patch embeddings), and
    where the device time of a prefill and of a decode step
@@ -115,6 +117,26 @@ drives the port (never JAX, never ``repro``):
     factory sweep on the kernel engine against the unfused engine, every
     element at the kernel-vs-plain limits; and a 2-workload dataset from
     each engine, PCSTALL's rows element by element;
+12. the training path: K6's gradient (``FlashAttention``: the forward on
+    K6, the backward in PyTorch operations) against autograd through the
+    plain version in f32, from f32 and bf16 inputs, at musicgen-medium's
+    training layout (B 4, S 4096, 24 heads of 64, causal), paligemma's (B
+    1, S 2048, 8 over 1 heads of 256, prefix 256) and hymba's (B 1, S
+    2048, 25 over 5 heads of 64, window 1024); K6 at musicgen's training
+    layout against its plain version, timed beside its bound and the
+    library, and the attention backward's time; musicgen-medium at full
+    width through ``launch.train.train`` (TRAIN_4K's 4096 tokens, its 256
+    sequences a step cut to 8 in 2 microbatches, 4 steps, warmup 1,
+    DVFS on): finite losses, the first within 1.0 of ln 2048, every
+    parameter moved, finite grad norms, 192 K6 launches a step (48
+    layers x 2 microbatches x forward and remat recompute), the DVFS
+    report, step seconds, tokens/s and peak memory, the final checkpoint
+    (~21.8 GB of npz under a temporary directory, after a check of the
+    free disk space) restored bit for bit, save and restore seconds, one
+    step's device time by class (K6, the attention backward, GEMMs, the
+    rest); then granite-moe-1b-a400m through ``make_train_step`` (2 steps
+    at 4 x 2048): finite loss, MoE aux loss and grad norm, every
+    parameter moved;
 then the kernel summary.
 
 Prints a ``{"kernels": [...]}`` line, the card line, and as the last line
@@ -126,9 +148,12 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -151,6 +176,12 @@ from repro_torch.core import simulate as SIM  # noqa: E402
 from repro_torch.core import sweep as SW  # noqa: E402
 from repro_torch.core.workloads import Program, get_workload  # noqa: E402
 from repro_torch.configs import TRAIN_4K, get_config  # noqa: E402
+from repro_torch.configs.base import ShapeConfig, TrainConfig  # noqa: E402
+from repro_torch.data.pipeline import make_batch  # noqa: E402
+from repro_torch.launch.train import train  # noqa: E402
+from repro_torch.train import checkpoint as CK  # noqa: E402
+from repro_torch.train.train_step import (init_state,  # noqa: E402
+                                          make_train_step)
 from repro_torch.data.pipeline import dvfs_request_stream  # noqa: E402
 from repro_torch.dvfs_runtime.manager import DVFSManager  # noqa: E402
 from repro_torch.dvfs_runtime.service import DVFSService  # noqa: E402
@@ -284,6 +315,11 @@ DECODE_S, DECODE_TOL = 256, 2e-2
 # the reference's own semantics; the drops at 256 and at the 2048-token
 # serve are printed.
 MOE_DECODE_S = 4
+# the f32 decode check runs on the model cut to its first 8 layers (depth
+# only: every width and every kernel of a layer stay), so that the script
+# keeps its time limit with the training phase (12); the bf16 check runs
+# at full depth
+F32_DECODE_LAYERS = 8
 # the same check with the models in bf16, as they are served, holds the
 # largest |decode - prefill| logit gap to a fixed limit. In bf16 at full
 # width the arithmetic alone moves the logits: on an H100 80GB HBM3 at
@@ -326,6 +362,28 @@ LEARN_TRACE_CHANNELS = ("work", "energy", "err", "fidx", "true_sens",
 # work / T reaches 6.0e4. The labels' share is stated apart (a label is
 # an argmin over costs computed from y)
 LEARN_FIDX_AGREE = 0.999
+# the training phase (12): musicgen-medium at full width through
+# launch.train.train, TRAIN_4K's 4096 tokens with its 256 sequences a step
+# cut to 8 (two microbatches of 4) so that a step fits the run's time
+TRAIN_ARCH = "musicgen-medium"
+TRAIN_SHAPE = ShapeConfig("train_card", TRAIN_4K.seq_len, 8, "train")
+TRAIN_STEPS, TRAIN_MB = 4, 2
+K6_TRAIN_ROW = "flash_attention[musicgen-medium train]"
+# granite-moe-1b-a400m through make_train_step: 2 steps at 4 x 2048
+MOE_TRAIN_ARCH = "granite-moe-1b-a400m"
+MOE_TRAIN_SHAPE = ShapeConfig("train_moe", 2048, 4, "train")
+# K6's gradient at the zoo's training layouts: (B, S, H, Hkv, hd, window,
+# prefix); musicgen's (GQA-free, causal), paligemma's (the prefix, head
+# dim 256), hymba's (GQA 5, the window)
+K6_GRAD_LAYOUTS = {"musicgen-medium": (4, 4096, 24, 24, 64, 0, 0),
+                   "paligemma-3b": (1, 2048, 8, 1, 256, 0, 256),
+                   "hymba-1.5b": (1, 2048, 25, 5, 64, 1024, 0)}
+# dq, dk, dv of the Function against autograd through the plain version
+# in f32, over each one's largest magnitude: f32 to 1e-4 (sums of up to
+# 4096 terms in other orders; TF32 off), bf16 to 2e-2 (K6's bf16 output
+# enters D = rowsum(dout * out), and each gradient is rounded to bf16: a
+# few bf16 ulps of the largest element)
+K6_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 FAILURES = []
 # the kernels of each epoch call (csrc/epoch_fused.cu): passes A and B,
 # and the epilogue for the families with a table
@@ -711,8 +769,8 @@ def kernel_split(fn, reps=1):
     in ms per call: K6, K7, K8, the MoE layer's expert products and its
     dispatch and combine (every kernel launched inside the
     ``moe.experts`` or the ``moe.dispatch`` / ``moe.combine`` profiler
-    ranges), the other matrix products, and the rest. None if it reports
-    no device time."""
+    ranges), K6's backward (inside ``flash_attention.bwd``), the other
+    matrix products, and the rest. None if it reports no device time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -721,9 +779,10 @@ def kernel_split(fn, reps=1):
             fn()
         torch.cuda.synchronize()
     out = dict.fromkeys(("K6", "K7", "K8", "experts", "dispatch/combine",
-                         "gemm", "other"), 0.0)
+                         "attn_bwd", "gemm", "other"), 0.0)
     spans = {"moe.experts": "experts", "moe.dispatch": "dispatch/combine",
-             "moe.combine": "dispatch/combine"}
+             "moe.combine": "dispatch/combine",
+             "flash_attention.bwd": "attn_bwd"}
     own = {"flash_attention_kernel": "K6", "rwkv_chunk_kernel": "K7",
            "ssm_scan_kernel": "K8"}
     # the card's work by name; K6-K8 are launched through ctypes, so no
@@ -1041,6 +1100,298 @@ def learn_phase(dev, card) -> None:
           f"column's max |ref|")
     check(agree >= LEARN_FIDX_AGREE,
           f"learn engines: dataset fidx agreement >= {LEARN_FIDX_AGREE}")
+
+
+# ---------------------------------------------------------------------------
+# phase 12: training
+# ---------------------------------------------------------------------------
+
+
+def k6_grad_checks(dev, card) -> None:
+    """K6's gradient (``FlashAttention``: the forward on K6, one launch;
+    the backward ``flash_attention_bshd_bwd`` in PyTorch operations, no
+    launch) against autograd through the plain version in f32, at the
+    three training layouts, from f32 and from bf16 inputs."""
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and not torch.backends.cudnn.allow_tf32,
+          "TF32 is off for the f32 gradient checks")
+    for arch, (B, S, H, Hkv, hd, w, pre) in K6_GRAD_LAYOUTS.items():
+        rng = np.random.default_rng(S + H)
+        arrs = [rng.standard_normal(shp).astype(np.float32)
+                for shp in ((B, S, H, hd), (B, S, Hkv, hd), (B, S, Hkv, hd),
+                            (B, S, H, hd))]
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v, do = (torch.as_tensor(a).to(dev, dt) for a in arrs)
+            # a batch row at a time: the rows' gradients are independent,
+            # and a row's graph holds its (H, S, block) tiles
+            want = [torch.empty(t.shape, dtype=torch.float32, device=dev)
+                    for t in (q, k, v)]
+            for b in range(B):
+                qs, ks, vs = (t[b:b + 1].float().requires_grad_()
+                              for t in (q, k, v))
+                out = FA.flash_attention_bshd_ref(
+                    qs, ks, vs, causal=True, window=w, prefix_len=pre)
+                for dst, g in zip(want, torch.autograd.grad(
+                        out, (qs, ks, vs), do[b:b + 1].float())):
+                    dst[b:b + 1] = g
+                del out
+            qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+            n = FA.flash_attention_bshd.launches
+            out = FA.FlashAttention.apply(qs, ks, vs, True, w, pre, 128)
+            got = torch.autograd.grad(out, (qs, ks, vs), do)
+            torch.cuda.synchronize()
+            check(FA.flash_attention_bshd.launches == n + 1,
+                  f"K6 gradient at {arch}'s layout: one K6 launch (the "
+                  f"forward), none in the backward")
+            errs = []
+            for name, a, b_ in zip("qkv", got, want):
+                errs.append(float((a.float() - b_).abs().max()
+                                  / b_.abs().max()))
+                check(a.dtype == dt and errs[-1] < K6_GRAD_TOL[dt],
+                      f"K6 gradient d{name} at {arch}'s training layout (B "
+                      f"{B} S {S} H {H} Hkv {Hkv} hd {hd} window {w} prefix "
+                      f"{pre}, {str(dt).split('.')[-1]}): {errs[-1]:.3e} of "
+                      f"its largest magnitude (limit {K6_GRAD_TOL[dt]})")
+            print(f"K6 gradient at {arch}'s layout ({str(dt).split('.')[-1]}"
+                  f"): dq {errs[0]:.3e}, dk {errs[1]:.3e}, dv {errs[2]:.3e} "
+                  f"of each one's largest magnitude against autograd "
+                  f"through the plain version in f32 on {card}", flush=True)
+            del q, k, v, do, want, qs, ks, vs, out, got
+        torch.cuda.empty_cache()
+
+
+def k6_train_row(dev, card, rows) -> None:
+    """K6 at musicgen-medium's training layout (bf16, B 4, S 4096, 24
+    heads of 64, causal) against its plain version, its device time, the
+    plain version's, the library's causal attention and its bound; and
+    the attention backward's time at the same layout (PyTorch
+    operations in f32: no kernel of its own)."""
+    B, S, H, Hkv, hd, _, _ = K6_GRAD_LAYOUTS[TRAIN_ARCH]
+    rng = np.random.default_rng(44)
+    q, k, v, do = (torch.as_tensor(rng.standard_normal(shp).astype(
+        np.float32)).to(dev, torch.bfloat16) for shp in (
+            (B, S, H, hd), (B, S, Hkv, hd), (B, S, Hkv, hd), (B, S, H, hd)))
+    got = FA.flash_attention_bshd(q, k, v)
+    want = FA.flash_attention_bshd_ref(q, k, v)
+    torch.cuda.synchronize()
+    rtol, atol = K6_TOL[torch.bfloat16]
+    row = rows[K6_TRAIN_ROW] = dict(max_abs_err=compare(
+        f"{K6_TRAIN_ROW}[bf16, B {B} S {S} H {H} hd {hd} causal]",
+        got.float(), want.float(), rtol=rtol, atol=atol))
+    del want
+    row["ms"] = device_ms(lambda: FA.flash_attention_bshd(q, k, v),
+                          K6_TRAIN_ROW)
+    row["plain_ms"] = time_events(
+        lambda: FA.flash_attention_bshd_ref(q, k, v), reps=3, warm=1)
+    ops = attention_flops(B, S, H, hd)
+    row["bound_ms"], row["bound_by"] = bound_ms(nbytes(q, k, v, q), ops,
+                                                BF16_FLOP_PER_S)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    row["library_ms"] = time_events(
+        lambda: sdpa(qt, kt, vt, is_causal=True), reps=20, warm=3)
+    if row["ms"] is not None:
+        print(f"time {K6_TRAIN_ROW}: device {row['ms'] * 1e3:.2f} us per "
+              f"call, plain {row['plain_ms'] * 1e3:.1f} us, bound "
+              f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}), "
+              f"scaled_dot_product_attention {row['library_ms'] * 1e3:.2f} "
+              f"us on {card}", flush=True)
+    bwd = lambda: FA.flash_attention_bshd_bwd(q, k, v, got, do)  # noqa: E731
+    bwd_ms = time_events(bwd, reps=5, warm=1)
+    # five products over the kept pairs (q k^T again, dv, dp, dq, dk):
+    # 2.5x the forward's operations; the port also recomputes each row's
+    # log-sum-exp (a sixth)
+    bwd_ops = 2.5 * ops
+    print(f"time K6 backward (flash_attention_bshd_bwd, PyTorch operations "
+          f"in f32) at {TRAIN_ARCH}'s training layout: {bwd_ms:.2f} ms per "
+          f"call (events); bound {bwd_ops / BF16_FLOP_PER_S * 1e3:.3f} ms "
+          f"at the bf16 tensor-core rate, "
+          f"{bwd_ops / F32_FLOP_PER_S * 1e3:.3f} ms at the f32 rate, on "
+          f"{card}", flush=True)
+    del q, k, v, do, got, qt, kt, vt
+    torch.cuda.empty_cache()
+
+
+def _state_leaves(state):
+    out = {"params/" + k: p for k, p in state["params"].named_parameters()}
+    out.update({"m/" + k: t for k, t in state["opt"].m.items()})
+    out.update({"v/" + k: t for k, t in state["opt"].v.items()})
+    out["count"], out["step"] = state["opt"].count, state["step"]
+    return out
+
+
+def train_phase(dev, card, rows) -> None:
+    """musicgen-medium at full width through ``launch.train.train`` (K6
+    forward and recompute, the DVFS manager, the final checkpoint
+    restored bit for bit), one step's device time by class, then
+    granite-moe-1b-a400m through ``make_train_step``."""
+    cfg = get_config(TRAIN_ARCH)
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        tc = TrainConfig(total_steps=TRAIN_STEPS, warmup_steps=1,
+                         microbatches=TRAIN_MB, checkpoint_every=0,
+                         checkpoint_dir=ckdir)
+        # the checkpoint: params as f32, m and v (4 bytes each), count, step
+        need = 12 * cfg.n_params
+        free = shutil.disk_usage(ckdir).free
+        print(f"train {TRAIN_ARCH}: {cfg.n_params / 1e9:.3f} B parameters, "
+              f"{cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} heads"
+              f" of {cfg.resolved_head_dim}; shape {TRAIN_SHAPE.global_batch}"
+              f" x {TRAIN_SHAPE.seq_len} a step in {TRAIN_MB} microbatches "
+              f"(TRAIN_4K's {TRAIN_4K.seq_len} tokens; its "
+              f"{TRAIN_4K.global_batch} sequences a step cut to "
+              f"{TRAIN_SHAPE.global_batch}), {TRAIN_STEPS} steps, remat "
+              f"{cfg.remat}; checkpoint ~{need / 1e9:.1f} GB, "
+              f"{free / 1e9:.1f} GB free under {ckdir} on {card}",
+              flush=True)
+        check(free >= need * 1.05,
+              f"train {TRAIN_ARCH}: {free / 1e9:.1f} GB free under {ckdir} "
+              f"for its ~{need / 1e9:.1f} GB checkpoint")
+        if free < need * 1.05:
+            return
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_lm_counts()
+        log = {}
+        t0 = time.perf_counter()
+        state, losses = train(cfg, tc, TRAIN_SHAPE, steps=TRAIN_STEPS,
+                              resume=False, dvfs=True, log_every=1,
+                              device=dev, log=log)
+        wall = time.perf_counter() - t0
+        n6 = FA.flash_attention_bshd.launches
+        peak = torch.cuda.max_memory_allocated()
+        rows[K6_TRAIN_ROW]["launches"] = n6
+        steps = log["steps"]
+        secs = [s["seconds"] for s in steps]
+        tokens = TRAIN_SHAPE.global_batch * TRAIN_SHAPE.seq_len
+        steady = secs[1:] or secs
+        mean_s = sum(steady) / len(steady)
+        print(f"train {TRAIN_ARCH}: losses {[round(x, 4) for x in losses]}, "
+              f"grad_norm {[round(s['grad_norm'], 4) for s in steps]}, lr "
+              f"{[s['lr'] for s in steps]} on {card}", flush=True)
+        print(f"time train {TRAIN_ARCH}: step seconds "
+              f"{[round(x, 3) for x in secs]} (the first with the first "
+              f"call's set-up), {mean_s:.3f} s a step over steps 2-"
+              f"{len(secs)}, {tokens / mean_s:.0f} tokens/s; peak memory "
+              f"{peak / 2 ** 30:.2f} GiB (torch.cuda.max_memory_allocated); "
+              f"final save {log['save_s']:.2f} s; train() {wall:.1f} s on "
+              f"{card}", flush=True)
+        check(len(losses) == TRAIN_STEPS
+              and all(math.isfinite(x) for x in losses)
+              and abs(losses[0] - math.log(cfg.vocab)) < 1.0,
+              f"train {TRAIN_ARCH}: {len(losses)} finite losses, the first "
+              f"{losses[0]:.4f} within 1.0 of ln {cfg.vocab} = "
+              f"{math.log(cfg.vocab):.4f}")
+        check(all(math.isfinite(s["grad_norm"]) for s in steps),
+              f"train {TRAIN_ARCH}: grad_norm finite")
+        # every layer of every microbatch, forward and the full remat's
+        # recompute: 192 a step
+        per_step = cfg.n_layers * TRAIN_MB * 2
+        check(n6 == TRAIN_STEPS * per_step,
+              f"train {TRAIN_ARCH}: K6 {n6} launches == {TRAIN_STEPS} steps "
+              f"x {per_step} ({cfg.n_layers} layers x {TRAIN_MB} "
+              f"microbatches x forward and recompute)")
+        rep = log.get("dvfs", {})
+        check(bool(rep) and all(math.isfinite(rep[k]) for k in
+                                ("ed2p_norm", "energy_norm", "accuracy"))
+              and rep["step_time"]["n_steps"] == TRAIN_STEPS,
+              f"train {TRAIN_ARCH}: DVFS report ({rep.get('step_time')})")
+        if rep:
+            print(f"train {TRAIN_ARCH} DVFS report: ED2P "
+                  f"{rep['ed2p_norm']:.4f} energy {rep['energy_norm']:.4f} "
+                  f"delay {rep['delay_norm']:.4f} accuracy "
+                  f"{rep['accuracy']:.4f}, mean step "
+                  f"{rep['step_time']['mean_step_s']:.3f} s on {card}",
+                  flush=True)
+        # the parameters moved from the initial state, and the final
+        # checkpoint restores bit for bit into it
+        fresh = init_state(cfg, tc, tc.seed, dev)
+        trained = dict(state["params"].named_parameters())
+        still = [k for k, p in fresh["params"].named_parameters()
+                 if torch.equal(p, trained[k])]
+        del trained
+        check(not still, f"train {TRAIN_ARCH}: every parameter moved "
+                         f"({len(still)} did not: {still[:4]})")
+        ck_bytes = sum(f.stat().st_size for f in Path(ckdir).rglob("*.npz"))
+        t0 = time.perf_counter()
+        fresh, last = CK.restore(fresh, ckdir)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        a, b = _state_leaves(fresh), _state_leaves(state)
+        differ = [k for k in a if not torch.equal(a[k].detach(),
+                                                  b[k].detach())]
+        check(last == TRAIN_STEPS - 1 and not differ,
+              f"train {TRAIN_ARCH}: the step-{last} checkpoint "
+              f"({ck_bytes / 1e9:.2f} GB of npz) restores bit for bit "
+              f"({len(differ)} of {len(a)} leaves differ)")
+        print(f"time train {TRAIN_ARCH} checkpoint: save {log['save_s']:.2f}"
+              f" s, restore {t_restore:.2f} s for {ck_bytes / 1e9:.2f} GB "
+              f"(the read warm: just written) on {card}", flush=True)
+        del fresh, a, b
+        torch.cuda.empty_cache()
+        # one step's device time by class (torch.profiler): K6 forward and
+        # recompute, the attention backward, the other matrix products,
+        # the rest
+        step = make_train_step(cfg, tc)
+        batch = make_batch(cfg, TRAIN_SHAPE, TRAIN_STEPS,
+                           microbatches=TRAIN_MB, device=dev)
+        split = kernel_split(lambda: step(state, batch))
+        if split is None:
+            print(f"train {TRAIN_ARCH}: the profiler reported no device "
+                  f"time", flush=True)
+        else:
+            tot = sum(split.values())
+            print(f"time train {TRAIN_ARCH} one step's device time "
+                  f"(profiler): {tot:.1f} ms (a step {mean_s * 1e3:.1f} ms "
+                  f"of wall above): K6 {split['K6']:.1f} ms "
+                  f"({split['K6'] / tot:.1%}), attention backward "
+                  f"{split['attn_bwd']:.1f} ms "
+                  f"({split['attn_bwd'] / tot:.1%}), GEMM "
+                  f"{split['gemm']:.1f} ms ({split['gemm'] / tot:.1%}), "
+                  f"rest {split['other']:.1f} ms "
+                  f"({split['other'] / tot:.1%}) on {card}", flush=True)
+        del state, batch, step
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # granite-moe-1b-a400m: the MoE aux loss in a full-width step
+    cfg = get_config(MOE_TRAIN_ARCH)
+    tc = TrainConfig(total_steps=2, warmup_steps=1, microbatches=1)
+    state = init_state(cfg, tc, 0, dev)
+    before = {k: p.detach().clone()
+              for k, p in state["params"].named_parameters()}
+    step = make_train_step(cfg, tc)
+    reset_lm_counts()
+    secs, mets = [], []
+    for i in range(2):
+        batch = make_batch(cfg, MOE_TRAIN_SHAPE, i, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        mets.append({k: float(x) for k, x in m.items()})
+        secs.append(time.perf_counter() - t0)
+    n6 = FA.flash_attention_bshd.launches
+    still = [k for k, p in state["params"].named_parameters()
+             if torch.equal(p, before[k])]
+    print(f"time train {MOE_TRAIN_ARCH} (make_train_step, "
+          f"{MOE_TRAIN_SHAPE.global_batch} x {MOE_TRAIN_SHAPE.seq_len}, one "
+          f"microbatch): step seconds {[round(x, 3) for x in secs]}, losses "
+          f"{[round(x['loss'], 4) for x in mets]}, aux "
+          f"{[round(x['aux'], 4) for x in mets]}, grad_norm "
+          f"{[round(x['grad_norm'], 4) for x in mets]}, K6 {n6} launches on "
+          f"{card}", flush=True)
+    check(all(math.isfinite(x[k]) for x in mets
+              for k in ("loss", "aux", "grad_norm"))
+          and all(x["aux"] > 0 for x in mets),
+          f"train {MOE_TRAIN_ARCH}: loss, aux and grad_norm finite, aux > 0")
+    check(n6 == 2 * cfg.n_layers * 2,
+          f"train {MOE_TRAIN_ARCH}: K6 {n6} launches == 2 steps x "
+          f"{cfg.n_layers} layers x forward and recompute")
+    check(not still, f"train {MOE_TRAIN_ARCH}: every parameter moved "
+                     f"({len(still)} did not: {still[:4]})")
+    del state, before, step, batch
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -2023,7 +2374,13 @@ def main() -> int:
         check_s = DECODE_S if cfg.moe is None else MOE_DECODE_S
         for dtype in ("bfloat16", "float32"):
             vcfg = dataclasses.replace(cfg, dtype=dtype)
+            if dtype == "float32":
+                vcfg = dataclasses.replace(vcfg, n_layers=min(
+                    cfg.n_layers, F32_DECODE_LAYERS))
             dcfg = dataclasses.replace(vcfg, frontend="none")
+            # launches per prefill and per decode step at this depth
+            want_d = tuple(vcfg.n_layers if w else 0 for w in want)
+            want_step_d = vcfg.n_layers if want_step else 0
             torch.cuda.empty_cache()
             params = LM.init_params(dcfg, 1, dev)
             toks = torch.as_tensor(np.random.default_rng(8).integers(
@@ -2031,9 +2388,10 @@ def main() -> int:
             n0 = lm_counts()[:3]
             MOE.moe_layer.dropped = 0
             full = LM.prefill(params, dcfg, {"tokens": toks[:1, :check_s]})
-            check(lm_counts()[:3] == tuple(a + b for a, b in zip(n0, want)),
+            check(lm_counts()[:3] == tuple(a + b for a, b in zip(n0,
+                                                                 want_d)),
                   f"{arch} {dtype} prefill at S {check_s}: one {kernel} "
-                  f"launch per layer")
+                  f"launch per layer ({vcfg.n_layers} layers)")
             if cfg.moe is not None:
                 dropped = int(MOE.moe_layer.dropped)
                 check(dropped == 0, f"{arch} {dtype} prefill at S "
@@ -2050,10 +2408,11 @@ def main() -> int:
                                                toks[:1, i])
             del cache
             check(lm_counts()[:3] == (n0[0], n0[1],
-                                      n0[2] + check_s * want_step),
-                  f"{arch} {dtype} decode x {check_s}: {want_step} K8 "
+                                      n0[2] + check_s * want_step_d),
+                  f"{arch} {dtype} decode x {check_s}: {want_step_d} K8 "
                   f"launches per step, no K6 or K7")
-            tag = f"{arch} {dtype} decode x {check_s} vs prefill logits"
+            tag = (f"{arch} {dtype} ({vcfg.n_layers} layers) decode x "
+                   f"{check_s} vs prefill logits")
             if dtype == "float32":
                 compare(tag, logits, full, rtol=DECODE_TOL, atol=DECODE_TOL)
             else:
@@ -2124,6 +2483,11 @@ def main() -> int:
     k4_learn_cases(dev, rows["epoch_fused[fork]"])
     learn_phase(dev, card)
 
+    # ---- 12. training ------------------------------------------------------
+    k6_grad_checks(dev, card)
+    k6_train_row(dev, card, rows)
+    train_phase(dev, card, rows)
+
     replaces = {
         "pc_table_predict": "src/repro/kernels/pc_table.py:67",
         "pc_table_update": "src/repro/kernels/pc_table.py:132",
@@ -2134,7 +2498,7 @@ def main() -> int:
         "epoch_fused[fork]": "src/repro/kernels/epoch_fused.py:748",
         "epoch_fused[fork_blocked]": "src/repro/kernels/epoch_fused.py:648",
         **{key: "src/repro/kernels/flash_attention.py:73"
-           for key, _ in K6_ROWS.values()},
+           for key in [k for k, _ in K6_ROWS.values()] + [K6_TRAIN_ROW]},
         "rwkv_chunked": "src/repro/kernels/rwkv_chunk.py:79",
         # K8 replaces no TPU kernel: the reference's scan is a lax.scan
         "ssm_scan": "src/repro/models/ssm.py:16",
@@ -2150,7 +2514,7 @@ def main() -> int:
         rwkv_chunked="src/repro_torch/kernels/csrc/rwkv_chunk.cu",
         ssm_scan="src/repro_torch/kernels/csrc/ssm_scan.cu",
         **{key: "src/repro_torch/kernels/csrc/flash_attention.cu"
-           for key, _ in K6_ROWS.values()})
+           for key in [k for k, _ in K6_ROWS.values()] + [K6_TRAIN_ROW]})
     kernels = []
     for key in replaces:
         r = rows[key]

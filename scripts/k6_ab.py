@@ -12,9 +12,12 @@ one card.
 Each run builds the tree's kernel library (under the tree's own
 ``build/``), then times ``flash_attention_bshd`` at batch 4 and 2048
 tokens at each layout the tree's K6 takes (the model's window, and its
-prefix where the tree has ``prefix_len``), inputs from numpy seed 41.
-``--compare`` prints each layout's microseconds per call, run by run, and
-the card's name and power limit.
+prefix where the tree has ``prefix_len``), inputs from numpy seed 41;
+and the entry the models call, ``ops.flash_attention`` (over inputs that
+need no gradient, as a prefill's), by the same method and by events over
+back-to-back calls (with the host). ``--compare`` prints each layout's
+microseconds per call, run by run, and the card's name and power
+limit.
 """
 from __future__ import annotations
 
@@ -45,6 +48,7 @@ def run(src: Path, out: Path) -> int:
 
     import devtime as DT
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
     if not torch.cuda.is_available():
         print("k6_ab: needs a CUDA card", file=sys.stderr)
         return 2
@@ -54,7 +58,8 @@ def run(src: Path, out: Path) -> int:
     res = {"src": str(src), "card": subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()[0], "us": {}}
+        timeout=60).stdout.strip().splitlines()[0], "us": {}, "ops_us": {},
+        "ops_events_us": {}}
     for name, H, Hkv, hd, window, prefix in LAYOUTS:
         if hd not in FA.HEAD_DIMS or (prefix and not has_prefix):
             continue
@@ -67,6 +72,10 @@ def run(src: Path, out: Path) -> int:
             kw["prefix_len"] = prefix
         ms = DT.device_ms(lambda: FA.flash_attention_bshd(q, k, v, **kw), 100)
         res["us"][name] = None if ms is None else ms * 1e3
+        ms = DT.device_ms(lambda: ops.flash_attention(q, k, v, **kw), 100)
+        res["ops_us"][name] = None if ms is None else ms * 1e3
+        res["ops_events_us"][name] = DT.events_ms(
+            lambda: ops.flash_attention(q, k, v, **kw)) * 1e3
     out.write_text(json.dumps(res))
     print(json.dumps(res), flush=True)
     return 0
@@ -77,10 +86,14 @@ def compare(paths) -> int:
     print(f"k6_ab on {runs[0]['card']}: us per call, "
           + ", ".join(f"{Path(p).stem} ({r['src']})"
                       for p, r in zip(paths, runs)))
-    for name, *_ in LAYOUTS:
-        vals = [r["us"].get(name) for r in runs]
-        print(f"  {name}: " + " / ".join(
-            "-" if v is None else f"{v:.2f}" for v in vals))
+    for key, what in (("us", "flash_attention_bshd, device"),
+                      ("ops_us", "ops.flash_attention, device"),
+                      ("ops_events_us", "ops.flash_attention, with the host")):
+        print(f" {what}:")
+        for name, *_ in LAYOUTS:
+            vals = [r.get(key, {}).get(name) for r in runs]
+            print(f"  {name}: " + " / ".join(
+                "-" if v is None else f"{v:.2f}" for v in vals))
     return 0
 
 

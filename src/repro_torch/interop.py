@@ -16,6 +16,8 @@ from repro_torch.core import power as PWR
 from repro_torch.core import predictors as PRED
 from repro_torch.core import simulate as SIM
 from repro_torch.core.workloads import Program
+from repro_torch.models.model import init_params
+from repro_torch.optim.adamw import OptState
 
 
 def _t(a, device: DeviceLike, dtype=torch.float32) -> torch.Tensor:
@@ -158,4 +160,26 @@ def params_from_numpy(cfg, tree) -> dict:
                 walk(val, f"layers.{i}.", i)
         else:
             out[key] = _leaf(val)
+    return out
+
+
+def state_from_numpy(cfg, state, device: DeviceLike = "cpu") -> dict:
+    """The port's training state (``train.train_step.init_state``'s
+    layout) from the reference's ``TrainState`` with numpy leaves:
+    ``params`` (a trainable params tree), ``opt`` (``OptState`` of the m
+    and v dicts by the params' names and ``count``), ``step`` and, under
+    int8_ef, ``ef``."""
+    dev = resolve_device(device)
+
+    def tree(t):
+        return {k: v.to(dev) for k, v in params_from_numpy(cfg, t).items()}
+
+    params = init_params(cfg, 0, dev, trainable=True)
+    params.load_state_dict(tree(state["params"]))
+    m, v, count = state["opt"]
+    out = {"params": params,
+           "opt": OptState(tree(m), tree(v), _t(count, dev, torch.int32)),
+           "step": _t(state["step"], dev, torch.int32)}
+    if "ef" in state:
+        out["ef"] = tree(state["ef"])
     return out

@@ -33,10 +33,20 @@ Head dims 16, 32, 64, 96, 128 and 256; at 256 the bf16 kernel's K ring
 holds two 64-key sub-tiles, so a key block is at most 128 keys there.
 On a CPU tensor it runs the plain version on the reference's expanded
 (B*H,S,hd) layout.
+
+:class:`FlashAttention` makes K6 differentiable. The reference has no
+backward kernel (no ``custom_vjp``): its training differentiates the jnp
+attention with XLA, and so :func:`flash_attention_bshd_bwd` computes dq,
+dk and dv in PyTorch operations, key block by key block in f32, as that
+transpose does. A Hopper backward kernel would be the port's own (ROADMAP
+queue B).
 """
 from __future__ import annotations
 
+import math
+
 import torch
+from torch.profiler import record_function
 
 from repro_torch.kernels import check, library, require, stream_ptr
 
@@ -48,6 +58,13 @@ MAX_BLK_K = 256
 # holds fewer than MAX_BLK_K keys (two 64-key sub-tiles at 256)
 RING_BLK_K = {256: 128}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the backward's key block: it holds one (B, H, rows, BWD_BLK_K) f32 tile
+# of scores at a time (two with dp), never (S x S). At musicgen-medium's
+# training layout (B 4, 24 heads, S 4096) a tile is 403 MB; under a
+# causal mask the rows above a block are skipped, and the diagonal
+# blocks' masked halves cost 1/(S/BWD_BLK_K + 1) of the work: 6% at 256,
+# 11% at 512 (805 MB a tile)
+BWD_BLK_K = 256
 
 
 def _key_block(S: int, blk_k: int) -> int:
@@ -183,3 +200,128 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         window=window, prefix_len=prefix_len, blk_q=blk_q,
         blk_k=blk_k)[:, :, 0]
 
+
+def _bwd_rows(c0: int, c1: int, S: int, causal: bool, window: int,
+              prefix_len: int):
+    """The query rows [r0, r1) that see a key of [c0, c1) under K6's mask
+    ``(causal & window) | (key < prefix_len)``."""
+    if c0 < prefix_len:
+        return 0, S
+    r0 = c0 if causal else 0
+    r1 = min(S, c1 - 1 + window) if window > 0 else S
+    return r0, r1
+
+
+def flash_attention_bshd_bwd(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, out: torch.Tensor,
+                             dout: torch.Tensor, *, causal: bool = True,
+                             window: int = 0, prefix_len: int = 0,
+                             blk_k: int = BWD_BLK_K):
+    """dq, dk, dv of ``out = flash_attention_bshd(q, k, v, ...)`` for the
+    output gradient ``dout``, each in its input's dtype, in PyTorch
+    operations on any device. q/out/dout (B,S,H,hd), k/v (B,S,Hkv,hd).
+
+    K6 returns no log-sum-exp, so each row's is recomputed from q and k
+    first. Then, key block by key block in f32 (``min(blk_k, S)``, the
+    largest common divisor where that does not divide S): ``p = exp(s -
+    lse)`` under K6's mask, ``D = rowsum(dout * out)``, ``dv = p^T
+    dout``, ``ds = p (dout v^T - D) scale``, ``dq += ds k``, ``dk = ds^T
+    q``. Query heads stay grouped by KV head (row ``s * rep + r`` of a KV
+    head's group), so each product over rows sums dk and dv over the
+    group, and a block only visits the rows that see one of its keys."""
+    B, S, H, hd = q.shape
+    Hkv = k.shape[2]
+    if H % Hkv:
+        raise ValueError(f"{H} query heads over {Hkv} KV heads")
+    _check_prefix(S, prefix_len)
+    rep = H // Hkv
+    bk = min(blk_k, S)
+    if S % bk:
+        bk = math.gcd(S, bk)
+    scale = 1.0 / (hd ** 0.5)
+    dev = q.device
+
+    def grouped(t):     # (B,S,H,hd) -> (B,Hkv,S*rep,hd) f32
+        return t.float().reshape(B, S, Hkv, rep, hd).permute(
+            0, 2, 1, 3, 4).reshape(B, Hkv, S * rep, hd)
+
+    def by_head(t):     # (B,S,Hkv,hd) -> (B,Hkv,S,hd) f32
+        return t.float().permute(0, 2, 1, 3).contiguous()
+
+    def scores(qr, kj, r0, r1, c0, c1):
+        """The block's scores, masked to -inf: (B,Hkv,(r1-r0)*rep,bk)."""
+        s = torch.matmul(qr, kj.transpose(-1, -2)).mul_(scale)
+        rows = torch.arange(r0, r1, device=dev)[:, None]
+        cols = torch.arange(c0, c1, device=dev)[None, :]
+        mask = torch.ones((r1 - r0, c1 - c0), dtype=torch.bool, device=dev)
+        if causal:
+            mask = mask & (cols <= rows)
+        if window > 0:
+            mask = mask & (cols > rows - window)
+        if prefix_len:
+            mask = mask | (cols < prefix_len)
+        s.view(B, Hkv, r1 - r0, rep, c1 - c0).masked_fill_(
+            ~mask[:, None, :], -math.inf)
+        return s
+
+    with record_function("flash_attention.bwd"):
+        qf, of, dof = grouped(q), grouped(out), grouped(dout)
+        kf, vf = by_head(k), by_head(v)
+        blocks = []
+        for c0 in range(0, S, bk):
+            r0, r1 = _bwd_rows(c0, c0 + bk, S, causal, window, prefix_len)
+            if r0 < r1:
+                blocks.append((c0, c0 + bk, r0, r1))
+        lse = torch.full((B, Hkv, S * rep), -math.inf, dtype=torch.float32,
+                         device=dev)
+        for c0, c1, r0, r1 in blocks:
+            rs = slice(r0 * rep, r1 * rep)
+            s = scores(qf[:, :, rs], kf[:, :, c0:c1], r0, r1, c0, c1)
+            lse[:, :, rs] = torch.logaddexp(lse[:, :, rs],
+                                            torch.logsumexp(s, -1))
+        # a row that sees no key: p = exp(s - inf) = 0
+        lse = torch.where(torch.isinf(lse), math.inf, lse)[..., None]
+        D = (dof * of).sum(-1, keepdim=True)
+        dq = torch.zeros_like(qf)
+        dk = torch.zeros_like(kf)
+        dv = torch.zeros_like(vf)
+        for c0, c1, r0, r1 in blocks:
+            rs = slice(r0 * rep, r1 * rep)
+            qr, dor = qf[:, :, rs], dof[:, :, rs]
+            kj, vj = kf[:, :, c0:c1], vf[:, :, c0:c1]
+            p = scores(qr, kj, r0, r1, c0, c1).sub_(lse[:, :, rs]).exp_()
+            dv[:, :, c0:c1] = torch.matmul(p.transpose(-1, -2), dor)
+            ds = torch.matmul(dor, vj.transpose(-1, -2)).sub_(
+                D[:, :, rs]).mul_(p).mul_(scale)
+            del p
+            dq[:, :, rs] += torch.matmul(ds, kj)
+            dk[:, :, c0:c1] = torch.matmul(ds.transpose(-1, -2), qr)
+        dq = dq.reshape(B, Hkv, S, rep, hd).permute(0, 2, 1, 3, 4).reshape(
+            B, S, H, hd)
+        return (dq.to(q.dtype), dk.permute(0, 2, 1, 3).to(k.dtype),
+                dv.permute(0, 2, 1, 3).to(v.dtype))
+
+
+class FlashAttention(torch.autograd.Function):
+    """K6 with a gradient: the forward is :func:`flash_attention_bshd`
+    (the kernel on a CUDA tensor, its plain version on a CPU tensor), the
+    backward :func:`flash_attention_bshd_bwd`. q, k, v and the output are
+    saved only where an input needs a gradient, so a forward over frozen
+    weights (serving) saves nothing. Under a non-reentrant checkpoint the
+    recompute launches K6 again and saves its own tensors."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, prefix_len, blk_k):
+        out = flash_attention_bshd(q, k, v, causal=causal, window=window,
+                                   prefix_len=prefix_len, blk_k=blk_k)
+        ctx.opts = dict(causal=causal, window=window, prefix_len=prefix_len)
+        if any(ctx.needs_input_grad[:3]):
+            ctx.save_for_backward(q, k, v, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bshd_bwd(q, k, v, out, dout,
+                                              **ctx.opts)
+        return dq, dk, dv, None, None, None, None

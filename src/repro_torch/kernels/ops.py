@@ -3,7 +3,8 @@
 ``flash_attention`` takes the model's (B,S,H,hd) layout with grouped KV
 heads and ``rwkv_chunked`` the reference's (BH,T,hd) one. Each launches
 its CUDA kernel (K6, K7) on a CUDA tensor and runs the plain version on a
-CPU tensor; the launches are counted in
+CPU tensor; ``flash_attention`` is differentiable
+(``flash_attention.FlashAttention``). The launches are counted in
 ``flash_attention.flash_attention_bshd.launches`` and
 ``rwkv_chunk.rwkv_chunked_bthd.launches``.
 """
@@ -24,10 +25,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     effect (K6 tiles its own query rows); keys are walked in blocks of
     ``min(blk_k, S)``, which must divide S. ``prefix_len`` (the port's,
     the reference's jnp attention has it): every row also sees the first
-    ``prefix_len`` keys."""
-    return _fa.flash_attention_bshd(q, k, v, causal=causal, window=window,
-                                    prefix_len=prefix_len, blk_q=blk_q,
-                                    blk_k=blk_k)
+    ``prefix_len`` keys. Gradients reach q, k and v through
+    ``flash_attention.flash_attention_bshd_bwd``."""
+    return _fa.FlashAttention.apply(q, k, v, causal, window, prefix_len,
+                                    blk_k)
 
 
 def rwkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1,9 +1,10 @@
-"""The LM model zoo (port of ``repro.models``): families dense, audio, moe
-and ssm."""
+"""The LM model zoo (port of ``repro.models``): families dense, audio,
+moe, hybrid, vlm and ssm."""
 from repro_torch.models.model import (  # noqa: F401
     backbone,
     decode_step,
     init_cache,
     init_params,
+    loss_fn,
     prefill,
 )

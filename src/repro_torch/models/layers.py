@@ -12,8 +12,9 @@ as the reference's other paths do. The reference's ``_mha_block`` and
 ``_causal_pair_attention`` are its jnp route to the same function and are
 not ported; the reference rounds softmax probabilities to the value dtype
 before the second product (``_mha_block``), K6 keeps them in f32 (in
-bf16 through two bf16 terms, ``p_hi + p_lo``, to 2^-17).
-``chunked_ce_loss`` comes with training.
+bf16 through two bf16 terms, ``p_hi + p_lo``, to 2^-17). ``attention``
+is differentiable (K6's forward, its backward in PyTorch operations).
+``chunked_ce_loss`` is training's cross-entropy.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 
@@ -87,3 +89,41 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 def swiglu(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
            w2: torch.Tensor) -> torch.Tensor:
     return (F.silu(x @ w1) * (x @ w3)) @ w2
+
+
+def _ce_chunk(x: torch.Tensor, emb_out: torch.Tensor, labels: torch.Tensor,
+              mask: torch.Tensor) -> torch.Tensor:
+    """The masked NLL sum of one chunk: x (B,c,D) and emb_out (V,D) f32."""
+    logits = x.float() @ emb_out.T
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return ((lse - gold) * mask).sum()
+
+
+def chunked_ce_loss(x: torch.Tensor, emb_out: torch.Tensor,
+                    labels: torch.Tensor, mask: torch.Tensor,
+                    chunk: int = 512) -> torch.Tensor:
+    """x (B,S,D) final hidden; emb_out (V,D); labels/mask (B,S), mask f32.
+
+    The mean softmax cross-entropy over the masked positions (the count
+    taken as at least 1), in f32, over sequence chunks of ``chunk`` (S
+    where that does not divide S), as the reference scans them. Each
+    chunk runs under a non-reentrant checkpoint when grad is enabled, so
+    its (B, chunk, V) logits are recomputed in the backward and the
+    (tokens x V) logits never exist whole in either pass."""
+    B, S, D = x.shape
+    if S % chunk:
+        chunk = S
+    w = emb_out.float()
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, S, chunk):
+        sl = slice(c0, c0 + chunk)
+        args = (x[:, sl], w, labels[:, sl], mask[:, sl])
+        if torch.is_grad_enabled():
+            nll = checkpoint(_ce_chunk, *args, use_reentrant=False)
+        else:
+            nll = _ce_chunk(*args)
+        tot = tot + nll
+        cnt = cnt + mask[:, sl].sum()
+    return tot / torch.clamp(cnt, min=1.0)

@@ -1,4 +1,5 @@
-"""Model zoo: init, prefill and decode (port of ``repro.models.model``),
+"""Model zoo: init, prefill, decode and the training loss (port of
+``repro.models.model``),
 families ``dense`` (decoder transformer: GQA, RoPE, SwiGLU), ``audio``
 (the same decoder over EnCodec token ids: the reference's frontend is a
 stub and its audio family takes the dense path), ``moe`` (dense attention
@@ -13,11 +14,20 @@ time-mix / channel-mix).
 Parameters are an ``nn.Module`` tree whose names follow the reference's
 params tree: ``embed``, ``layers.<i>.attn.wq``, ``layers.<i>.tm.mu_r``,
 ``final_norm``, ``lm_head``; each node is indexed like the reference's dict
-(``lp["attn"]["wq"]``). The reference stacks the layers on a leading axis
-and scans them under remat; here they are an ``nn.ModuleList`` walked by
-a Python loop (no remat: that is for training). The reference's
+(``lp["attn"]["wq"]``). The parameters are frozen (``requires_grad``
+False) unless ``init_params(..., trainable=True)`` or
+``params.requires_grad_(True)`` asks for gradients. The reference stacks
+the layers on a leading axis and scans them under remat; here they are an
+``nn.ModuleList`` walked by a Python loop, each layer under
+``torch.utils.checkpoint`` by ``cfg.remat`` when grad is enabled (the
+prefill runs without grad and without remat). The reference's
 ``act_sharding.shard_*`` constraints are no-ops outside a mesh and are
 dropped (one card).
+
+:func:`loss_fn` is the reference's: chunked cross-entropy plus the MoE
+aux loss, for the families whose blocks are attention and an FFN (dense,
+audio, vlm, moe). The ssm and hybrid families raise: their kernels K7
+and K8 have no gradient yet (ROADMAP queue A).
 
 The decode cache is a dict of tensors as the reference's, updated in
 place by :func:`decode_step` (the reference returns a new one). Prefill
@@ -25,11 +35,14 @@ writes nothing into it.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -41,6 +54,8 @@ from repro_torch.models import ssm as SSM
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 # the families the port serves (every family of the model zoo)
 SERVED_FAMILIES = ("dense", "audio", "moe", "hybrid", "vlm", "ssm")
+# the families loss_fn differentiates: attention (K6) and an FFN per block
+TRAINED_FAMILIES = ("dense", "audio", "moe", "vlm")
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -52,12 +67,15 @@ def _check_family(cfg: ModelConfig) -> None:
             cfg.frontend not in ("none", "audio", "vision"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} (frontend {cfg.frontend!r})"
-            " is not ported: ROADMAP queue A, the rest of the model zoo")
+            f" is no family of the model zoo: the port serves "
+            f"{SERVED_FAMILIES} with frontends none, audio and vision; "
+            "another would be a new ROADMAP queue-A item")
 
 
 class Tree(nn.Module):
-    """A node of the params tree: sub-trees and frozen parameters by the
-    reference's keys, read with ``node["key"]``."""
+    """A node of the params tree: sub-trees and parameters (frozen until
+    ``requires_grad_(True)``) by the reference's keys, read with
+    ``node["key"]``."""
 
     def __init__(self, leaves: Dict[str, object]):
         super().__init__()
@@ -170,11 +188,12 @@ def _init_moe(init: _Init, cfg: ModelConfig, dt, out_scale) -> dict:
 
 
 def init_params(cfg: ModelConfig, seed: int = 0,
-                device: DeviceLike = "cuda") -> Tree:
+                device: DeviceLike = "cuda", trainable: bool = False) -> Tree:
     """Random weights from ``seed`` with the reference's distributions and
     constants (normal x 0.02; output projections x 1/sqrt(2L); mu 0.5,
-    w0 -1, u 0, norms 0). The bits differ from the reference's
-    ``jax.random``; ``interop.params_from_numpy`` carries its weights."""
+    w0 -1, u 0, norms 0), frozen unless ``trainable``. The bits differ
+    from the reference's ``jax.random``; ``interop.params_from_numpy``
+    carries its weights."""
     _check_family(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
@@ -186,7 +205,7 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     p["final_norm"] = init.full((cfg.d_model,), 0.0)
     if not cfg.tie_embeddings:
         p["lm_head"] = init.normal((cfg.vocab, cfg.d_model), _dtype(cfg))
-    return Tree(p)
+    return Tree(p).requires_grad_(trainable)
 
 
 def _emb_out(params: Tree) -> torch.Tensor:
@@ -194,7 +213,7 @@ def _emb_out(params: Tree) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Forward (prefill)
+# Forward (prefill and training)
 # ---------------------------------------------------------------------------
 
 
@@ -221,16 +240,16 @@ def _attn_block(x, p, cfg: ModelConfig, positions, prefix_len=0):
 
 
 def _ffn(h, lp, cfg: ModelConfig):
-    """The block's FFN: the MoE layer (its aux loss is training's) or the
-    dense SwiGLU."""
+    """The block's FFN: (y, aux), the MoE layer with its load-balance aux
+    loss or the dense SwiGLU with aux 0."""
     if cfg.moe is not None:
-        return MOE.moe_layer(h, lp["moe"], cfg.moe)[0]
+        return MOE.moe_layer(h, lp["moe"], cfg.moe)
     mlp = lp["mlp"]
-    return L.swiglu(h, mlp["w1"], mlp["w3"], mlp["w2"])
+    return L.swiglu(h, mlp["w1"], mlp["w3"], mlp["w2"]), 0.0
 
 
 def _layer_fwd(x, lp, cfg: ModelConfig, positions, prefix_len=0):
-    """One block of the prefill."""
+    """One block: (x, aux)."""
     if cfg.family == "ssm":
         B, d = x.shape[0], cfg.d_model
         hd = cfg.resolved_head_dim
@@ -241,7 +260,7 @@ def _layer_fwd(x, lp, cfg: ModelConfig, positions, prefix_len=0):
         x = x + y
         h = L.rms_norm(x, lp["norm2"], cfg.norm_eps)
         y, _ = RWKV.channel_mix(h, zeros, lp["cm"])
-        return x + y
+        return x + y, 0.0
     h = L.rms_norm(x, lp["norm1"], cfg.norm_eps)
     a = _attn_block(h, lp["attn"], cfg, positions, prefix_len)
     if cfg.family == "hybrid":
@@ -252,7 +271,8 @@ def _layer_fwd(x, lp, cfg: ModelConfig, positions, prefix_len=0):
         s, _ = SSM.mamba_head(h, lp["mamba"], st, hd, ssm.state_size)
         a = _mix_heads(a, s, lp, cfg)
     x = x + a
-    return x + _ffn(L.rms_norm(x, lp["norm2"], cfg.norm_eps), lp, cfg)
+    y, aux = _ffn(L.rms_norm(x, lp["norm2"], cfg.norm_eps), lp, cfg)
+    return x + y, aux
 
 
 def _mix_heads(a, s, lp, cfg: ModelConfig):
@@ -277,21 +297,74 @@ def embed_inputs(params: Tree, cfg: ModelConfig,
     return tok, 0
 
 
+def _dots_saveable(ctx, op, *args, **kwargs):
+    """The ``"dots"`` remat policy: keep the matrix products' outputs,
+    recompute the rest (the reference's
+    ``dots_with_no_batch_dims_saveable``; here batched products too)."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.bmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(layer_fn, cfg: ModelConfig):
+    """``layer_fn`` under the reference's remat policy ``cfg.remat``:
+    ``"full"`` saves each layer's inputs and recomputes the layer in the
+    backward, ``"dots"`` also keeps its matrix products, ``"none"`` saves
+    everything. Applied only when grad is enabled."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return layer_fn
+    if cfg.remat == "full":
+        return functools.partial(checkpoint, layer_fn, use_reentrant=False)
+    if cfg.remat == "dots":
+        return functools.partial(
+            checkpoint, layer_fn, use_reentrant=False,
+            context_fn=functools.partial(
+                create_selective_checkpoint_contexts, _dots_saveable))
+    raise ValueError(f"remat {cfg.remat!r} is not 'none', 'full' or 'dots'")
+
+
 def backbone(params: Tree, cfg: ModelConfig, x: torch.Tensor,
-             prefix_len: int = 0) -> torch.Tensor:
-    """Run every layer; returns the final-normed hidden (B,S,D). The first
-    ``prefix_len`` positions are seen by every position (prefix-LM)."""
+             prefix_len: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run every layer; returns (the final-normed hidden (B,S,D), the MoE
+    aux loss summed over layers, f32). The first ``prefix_len`` positions
+    are seen by every position (prefix-LM)."""
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    layer = _remat(_layer_fwd, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in params["layers"]:
-        x = _layer_fwd(x, lp, cfg, positions, prefix_len)
-    return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        x, a = layer(x, lp, cfg, positions, prefix_len)
+        aux = aux + a
+    return L.rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
 
+def loss_fn(params: Tree, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(loss, {"ce", "aux"}): the masked chunked cross-entropy of
+    ``batch["labels"]`` under ``batch["mask"]`` (zeros over the vision
+    frontend's patches), plus ``aux_loss_weight * aux / n_layers`` for the
+    moe family, as the reference's. Raises ``NotImplementedError`` for the
+    ssm and hybrid families on every device, before any work."""
+    _check_family(cfg)
+    if cfg.family not in TRAINED_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: training the {cfg.family} family needs gradients "
+            "of K7 and K8: ROADMAP queue A, \"A7 training, ssm and hybrid: "
+            "K7 and K8 gradients\"")
+    x, prefix_len = embed_inputs(params, cfg, batch)
+    h, aux = backbone(params, cfg, x, prefix_len)
+    ce = L.chunked_ce_loss(h, _emb_out(params), batch["labels"],
+                           batch["mask"].float())
+    moe_w = cfg.moe.aux_loss_weight if cfg.moe is not None else 0.0
+    loss = ce + moe_w * aux / max(cfg.n_layers, 1)
+    return loss, {"ce": ce, "aux": aux}
+
+
+@torch.no_grad()
 def prefill(params: Tree, cfg: ModelConfig,
             batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Serve prefill: the last position's logits (B,V) in f32."""
     x, prefix_len = embed_inputs(params, cfg, batch)
-    h = backbone(params, cfg, x, prefix_len)
+    h = backbone(params, cfg, x, prefix_len)[0]
     return h[:, -1].float() @ _emb_out(params).float().T
 
 
@@ -390,7 +463,7 @@ def decode_step(params: Tree, cfg: ModelConfig,
             cache["conv"][i].copy_(st["conv"])
             a = _mix_heads(a, s, lp, cfg)
         x = x + a
-        x = x + _ffn(L.rms_norm(x, lp["norm2"], cfg.norm_eps), lp, cfg)
+        x = x + _ffn(L.rms_norm(x, lp["norm2"], cfg.norm_eps), lp, cfg)[0]
     cache["pos"] = pos + 1
     h = L.rms_norm(x, params["final_norm"], cfg.norm_eps)[:, 0]
     return h.float() @ _emb_out(params).float().T, cache

@@ -2,7 +2,8 @@
 (port of ``repro.optim.adamw``, with its arithmetic in the same order).
 
 Parameters, gradients and moments are ``{name: tensor}`` dicts; leaves are
-visited in sorted-key order, as the reference's pytrees flatten.
+visited in sorted-key order, as the reference's pytrees flatten, and
+``update`` walks them one at a time with the moments updated in place.
 """
 from __future__ import annotations
 
@@ -46,23 +47,32 @@ def global_norm(tree: Tree) -> torch.Tensor:
 
 def update(grads: Tree, opt: OptState, params: Tree, tc: TrainConfig
            ) -> Tuple[Tree, OptState, Dict[str, torch.Tensor]]:
+    """One AdamW step: (new params, new state, {"grad_norm", "lr"}).
+
+    The global norm is taken over every gradient first; then the leaves
+    are walked one at a time, so only one leaf's f32 temporaries (the
+    clipped gradient, the bias-corrected moments, the step) are alive at
+    once, as a full-width model on one card needs. The moments are
+    updated in place: ``opt.m`` and ``opt.v`` are the returned state's.
+    The arithmetic is the reference's, op for op and in its order."""
     keys = sorted(params)
     gnorm = global_norm(grads)
     scale = torch.clamp(tc.grad_clip / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
-    g = {k: grads[k].float() * scale for k in keys}
     count = opt.count + 1
     lr = cosine_lr(tc, count)
     b1, b2 = tc.beta1, tc.beta2
-    m = {k: b1 * opt.m[k] + (1 - b1) * g[k] for k in keys}
-    v = {k: b2 * opt.v[k] + (1 - b2) * g[k] * g[k] for k in keys}
-    mh = {k: m[k] / (1 - b1 ** count) for k in keys}
-    vh = {k: v[k] / (1 - b2 ** count) for k in keys}
-
-    def upd(p, mu, nu):
-        step = lr * (mu / (torch.sqrt(nu) + 1e-8)
+    new = {}
+    for k in keys:
+        g = grads[k].float() * scale
+        m = opt.m[k].mul_(b1).add_((1 - b1) * g)
+        v = opt.v[k].mul_(b2).add_((1 - b2) * g * g)
+        del g
+        mh = m / (1 - b1 ** count)
+        vh = v / (1 - b2 ** count)
+        p = params[k]
+        step = lr * (mh / (torch.sqrt(vh) + 1e-8)
                      + tc.weight_decay * p.float())
-        return (p.float() - step).to(p.dtype)
-
-    new = {k: upd(params[k], mh[k], vh[k]) for k in keys}
-    return new, OptState(m, v, count), {"grad_norm": gnorm, "lr": lr}
+        new[k] = (p.float() - step).to(p.dtype)
+    return new, OptState(opt.m, opt.v, count), {"grad_norm": gnorm,
+                                                "lr": lr}

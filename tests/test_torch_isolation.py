@@ -62,7 +62,9 @@ def test_port_file_list_is_complete():
         "models/layers.py", "models/rwkv.py", "models/moe.py",
         "models/ssm.py", "models/model.py",
         "models/__init__.py",
-        "launch/serve.py")} | {"chip_smoke.py"} <= names
+        "launch/serve.py", "launch/train.py", "train/__init__.py",
+        "train/train_step.py", "train/checkpoint.py",
+        "optim/adamw.py")} | {"chip_smoke.py"} <= names
 
 
 def _c_entry_points():

@@ -677,11 +677,11 @@ def test_vlm_prefill_matches_reference(shape, S, dtype):
     np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
     xj, pre = JM.embed_inputs(pj, cj, bj)
     xt, _ = TM.embed_inputs(pt, ct, bt)
-    h = TM.backbone(pt, ct, xt, pre)
+    h = TM.backbone(pt, ct, xt, pre)[0]
     if dtype == "float32":
         np.testing.assert_allclose(
             _np(h), _np(JM.backbone(pj, cj, xj, pre)[0]), rtol=tol, atol=tol)
-    causal = TM.backbone(pt, ct, xt, 0)
+    causal = TM.backbone(pt, ct, xt, 0)[0]
     assert float((causal[:, 0] - h[:, 0]).float().abs().max()) > tol
 
 
