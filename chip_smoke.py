@@ -43,7 +43,13 @@ drives the port (never JAX, never ``repro``):
    (``torch.cuda._sleep(1)`` by the same method);
    the epoch calls (K3, K4, K5) split by kernel (pass A, pass B,
    epilogue) and K7's into its kernel and its memset with torch.profiler;
-   two K7 calls agree bit for bit, and two K8 calls;
+   two K7 calls agree bit for bit, and two K8 calls; K8's backward kernel
+   against its plain version (the reverse token loop) at hymba-1.5b's
+   training layout (B 4, S 4096, 25 heads of 64, N 16) and at an odd one
+   (head dim 16, N 8, S 1001), from a non-zero h0 and g_hout, two calls
+   bit for bit, timed beside its bound; K7's backward (PyTorch
+   operations) against autograd through K7's plain version at rwkv6-3b's
+   layout (B 1, S 4096, 40 heads of 64), and its time;
 4. the quickstart path: ``run_workload`` of static17, crisp, pcstall and
    oracle on ``comd`` for 600 epochs, with the fused epoch kernel's
    launches counted (crisp and pcstall run K3; static17 and the oracle
@@ -136,8 +142,16 @@ drives the port (never JAX, never ``repro``):
     step's device time by class (K6, the attention backward, GEMMs, the
     rest); then granite-moe-1b-a400m through ``make_train_step`` (2 steps
     at 4 x 2048): finite loss, MoE aux loss and grad norm, every
-    parameter moved;
-then the kernel summary.
+    parameter moved; then hymba-1.5b and rwkv6-3b at full width through
+    ``launch.train.train`` (8 x 4096 tokens a step in 2 microbatches, 2
+    steps, remat full, DVFS on, no checkpoint): finite losses, the first
+    within 1.0 of ln V, finite grad norms, every parameter moved, per
+    layer and microbatch K6 and K8 twice and K8's backward once (hymba)
+    or K7 twice (rwkv), step seconds, tokens/s and peak memory, and one
+    step's device time by class (K6, the attention backward, K7, K7's
+    backward by its ``rwkv_chunk.bwd`` range, K8, K8's backward, GEMMs,
+    the rest);
+then the kernel summary. Each phase prints the seconds since the start.
 
 Prints a ``{"kernels": [...]}`` line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero without
@@ -369,6 +383,26 @@ TRAIN_ARCH = "musicgen-medium"
 TRAIN_SHAPE = ShapeConfig("train_card", TRAIN_4K.seq_len, 8, "train")
 TRAIN_STEPS, TRAIN_MB = 4, 2
 K6_TRAIN_ROW = "flash_attention[musicgen-medium train]"
+# the ssm and hybrid families at full width through launch.train.train:
+# the same 8 x 4096 tokens a step in 2 microbatches, 2 steps, DVFS on, no
+# checkpoint (the musicgen round trip covers the module)
+SCAN_TRAIN_ARCHS = ("hymba-1.5b", "rwkv6-3b")
+SCAN_TRAIN_STEPS, SCAN_TRAIN_MB = 2, 2
+# K8's backward against its plain version, (B, S, H, hd, N): hymba-1.5b's
+# training layout (a microbatch of 4 x 4096) and an odd one (head dim 16,
+# state 8, S not a multiple of the kernel's 8-token tile); each output
+# within 1e-4 of its largest magnitude + 1e-5 |ref| (the kernel sums over
+# channels, heads and tokens in other orders than the plain version)
+K8_BWD_ROW = "ssm_scan_bwd"
+K8_BWD_LAYOUTS = {"hymba-1.5b train": (4, 4096, 25, 64, 16),
+                  "odd": (2, 1001, 3, 16, 8)}
+K8_BWD_TOL = (1e-5, 1e-4)
+# K7's backward (PyTorch operations in f32) at rwkv6-3b's layout, (B, T,
+# H, hd), against autograd through the plain version: each gradient to
+# 1e-4 of its largest magnitude (products over the chunk and sums over the
+# chunks in other orders; TF32 off)
+K7_BWD_LAYOUT = (1, 4096, 40, 64)
+K7_BWD_TOL = 1e-4
 # granite-moe-1b-a400m through make_train_step: 2 steps at 4 x 2048
 MOE_TRAIN_ARCH = "granite-moe-1b-a400m"
 MOE_TRAIN_SHAPE = ShapeConfig("train_moe", 2048, 4, "train")
@@ -385,11 +419,18 @@ K6_GRAD_LAYOUTS = {"musicgen-medium": (4, 4096, 24, 24, 64, 0, 0),
 # few bf16 ulps of the largest element)
 K6_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 FAILURES = []
+START = time.perf_counter()
 # the kernels of each epoch call (csrc/epoch_fused.cu): passes A and B,
 # and the epilogue for the families with a table
 TILED = {"pc": ("epoch_pass_a<0>", "epoch_pass_b<0>", "epoch_epilogue<0>"),
          "reactive": ("epoch_pass_a<1>", "epoch_pass_b<1>"),
          "fork": ("epoch_pass_a<2>", "epoch_pass_b<2>", "epoch_epilogue<2>")}
+
+
+def mark(phase: str) -> None:
+    """Print the seconds since the script started, as a phase starts."""
+    print(f"[phase {phase}] starts at {time.perf_counter() - START:.1f} s",
+          flush=True)
 
 
 def check(ok: bool, what: str) -> None:
@@ -759,6 +800,7 @@ def reset_lm_counts():
     FA.flash_attention_bshd.launches = 0
     RC.rwkv_chunked_bthd.launches = 0
     SS.ssm_scan.launches = 0
+    SS.ssm_scan_bwd.launches = 0
     MOE.moe_layer.dropped = 0
     KEF.epoch_fused.launches_by_family = dict.fromkeys(
         KEF.epoch_fused.launches_by_family, 0)
@@ -766,11 +808,12 @@ def reset_lm_counts():
 
 def kernel_split(fn, reps=1):
     """Device time of ``fn`` by kernel class from one torch.profiler run,
-    in ms per call: K6, K7, K8, the MoE layer's expert products and its
-    dispatch and combine (every kernel launched inside the
-    ``moe.experts`` or the ``moe.dispatch`` / ``moe.combine`` profiler
-    ranges), K6's backward (inside ``flash_attention.bwd``), the other
-    matrix products, and the rest. None if it reports no device time."""
+    in ms per call: K6, K7, K8, K8's backward kernel, the MoE layer's
+    expert products and its dispatch and combine (every kernel launched
+    inside the ``moe.experts`` or the ``moe.dispatch`` / ``moe.combine``
+    profiler ranges), K6's backward (inside ``flash_attention.bwd``),
+    K7's backward (inside ``rwkv_chunk.bwd``), the other matrix products,
+    and the rest. None if it reports no device time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -778,13 +821,14 @@ def kernel_split(fn, reps=1):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    out = dict.fromkeys(("K6", "K7", "K8", "experts", "dispatch/combine",
-                         "attn_bwd", "gemm", "other"), 0.0)
+    out = dict.fromkeys(("K6", "K7", "K8", "K8_bwd", "experts",
+                         "dispatch/combine", "attn_bwd", "K7_bwd", "gemm",
+                         "other"), 0.0)
     spans = {"moe.experts": "experts", "moe.dispatch": "dispatch/combine",
              "moe.combine": "dispatch/combine",
-             "flash_attention.bwd": "attn_bwd"}
+             "flash_attention.bwd": "attn_bwd", "rwkv_chunk.bwd": "K7_bwd"}
     own = {"flash_attention_kernel": "K6", "rwkv_chunk_kernel": "K7",
-           "ssm_scan_kernel": "K8"}
+           "ssm_scan_kernel": "K8", "ssm_scan_bwd_kernel": "K8_bwd"}
     # the card's work by name; K6-K8 are launched through ctypes, so no
     # operator of torch's owns them, and the rest by the operator (and its
     # profiler range) that launched it
@@ -814,8 +858,8 @@ def kernel_split(fn, reps=1):
             else:
                 out["other"] += kern.duration
     # what no operator launched besides K6-K8 (K7's memset)
-    out["other"] += max(total - out["K6"] - out["K7"] - out["K8"] - linked,
-                        0.0)
+    out["other"] += max(total - sum(out[c] for c in set(own.values()))
+                        - linked, 0.0)
     if sum(out.values()) <= 0:
         return None
     return {k: v / reps / 1e3 for k, v in out.items()}
@@ -1220,6 +1264,89 @@ def _state_leaves(state):
     return out
 
 
+def run_train(cfg, tc, steps, dev, card, save_final=True):
+    """``launch.train.train`` of ``cfg`` at TRAIN_SHAPE from fresh counts
+    and peak memory, DVFS on: prints its losses, step seconds, tokens/s,
+    peak memory and DVFS report; checks finite losses (the first within
+    1.0 of ln V), finite grad norms and the report. Returns (state, log,
+    the mean seconds of a step after the first)."""
+    arch = cfg.name
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_lm_counts()
+    log = {}
+    t0 = time.perf_counter()
+    state, losses = train(cfg, tc, TRAIN_SHAPE, steps=steps, resume=False,
+                          dvfs=True, log_every=1, device=dev, log=log,
+                          save_final=save_final)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    run = log["steps"]
+    secs = [x["seconds"] for x in run]
+    tokens = TRAIN_SHAPE.global_batch * TRAIN_SHAPE.seq_len
+    steady = secs[1:] or secs
+    mean_s = sum(steady) / len(steady)
+    save = f"final save {log['save_s']:.2f} s; " if "save_s" in log else ""
+    print(f"train {arch}: losses {[round(x, 4) for x in losses]}, "
+          f"grad_norm {[round(x['grad_norm'], 4) for x in run]}, lr "
+          f"{[x['lr'] for x in run]} on {card}", flush=True)
+    print(f"time train {arch}: step seconds {[round(x, 3) for x in secs]} "
+          f"(the first with the first call's set-up), {mean_s:.3f} s a step "
+          f"over steps 2-{len(secs)}, {tokens / mean_s:.0f} tokens/s; peak "
+          f"memory {peak / 2 ** 30:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated); {save}train() {wall:.1f} s "
+          f"on {card}", flush=True)
+    check(len(losses) == steps and all(math.isfinite(x) for x in losses)
+          and abs(losses[0] - math.log(cfg.vocab)) < 1.0,
+          f"train {arch}: {len(losses)} finite losses, the first "
+          f"{losses[0]:.4f} within 1.0 of ln {cfg.vocab} = "
+          f"{math.log(cfg.vocab):.4f}")
+    check(all(math.isfinite(x["grad_norm"]) for x in run),
+          f"train {arch}: grad_norm finite")
+    rep = log.get("dvfs", {})
+    check(bool(rep) and all(math.isfinite(rep[k]) for k in
+                            ("ed2p_norm", "energy_norm", "accuracy"))
+          and rep["step_time"]["n_steps"] == steps,
+          f"train {arch}: DVFS report ({rep.get('step_time')})")
+    if rep:
+        print(f"train {arch} DVFS report: ED2P {rep['ed2p_norm']:.4f} energy "
+              f"{rep['energy_norm']:.4f} delay {rep['delay_norm']:.4f} "
+              f"accuracy {rep['accuracy']:.4f}, mean step "
+              f"{rep['step_time']['mean_step_s']:.3f} s on {card}",
+              flush=True)
+    return state, log, mean_s
+
+
+def moved_check(cfg, state, fresh_params) -> None:
+    """Every parameter of the trained ``state`` differs from its initial
+    value in ``fresh_params``."""
+    trained = dict(state["params"].named_parameters())
+    still = [k for k, p in fresh_params.named_parameters()
+             if torch.equal(p, trained[k])]
+    check(not still, f"train {cfg.name}: every parameter moved "
+                     f"({len(still)} did not: {still[:4]})")
+
+
+def step_split(cfg, tc, state, mean_s, dev, card) -> None:
+    """One more training step of ``state`` under torch.profiler: its
+    device time by class (``kernel_split``)."""
+    step = make_train_step(cfg, tc)
+    batch = make_batch(cfg, TRAIN_SHAPE, tc.total_steps,
+                       microbatches=tc.microbatches, device=dev)
+    mark(f"12, {cfg.name}'s profiled step")
+    split = kernel_split(lambda: step(state, batch))
+    if split is None:
+        print(f"train {cfg.name}: the profiler reported no device time",
+              flush=True)
+        return
+    tot = sum(split.values())
+    print(f"time train {cfg.name} one step's device time (profiler): "
+          f"{tot:.1f} ms (a step {mean_s * 1e3:.1f} ms of wall above): "
+          + ", ".join(f"{k} {v:.1f} ms ({v / tot:.1%})"
+                      for k, v in split.items() if v > 0)
+          + f" on {card}", flush=True)
+
+
 def train_phase(dev, card, rows) -> None:
     """musicgen-medium at full width through ``launch.train.train`` (K6
     forward and recompute, the DVFS manager, the final checkpoint
@@ -1249,41 +1376,9 @@ def train_phase(dev, card, rows) -> None:
               f"for its ~{need / 1e9:.1f} GB checkpoint")
         if free < need * 1.05:
             return
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        reset_lm_counts()
-        log = {}
-        t0 = time.perf_counter()
-        state, losses = train(cfg, tc, TRAIN_SHAPE, steps=TRAIN_STEPS,
-                              resume=False, dvfs=True, log_every=1,
-                              device=dev, log=log)
-        wall = time.perf_counter() - t0
+        state, log, mean_s = run_train(cfg, tc, TRAIN_STEPS, dev, card)
         n6 = FA.flash_attention_bshd.launches
-        peak = torch.cuda.max_memory_allocated()
         rows[K6_TRAIN_ROW]["launches"] = n6
-        steps = log["steps"]
-        secs = [s["seconds"] for s in steps]
-        tokens = TRAIN_SHAPE.global_batch * TRAIN_SHAPE.seq_len
-        steady = secs[1:] or secs
-        mean_s = sum(steady) / len(steady)
-        print(f"train {TRAIN_ARCH}: losses {[round(x, 4) for x in losses]}, "
-              f"grad_norm {[round(s['grad_norm'], 4) for s in steps]}, lr "
-              f"{[s['lr'] for s in steps]} on {card}", flush=True)
-        print(f"time train {TRAIN_ARCH}: step seconds "
-              f"{[round(x, 3) for x in secs]} (the first with the first "
-              f"call's set-up), {mean_s:.3f} s a step over steps 2-"
-              f"{len(secs)}, {tokens / mean_s:.0f} tokens/s; peak memory "
-              f"{peak / 2 ** 30:.2f} GiB (torch.cuda.max_memory_allocated); "
-              f"final save {log['save_s']:.2f} s; train() {wall:.1f} s on "
-              f"{card}", flush=True)
-        check(len(losses) == TRAIN_STEPS
-              and all(math.isfinite(x) for x in losses)
-              and abs(losses[0] - math.log(cfg.vocab)) < 1.0,
-              f"train {TRAIN_ARCH}: {len(losses)} finite losses, the first "
-              f"{losses[0]:.4f} within 1.0 of ln {cfg.vocab} = "
-              f"{math.log(cfg.vocab):.4f}")
-        check(all(math.isfinite(s["grad_norm"]) for s in steps),
-              f"train {TRAIN_ARCH}: grad_norm finite")
         # every layer of every microbatch, forward and the full remat's
         # recompute: 192 a step
         per_step = cfg.n_layers * TRAIN_MB * 2
@@ -1291,27 +1386,10 @@ def train_phase(dev, card, rows) -> None:
               f"train {TRAIN_ARCH}: K6 {n6} launches == {TRAIN_STEPS} steps "
               f"x {per_step} ({cfg.n_layers} layers x {TRAIN_MB} "
               f"microbatches x forward and recompute)")
-        rep = log.get("dvfs", {})
-        check(bool(rep) and all(math.isfinite(rep[k]) for k in
-                                ("ed2p_norm", "energy_norm", "accuracy"))
-              and rep["step_time"]["n_steps"] == TRAIN_STEPS,
-              f"train {TRAIN_ARCH}: DVFS report ({rep.get('step_time')})")
-        if rep:
-            print(f"train {TRAIN_ARCH} DVFS report: ED2P "
-                  f"{rep['ed2p_norm']:.4f} energy {rep['energy_norm']:.4f} "
-                  f"delay {rep['delay_norm']:.4f} accuracy "
-                  f"{rep['accuracy']:.4f}, mean step "
-                  f"{rep['step_time']['mean_step_s']:.3f} s on {card}",
-                  flush=True)
         # the parameters moved from the initial state, and the final
         # checkpoint restores bit for bit into it
         fresh = init_state(cfg, tc, tc.seed, dev)
-        trained = dict(state["params"].named_parameters())
-        still = [k for k, p in fresh["params"].named_parameters()
-                 if torch.equal(p, trained[k])]
-        del trained
-        check(not still, f"train {TRAIN_ARCH}: every parameter moved "
-                         f"({len(still)} did not: {still[:4]})")
+        moved_check(cfg, state, fresh["params"])
         ck_bytes = sum(f.stat().st_size for f in Path(ckdir).rglob("*.npz"))
         t0 = time.perf_counter()
         fresh, last = CK.restore(fresh, ckdir)
@@ -1332,25 +1410,8 @@ def train_phase(dev, card, rows) -> None:
         # one step's device time by class (torch.profiler): K6 forward and
         # recompute, the attention backward, the other matrix products,
         # the rest
-        step = make_train_step(cfg, tc)
-        batch = make_batch(cfg, TRAIN_SHAPE, TRAIN_STEPS,
-                           microbatches=TRAIN_MB, device=dev)
-        split = kernel_split(lambda: step(state, batch))
-        if split is None:
-            print(f"train {TRAIN_ARCH}: the profiler reported no device "
-                  f"time", flush=True)
-        else:
-            tot = sum(split.values())
-            print(f"time train {TRAIN_ARCH} one step's device time "
-                  f"(profiler): {tot:.1f} ms (a step {mean_s * 1e3:.1f} ms "
-                  f"of wall above): K6 {split['K6']:.1f} ms "
-                  f"({split['K6'] / tot:.1%}), attention backward "
-                  f"{split['attn_bwd']:.1f} ms "
-                  f"({split['attn_bwd'] / tot:.1%}), GEMM "
-                  f"{split['gemm']:.1f} ms ({split['gemm'] / tot:.1%}), "
-                  f"rest {split['other']:.1f} ms "
-                  f"({split['other'] / tot:.1%}) on {card}", flush=True)
-        del state, batch, step
+        step_split(cfg, tc, state, mean_s, dev, card)
+        del state
     finally:
         shutil.rmtree(ckdir, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -1394,6 +1455,151 @@ def train_phase(dev, card, rows) -> None:
     torch.cuda.empty_cache()
 
 
+def scan_bwd_flops(B, S, H, hd, N):
+    """Operations of K8's backward: per channel and token the carried
+    gradient's update with C gy (2 N), its products with B and with the
+    previous state (4 N), the dC and dB terms (4 N), the decay's product
+    into the carry (N), and dx and the ddt and dA terms (5); per (batch,
+    token, head) the decay's exp and its products (4). The recompute of
+    the states is the kernel's choice, not counted."""
+    return B * S * H * (hd * (11 * N + 5) + 4)
+
+
+def scan_bwd_case(B, S, H, hd, N, seed, dev):
+    """K8's operands as ``scan_cases`` makes them (a non-zero h0) and the
+    output gradients gy and g_hout, from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    arrs = (rng.standard_normal((B, S, H, hd)),
+            rng.uniform(0.01, 1.5, (B, S, H)),
+            rng.standard_normal((B, S, N)),
+            rng.standard_normal((B, S, N)),
+            -rng.uniform(0.2, 2.0, H),
+            rng.standard_normal((B, H, hd, N)) * 0.5,
+            rng.standard_normal((B, S, H, hd)),
+            rng.standard_normal((B, H, hd, N)))
+    return [torch.as_tensor(a.astype(np.float32)).to(dev) for a in arrs]
+
+
+def k8_bwd_rows(dev, card, rows) -> None:
+    """K8's backward kernel against its plain version (``ssm_scan_bwd_ref``,
+    the reverse token loop) at ``K8_BWD_LAYOUTS``, every output; two calls
+    bit for bit; at hymba-1.5b's training layout its device time beside
+    its bound and the plain version's."""
+    row = rows[K8_BWD_ROW] = dict(max_abs_err=0.0)
+    names = ("dxh", "ddt", "dB_", "dC_", "dA", "dh0")
+    rtol, atol = K8_BWD_TOL
+    for i, (key, (B, S, H, hd, N)) in enumerate(K8_BWD_LAYOUTS.items()):
+        args = scan_bwd_case(B, S, H, hd, N, 60 + i, dev)
+        got = SS.ssm_scan_bwd(*args)
+        again = SS.ssm_scan_bwd(*args)
+        # the plain version (a Python loop over the tokens), timed by the
+        # events around its one call
+        want = []
+        plain_ms = time_events(lambda: want.append(SS.ssm_scan_bwd_ref(
+            *args)), reps=1, warm=0)
+        want = want[0]
+        tag = f"{K8_BWD_ROW}[{key}: B {B} S {S} H {H} hd {hd} N {N}]"
+        for name, g, w in zip(names, got, want):
+            top = float(w.abs().max())
+            row["max_abs_err"] = max(row["max_abs_err"], compare(
+                f"{tag}.{name} (largest |ref| {top:.3e})", g, w, rtol=rtol,
+                atol=atol * top))
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"{tag}: two calls bitwise equal")
+        del again, want
+        if i == 0:
+            row["nbytes"] = nbytes(*args, *got)
+            row["ops"] = scan_bwd_flops(B, S, H, hd, N)
+            row["bound_ms"], row["bound_by"] = bound_ms(row["nbytes"],
+                                                        row["ops"])
+            row["ms"] = device_ms(lambda: SS.ssm_scan_bwd(*args),
+                                  K8_BWD_ROW, reps=20)
+            row["plain_ms"] = plain_ms
+            if row["ms"] is not None:
+                print(f"time {K8_BWD_ROW} at {tag}: device "
+                      f"{row['ms'] * 1e3:.2f} us per call, plain "
+                      f"{row['plain_ms'] * 1e3:.1f} us, bound "
+                      f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}; "
+                      f"{row['nbytes'] / 1e6:.1f} MB, "
+                      f"{row['ops'] / 1e9:.2f} GFLOP), "
+                      f"{row['ms'] / row['bound_ms']:.2f}x on {card}",
+                      flush=True)
+        del args, got
+        torch.cuda.empty_cache()
+
+
+def k7_bwd_check(dev, card) -> None:
+    """K7's backward (``rwkv_chunked_bthd_bwd``, PyTorch operations in f32)
+    at rwkv6-3b's layout against autograd through the plain version, and
+    its time per call (events)."""
+    B, T, H, hd = K7_BWD_LAYOUT
+    rng = np.random.default_rng(70)
+    r, k, v, gy = (torch.as_tensor(rng.standard_normal((B, T, H, hd)).astype(
+        np.float32) * 0.5).to(dev) for _ in range(4))
+    w = torch.as_tensor(rng.uniform(0.6, 0.999, (B, T, H, hd)).astype(
+        np.float32)).to(dev)
+    u = torch.as_tensor(rng.standard_normal((H, hd)).astype(
+        np.float32) * 0.1).to(dev)
+    got = RC.rwkv_chunked_bthd_bwd(r, k, v, w, u, gy)
+    ins = [t.clone().requires_grad_() for t in (r, k, v, w, u)]
+    want = torch.autograd.grad(RC.rwkv_chunked_bthd_ref(*ins), ins, gy)
+    torch.cuda.synchronize()
+    for name, g, wt in zip("rkvwu", got, want):
+        err = float((g - wt).abs().max() / wt.abs().max())
+        check(g.shape == wt.shape and err < K7_BWD_TOL,
+              f"K7 backward d{name} at rwkv6-3b's layout (B {B} T {T} H {H}"
+              f" hd {hd}, f32) against autograd through the plain version: "
+              f"{err:.3e} of its largest magnitude (limit {K7_BWD_TOL})")
+    del want, ins
+    ms = time_events(lambda: RC.rwkv_chunked_bthd_bwd(r, k, v, w, u, gy),
+                     reps=10, warm=2)
+    nb = nbytes(r, k, v, w, u, gy, *got)
+    print(f"time K7 backward (rwkv_chunked_bthd_bwd, PyTorch operations in "
+          f"f32) at rwkv6-3b's layout (B {B} T {T} H {H} hd {hd}): {ms:.3f} "
+          f"ms per call (events); bytes of its operands and gradients "
+          f"{nb / 1e6:.1f} MB, {nb / HBM_BYTES_PER_S * 1e3:.4f} ms at "
+          f"3.35 TB/s, on {card}", flush=True)
+    del r, k, v, w, u, gy, got
+    torch.cuda.empty_cache()
+
+
+def scan_train_phase(dev, card, rows) -> None:
+    """hymba-1.5b and rwkv6-3b at full width through ``launch.train.train``
+    (8 x 4096 tokens a step in 2 microbatches, 2 steps, DVFS on, no
+    checkpoint): ``run_train``'s checks, every parameter moved, K6 / K7 /
+    K8 / K8-backward launches per layer and microbatch, and one step's
+    device time by class."""
+    for arch in SCAN_TRAIN_ARCHS:
+        cfg = get_config(arch)
+        mb, steps = SCAN_TRAIN_MB, SCAN_TRAIN_STEPS
+        tc = TrainConfig(total_steps=steps, warmup_steps=1, microbatches=mb,
+                         checkpoint_every=0)
+        print(f"train {arch}: {cfg.n_params / 1e9:.3f} B parameters, "
+              f"{cfg.n_layers} layers, d {cfg.d_model}; shape "
+              f"{TRAIN_SHAPE.global_batch} x {TRAIN_SHAPE.seq_len} a step in "
+              f"{mb} microbatches, {steps} steps, remat {cfg.remat}, no "
+              f"checkpoint, on {card}", flush=True)
+        state, _, mean_s = run_train(cfg, tc, steps, dev, card,
+                                     save_final=False)
+        got = (FA.flash_attention_bshd.launches,
+               RC.rwkv_chunked_bthd.launches, SS.ssm_scan.launches,
+               SS.ssm_scan_bwd.launches)
+        want = tuple(steps * cfg.n_layers * mb * n for n in (
+            (2, 0, 2, 1) if cfg.family == "hybrid" else (0, 2, 0, 0)))
+        check(got == want,
+              f"train {arch}: launches K6 {got[0]}, K7 {got[1]}, K8 {got[2]},"
+              f" K8 backward {got[3]} == {want} ({steps} steps x "
+              f"{cfg.n_layers} layers x {mb} microbatches x (forward and "
+              f"recompute; the backward once))")
+        if cfg.family == "hybrid":
+            rows[K8_BWD_ROW]["launches"] = got[3]
+        moved_check(cfg, state, LM.init_params(cfg, tc.seed, dev))
+        torch.cuda.empty_cache()
+        step_split(cfg, tc, state, mean_s, dev, card)
+        del state
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1405,6 +1611,7 @@ def main() -> int:
     print("torch", torch.__version__, "cuda", torch.version.cuda, flush=True)
 
     # ---- 1. TF32 off, build ------------------------------------------------
+    mark("1")
     no_tf32()
     check(not torch.backends.cuda.matmul.allow_tf32
           and not torch.backends.cudnn.allow_tf32, "TF32 is off")
@@ -1468,6 +1675,7 @@ def main() -> int:
           f"other attention kernel: {k6}, others {other}")
 
     # ---- 2. kernels against their plain versions -------------------------
+    mark("2")
     rows = {}
     tbl, tid, idx32, fb = table_case(7, dev)
     F = PWR.freqs_ghz(PWR.DEFAULT, NF, device=dev)
@@ -1573,6 +1781,7 @@ def main() -> int:
                 row["ops"] = epoch_flops(fam)
 
     # ---- 2a. K3 at the README's 304 x 40 (two CUs per CTA) -------------
+    mark("2a")
     for fam, fork_est, model in EPOCH_FAMS:
         args, kw = epoch_case(fam, fork_est, model, 13, dev,
                               cu=WIDE_SIM.n_cu, tables=WIDE_SIM.n_cu)
@@ -1588,6 +1797,7 @@ def main() -> int:
             row["ops"] = epoch_flops(fam, WIDE_SIM.n_cu, WF, WIDE_SIM.n_cu)
 
     # ---- 2b. K4: the fork family over grid rows ---------------------------
+    mark("2b")
     fork_row = rows.setdefault("epoch_fused[fork]", dict(max_abs_err=0.0))
     ids7 = list(range(7))
     for lean in (True, False):
@@ -1683,6 +1893,7 @@ def main() -> int:
               f"bitwise")
 
     # ---- 2c. K5: the fork family in the reference's tiling (K4's kernels;
+    mark("2c")
     # block_cu checked and inert), 304 x 40 / 38, against the reference's
     # blocked pair
     blk_row = rows.setdefault("epoch_fused[fork_blocked]",
@@ -1744,6 +1955,7 @@ def main() -> int:
               + (f" (differ in {differ})" if differ else ""))
 
     # ---- 2d. K6, K7 and K8 at the LM prefill shapes ----------------------
+    mark("2d")
     k6_in, k7_in, k8_in = lm_cases(dev)
     for key, (cfg, cases) in k6_in.items():
         k6_row = rows.setdefault(key, dict(max_abs_err=0.0))
@@ -1800,6 +2012,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 3. times ----------------------------------------------------------
+    mark("3")
     times = {}
     # K1 and K2 as the v1 epoch calls them: int64 slots, 0-dim scalars on
     # the card, the hit mask
@@ -1974,8 +2187,13 @@ def main() -> int:
               f" us (events) on {card}", flush=True)
     del k6_in, k8_in, y1, y2, S1, S2
     torch.cuda.empty_cache()
+    # K8's backward against its plain version and timed; K7's backward
+    # (PyTorch operations) against autograd through K7's plain version
+    k8_bwd_rows(dev, card, rows)
+    k7_bwd_check(dev, card)
 
     # ---- 4. the quickstart path -------------------------------------------
+    mark("4")
     prog = get_workload("comd", device=dev)
     sim = SIM.SimConfig(n_epochs=N_EPOCHS)
     for fn in (KEF.epoch_fused, KPT.pc_table_predict, KPT.pc_table_update):
@@ -2057,6 +2275,7 @@ def main() -> int:
             agg_dev("pcstall v1", tr_v1, b)
 
     # ---- 5. the README's 304-CU row on the one-row path (K3) ------------
+    mark("5")
     KEF.epoch_fused.launches_by_family = dict.fromkeys(
         KEF.epoch_fused.launches_by_family, 0)
     torch.cuda.synchronize()
@@ -2086,6 +2305,7 @@ def main() -> int:
     rows["epoch_fused[reactive@304]"]["launches"] = wide_launches["reactive"]
 
     # ---- 6. the sweep path: the Fig-15 suite through run_grid ------------
+    mark("6")
     # the registry's axis-liveness audit (a static analysis on the host's
     # CPU at a tiny shape), which run_grid's dedup guard consults once per
     # spec and engine: run and timed alone, so the Fig-15 wall holds the
@@ -2162,6 +2382,7 @@ def main() -> int:
     rows["epoch_fused[fork]"]["launches"] = fig15_launches["fork"]
 
     # ---- 7. the sweep's bitwise contracts on the card ---------------------
+    mark("7")
     progs3 = {w: get_workload(w, device=dev) for w in EXACT_WORKLOADS}
     cfg3 = SIM.SimConfig(n_epochs=EXACT_EPOCHS)
     mech3 = ("static17", "crisp", "accreac", "pcstall", "accpc", "oracle")
@@ -2199,6 +2420,7 @@ def main() -> int:
                                    f"{k} rel dev {worst[k]:.3e}")
 
     # ---- 8. the runtime path: the 304-CU service stream, the managers -----
+    mark("8")
     stream = list(dvfs_request_stream(SVC_REQUESTS, seed=SVC_SEED,
                                       device=dev))
     svc_progs = {w: get_workload(w, device=dev) for w in SVC_WORKLOADS}
@@ -2283,6 +2505,7 @@ def main() -> int:
               f"manager {arch}: report == its grid point")
 
     # ---- 9. the LM serving path: K6 (dense, audio, moe, hybrid, vlm), K7
+    mark("9")
     # (rwkv6-3b), K8 (hybrid) ----------------------------------------------
     for arch in SERVE_ARCHS:
         cfg = get_config(arch)
@@ -2373,6 +2596,7 @@ def main() -> int:
         # its K6 row above and by the CPU tests against the reference).
         check_s = DECODE_S if cfg.moe is None else MOE_DECODE_S
         for dtype in ("bfloat16", "float32"):
+            t_check = time.perf_counter()
             vcfg = dataclasses.replace(cfg, dtype=dtype)
             if dtype == "float32":
                 vcfg = dataclasses.replace(vcfg, n_layers=min(
@@ -2453,9 +2677,12 @@ def main() -> int:
                                       for k, v in sp.items() if v > 0)
                           + f" on {card}", flush=True)
             del params
+            print(f"  {arch} {dtype} decode check ({vcfg.n_layers} layers) "
+                  f"took {time.perf_counter() - t_check:.1f} s", flush=True)
         torch.cuda.empty_cache()
 
     # ---- 10. engine and grid wall times, the kernel summary ---------------
+    mark("10")
     for up in (False, True):
         cfg = SIM.SimConfig(n_epochs=100, use_pallas=up)
         SIM.run_sim(prog, cfg, "pcstall")  # warm-up
@@ -2480,13 +2707,19 @@ def main() -> int:
           flush=True)
 
     # ---- 11. the learn path ------------------------------------------------
+    mark("11")
     k4_learn_cases(dev, rows["epoch_fused[fork]"])
     learn_phase(dev, card)
 
     # ---- 12. training ------------------------------------------------------
+    mark("12")
     k6_grad_checks(dev, card)
+    mark("12, K6's training row")
     k6_train_row(dev, card, rows)
+    mark("12, musicgen-medium and granite-moe")
     train_phase(dev, card, rows)
+    mark("12, hymba-1.5b and rwkv6-3b")
+    scan_train_phase(dev, card, rows)
 
     replaces = {
         "pc_table_predict": "src/repro/kernels/pc_table.py:67",
@@ -2500,8 +2733,10 @@ def main() -> int:
         **{key: "src/repro/kernels/flash_attention.py:73"
            for key in [k for k, _ in K6_ROWS.values()] + [K6_TRAIN_ROW]},
         "rwkv_chunked": "src/repro/kernels/rwkv_chunk.py:79",
-        # K8 replaces no TPU kernel: the reference's scan is a lax.scan
+        # K8 replaces no TPU kernel: the reference's scan is a lax.scan;
+        # its backward, XLA's transpose of that scan
         "ssm_scan": "src/repro/models/ssm.py:16",
+        K8_BWD_ROW: "src/repro/models/ssm.py:16",
     }
     sources = dict.fromkeys(
         ("epoch_fused[pc]", "epoch_fused[reactive]", "epoch_fused[pc@304]",
@@ -2513,6 +2748,7 @@ def main() -> int:
         pc_table_update="src/repro_torch/kernels/csrc/pc_table.cu",
         rwkv_chunked="src/repro_torch/kernels/csrc/rwkv_chunk.cu",
         ssm_scan="src/repro_torch/kernels/csrc/ssm_scan.cu",
+        ssm_scan_bwd="src/repro_torch/kernels/csrc/ssm_scan_bwd.cu",
         **{key: "src/repro_torch/kernels/csrc/flash_attention.cu"
            for key in [k for k, _ in K6_ROWS.values()] + [K6_TRAIN_ROW]})
     kernels = []
@@ -2527,6 +2763,7 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms")})
+    mark("end")
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed:",
               file=sys.stderr)

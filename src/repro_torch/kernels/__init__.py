@@ -1,6 +1,6 @@
 """Hand-written CUDA kernels of the port (sm_90a).
 
-Eight kernels, one shared library. The DVFS engine's hot path:
+Nine kernels, one shared library. The DVFS engine's hot path:
 
 * ``pc_table.pc_table_predict`` / ``pc_table.pc_table_update`` — the PC
   table predict/update pair (``csrc/pc_table.cu``);
@@ -26,7 +26,10 @@ public wrappers):
 * ``ssm_scan.ssm_scan`` — K8, the selective scan of the hybrid family's
   mamba heads (``csrc/ssm_scan.cu``): one CTA per (batch, head), one
   thread per channel, tiles of tokens staged in shared memory. It
-  replaces no TPU kernel (the reference's scan is a ``lax.scan``).
+  replaces no TPU kernel (the reference's scan is a ``lax.scan``);
+* ``ssm_scan.ssm_scan_bwd`` — K8's backward (``csrc/ssm_scan_bwd.cu``):
+  the same grid, the state checkpointed every few tokens and each tile
+  recomputed in reverse, the sums over channels in a fixed order.
 
 Every wrapper launches its kernel on a CUDA tensor and runs the kernel's
 plain PyTorch version on a CPU tensor; there is no fallback between the
@@ -73,6 +76,7 @@ SIGNATURES = {
     "flash_attention_launch": (_CI, [_VP] * 4 + [_CI] * 10 + [_VP]),
     "rwkv_chunk_launch": (_CI, [_VP] * 8 + [_CI] * 7 + [_VP]),
     "ssm_scan_launch": (_CI, [_VP] * 8 + [_CI] * 5 + [_VP]),
+    "ssm_scan_bwd_launch": (_CI, [_VP] * 15 + [_CI] * 5 + [_VP]),
     "repro_error_string": (ctypes.c_char_p, [_CI]),
 }
 

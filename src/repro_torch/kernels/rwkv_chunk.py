@@ -20,13 +20,20 @@ holds: persistent CTAs walk the (batch, head, chunk) tiles, each tile
 chained to the next chunk through the state it publishes. It starts from
 the zero state (passing a state raises) and, when asked, returns the
 final state of that chain. On a CPU tensor it runs the plain version.
+
+The gradient: :class:`RwkvChunk` is K7 as an autograd Function (from the
+zero state; y and the final state), its backward
+:func:`rwkv_chunked_bthd_bwd`, PyTorch operations in f32 on any device
+(no kernel of its own yet).
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+from torch.profiler import record_function
 
+from repro_torch import no_tf32
 from repro_torch.kernels import check, library, require, stream_ptr
 
 _F32 = torch.float32
@@ -153,3 +160,127 @@ def rwkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return rwkv_chunked_ref(r, k, v, w, u, chunk=chunk)
     return rwkv_chunked_bthd(r[:, :, None], k[:, :, None], v[:, :, None],
                              w[:, :, None], u[:, None], chunk=chunk)[:, :, 0]
+
+
+def rwkv_chunked_bthd_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          w: torch.Tensor, u: torch.Tensor, gy: torch.Tensor,
+                          gS: Optional[torch.Tensor] = None, *,
+                          chunk: int = 128):
+    """dr, dk, dv, dw and du of ``(y, S_T) = rwkv_chunked_bthd(r, k, v, w,
+    u, return_state=True)`` (from the zero state) for the output gradients
+    gy (B,T,H,hd) and gS (B,H,hd,hd) or None, in PyTorch operations in f32
+    (TF32 off) on any device; du in ``u``'s shape ((H,hd): summed over the
+    batch), the others (B,T,H,hd).
+
+    K7 keeps only the final state, so the chunk-start states are
+    recomputed from the inputs (the chunk's state increments at once, then
+    the chain in chunk order). The state's gradient is chained back chunk
+    by chunk (``G_c = rP_c^T gy_c + exp(total_c) G_{c+1}``); every other
+    term is batched over the chunks::
+
+        dA = mask(gy v^T),   dv = A^T gy + diag gy + kT G
+        d(rP) = gy S^T + dA kD,   d(kD) = dA^T rP,   d(kT) = v G^T
+
+    then through ``rP = r exp(cum - logw)``, ``kD = k exp(-cum)``, ``kT =
+    k exp(total - cum)``, ``total = cum[-1]`` and ``cum = cumsum(logw)``
+    (the exponentials are the forward's own, formed from the same
+    differences; the last token's ``exp(-cum)``, which no pair uses, is
+    taken as 0, so that where it overflows the forward stays finite and
+    the backward makes no NaN). dw is the gradient of ``log(max(w, 1e-38))``: ``dlogw /
+    w`` where ``w > 1e-38`` and 0 elsewhere, where the clamp stops it."""
+    no_tf32()
+    B, T, H, hd = r.shape
+    C = _chunk(T, chunk)
+    nc = T // C
+    dev = r.device
+    with record_function("rwkv_chunk.bwd"):
+        def chunks(t):      # (B,T,H,hd) -> (B,H,nc,C,hd) f32
+            return t.float().permute(0, 2, 1, 3).reshape(B, H, nc, C, hd)
+        r_, k_, v_, w_, gy_ = (chunks(t) for t in (r, k, v, w, gy))
+        uf = u.float().expand(B, H, hd)[:, :, None, None, :]
+        logw = torch.log(torch.clamp(w_, min=1e-38))
+        cum = torch.cumsum(logw, dim=3)
+        P = torch.exp(cum - logw)
+        # the last token's k exp(-cum) pairs with no later token (its
+        # column of A is masked): zero, so that an exp(-cum) that
+        # overflows there (a w under the clamp) makes no 0 x inf
+        E = torch.exp(-cum)
+        E[..., -1, :] = 0.0
+        rP, kD = r_ * P, k_ * E
+        tri = torch.tril(torch.ones((C, C), dtype=torch.bool, device=dev),
+                         -1)
+        A = torch.where(tri, torch.matmul(rP, kD.transpose(-1, -2)), 0.0)
+        total = cum[..., -1, :]                             # (B,H,nc,hd)
+        F = torch.exp(total[..., None, :] - cum)
+        kT = k_ * F
+        decay = torch.exp(total)[..., None]                 # (B,H,nc,hd,1)
+        # the state entering each chunk, and the gradient of the state
+        # leaving it
+        dS = torch.matmul(kT.transpose(-1, -2), v_)         # (B,H,nc,hd,hd)
+        S = torch.empty_like(dS)
+        s = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=dev)
+        for c in range(nc):
+            S[:, :, c] = s
+            s = decay[:, :, c] * s + dS[:, :, c]
+        Ry = torch.matmul(rP.transpose(-1, -2), gy_)
+        G = dS
+        g = s.zero_() if gS is None else gS.float()
+        for c in reversed(range(nc)):
+            G[:, :, c] = g
+            g = Ry[:, :, c] + decay[:, :, c] * g
+        del Ry, s, g
+        dA = torch.where(tri, torch.matmul(gy_, v_.transpose(-1, -2)), 0.0)
+        ddiag = (gy_ * v_).sum(-1, keepdim=True)            # (B,H,nc,C,1)
+        diag = (r_ * uf * k_).sum(-1, keepdim=True)
+        dv = torch.matmul(A.transpose(-1, -2), gy_) + diag * gy_ \
+            + torch.matmul(kT, G)
+        del A
+        d_rP = torch.matmul(gy_, S.transpose(-1, -2)) + torch.matmul(dA, kD)
+        d_kD = torch.matmul(dA.transpose(-1, -2), rP)
+        d_kT = torch.matmul(v_, G.transpose(-1, -2))
+        d_total = (decay[..., 0] * (S * G).sum(-1))         # (B,H,nc,hd)
+        del dA, S, G
+        dr = d_rP * P + ddiag * uf * k_
+        dk = d_kD * E + d_kT * F + ddiag * uf * r_
+        du = (ddiag * r_ * k_).sum((2, 3))                   # (B,H,hd)
+        gP = d_rP * r_ * P
+        gE = d_kD * k_ * E
+        gF = d_kT * k_ * F
+        d_total = d_total + gF.sum(3)
+        dcum = gP - gE - gF
+        dcum[..., -1, :] += d_total
+        dlogw = torch.flip(torch.cumsum(torch.flip(dcum, (3,)), 3), (3,)) \
+            - gP
+        dw = torch.where(w_ > 1e-38, dlogw / w_, 0.0)
+
+        def back(t):        # (B,H,nc,C,hd) -> (B,T,H,hd)
+            return t.reshape(B, H, T, hd).permute(0, 2, 1, 3).contiguous()
+        if u.dim() == 2:
+            du = du.sum(0)
+        return back(dr), back(dk), back(dv), back(dw), du
+
+
+class RwkvChunk(torch.autograd.Function):
+    """K7 with a gradient, from the zero state: the forward is
+    :func:`rwkv_chunked_bthd` with ``return_state`` (the kernel on a CUDA
+    tensor, its plain version on a CPU tensor), returning (y, S_T); the
+    backward :func:`rwkv_chunked_bthd_bwd`. r, k, v, w and u are saved
+    only where an input needs a gradient, so a forward over frozen
+    weights (serving) saves nothing. Under a non-reentrant checkpoint the
+    recompute launches K7 again and saves its own tensors."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, chunk):
+        y, S = rwkv_chunked_bthd(r, k, v, w, u, chunk=chunk,
+                                 return_state=True)
+        ctx.chunk = chunk
+        if any(ctx.needs_input_grad[:5]):
+            ctx.save_for_backward(r, k, v, w, u)
+        return y, S
+
+    @staticmethod
+    def backward(ctx, gy, gS):
+        grads = rwkv_chunked_bthd_bwd(*ctx.saved_tensors, gy, gS,
+                                      chunk=ctx.chunk)
+        return (*(g if need else None for g, need in
+                  zip(grads, ctx.needs_input_grad)), None)

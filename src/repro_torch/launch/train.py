@@ -10,8 +10,7 @@ Checkpoint and restart (atomic, resumable mid-run), deterministic data
 DVFS report of the job (``DVFSManager``: each step's seconds observed,
 the report at the end on K4). The reference's straggler detection and
 elastic re-mesh (``train/elastic.py``) are left out: they have no meaning
-on one card. The dense, audio, vlm and moe families train; ssm and hybrid
-raise (``models.model.loss_fn``).
+on one card. Every family of the model zoo trains (``models.model.loss_fn``).
 """
 from __future__ import annotations
 
@@ -31,13 +30,15 @@ from repro_torch.train.train_step import init_state, make_train_step
 
 def train(cfg, tc: TrainConfig, shape: ShapeConfig, *, steps: int,
           resume: bool = True, dvfs: bool = False, log_every: int = 10,
-          device: DeviceLike = "cuda", log: Optional[dict] = None):
+          device: DeviceLike = "cuda", log: Optional[dict] = None,
+          save_final: bool = True):
     """Train ``steps`` steps (from the latest checkpoint in
     ``tc.checkpoint_dir`` if ``resume``), saving every
-    ``tc.checkpoint_every`` steps and at the end. Returns (state, losses).
-    If ``log`` is a dict it is filled with ``steps`` (each step's metrics
-    as floats and its seconds), ``save_s`` (the final save) and, with
-    ``dvfs``, the ``dvfs`` report."""
+    ``tc.checkpoint_every`` steps and, with ``save_final``, at the end.
+    Returns (state, losses). If ``log`` is a dict it is filled with
+    ``steps`` (each step's metrics as floats and its seconds), ``save_s``
+    (the final save; absent without one) and, with ``dvfs``, the ``dvfs``
+    report."""
     dev = resolve_device(device)
     state = init_state(cfg, tc, tc.seed, dev)
     start = 0
@@ -74,9 +75,10 @@ def train(cfg, tc: TrainConfig, shape: ShapeConfig, *, steps: int,
         if tc.checkpoint_every and step and step % tc.checkpoint_every == 0:
             path = ckpt.save(state, tc.checkpoint_dir, step)
             print(f"[ckpt] saved {path}")
-    t0 = time.perf_counter()
-    ckpt.save(state, tc.checkpoint_dir, steps - 1)
-    log["save_s"] = time.perf_counter() - t0
+    if save_final:
+        t0 = time.perf_counter()
+        ckpt.save(state, tc.checkpoint_dir, steps - 1)
+        log["save_s"] = time.perf_counter() - t0
     if dvfs_mgr is not None:
         rep = log["dvfs"] = dvfs_mgr.report()
         print(f"[dvfs] simulated energy {rep['energy_norm']:.3f}x static-1.7, "

@@ -25,9 +25,9 @@ prefill runs without grad and without remat). The reference's
 dropped (one card).
 
 :func:`loss_fn` is the reference's: chunked cross-entropy plus the MoE
-aux loss, for the families whose blocks are attention and an FFN (dense,
-audio, vlm, moe). The ssm and hybrid families raise: their kernels K7
-and K8 have no gradient yet (ROADMAP queue A).
+aux loss, for every family. Its kernels are autograd Functions: K6
+(``FlashAttention``), K7 (``RwkvChunk``, the ssm family's chunked WKV)
+and K8 (``SsmScan``, the hybrid family's mamba heads).
 
 The decode cache is a dict of tensors as the reference's, updated in
 place by :func:`decode_step` (the reference returns a new one). Prefill
@@ -54,8 +54,8 @@ from repro_torch.models import ssm as SSM
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 # the families the port serves (every family of the model zoo)
 SERVED_FAMILIES = ("dense", "audio", "moe", "hybrid", "vlm", "ssm")
-# the families loss_fn differentiates: attention (K6) and an FFN per block
-TRAINED_FAMILIES = ("dense", "audio", "moe", "vlm")
+# the families loss_fn differentiates: every served family
+TRAINED_FAMILIES = SERVED_FAMILIES
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -342,14 +342,7 @@ def loss_fn(params: Tree, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
     """(loss, {"ce", "aux"}): the masked chunked cross-entropy of
     ``batch["labels"]`` under ``batch["mask"]`` (zeros over the vision
     frontend's patches), plus ``aux_loss_weight * aux / n_layers`` for the
-    moe family, as the reference's. Raises ``NotImplementedError`` for the
-    ssm and hybrid families on every device, before any work."""
-    _check_family(cfg)
-    if cfg.family not in TRAINED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: training the {cfg.family} family needs gradients "
-            "of K7 and K8: ROADMAP queue A, \"A7 training, ssm and hybrid: "
-            "K7 and K8 gradients\"")
+    moe family, as the reference's, for every family of the model zoo."""
     x, prefix_len = embed_inputs(params, cfg, batch)
     h, aux = backbone(params, cfg, x, prefix_len)
     ce = L.chunked_ce_loss(h, _emb_out(params), batch["labels"],

@@ -4,7 +4,9 @@ channel-mix (port of ``repro.models.rwkv``).
 ``time_mix`` scans token by token (the exact recurrence; the decode step
 runs it on one token). ``time_mix_chunked`` computes the same WKV in
 chunks through K7 (``kernels.rwkv_chunk.rwkv_chunked_bthd``): the kernel on
-a CUDA tensor, its plain version on a CPU tensor. Parameters are indexed
+a CUDA tensor, its plain version on a CPU tensor; from the zero state
+through the autograd Function ``RwkvChunk``, whose backward is PyTorch
+operations. Parameters are indexed
 by the reference's keys (``p["wr"]``).
 """
 from __future__ import annotations
@@ -88,7 +90,8 @@ def time_mix_chunked(x: torch.Tensor, x_prev: torch.Tensor,
     K7, which starts from zero (a state tensor raises) and, with
     ``return_state``, writes the final state it holds as ``S_out``;
     without it the chunked branch returns ``S_out`` None (the prefill
-    discards the state)."""
+    discards the state). From the zero state the chunked WKV is
+    differentiable (``RwkvChunk``)."""
     B, S, D = x.shape
     H, hd = n_heads, head_dim
     if S % chunk or S <= chunk:
@@ -98,11 +101,15 @@ def time_mix_chunked(x: torch.Tensor, x_prev: torch.Tensor,
         return time_mix(x, x_prev, S0, p, H, hd)
     r, k, v, w, g = _rkvwg(x, x_prev, p)
     hs = (B, S, H, hd)
-    out = RC.rwkv_chunked_bthd(
-        r.reshape(hs), k.reshape(hs), v.reshape(hs), w.reshape(hs),
-        p["u"].reshape(H, hd).float(), chunk=chunk, S0=S0,
-        return_state=return_state)
-    y, S_out = out if return_state else (out, None)
+    rkvw = (r.reshape(hs), k.reshape(hs), v.reshape(hs), w.reshape(hs))
+    u = p["u"].reshape(H, hd).float()
+    if S0 is None:
+        y, S_out = RC.RwkvChunk.apply(*rkvw, u, chunk)
+    else:
+        y, S_out = RC.rwkv_chunked_bthd(*rkvw, u, chunk=chunk, S0=S0,
+                                        return_state=True)
+    if not return_state:
+        S_out = None
     return _out(y.reshape(B, S, D), g, x, p, H, hd), S_out, x[:, -1:]
 
 

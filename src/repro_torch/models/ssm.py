@@ -3,8 +3,10 @@
 
 Per-head scalar decay A, data-dependent dt/B/C, a causal depthwise conv
 in front. ``ssm_scan`` runs K8 (``kernels.ssm_scan``) on a CUDA tensor and
-its plain version, the reference's token loop, on a CPU tensor; the
-prefill scans the whole prompt and a decode step one token. Parameters
+its plain version, the reference's token loop, on a CPU tensor, through
+the autograd Function ``SsmScan`` (its backward the K8 backward kernel,
+or its plain version on a CPU tensor); the prefill scans the whole prompt
+and a decode step one token. Parameters
 are indexed by the reference's keys (``p["w_in"]``).
 """
 from __future__ import annotations
@@ -23,9 +25,10 @@ def ssm_scan(xh: torch.Tensor, dt: torch.Tensor, B_: torch.Tensor,
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Selective scan. xh (B,S,H,hd), dt (B,S,H), B_/C_ (B,S,N), A (H,)
     negative, h0 (B,H,hd,N); every operand taken in f32. Returns y
-    (B,S,H,hd) and h_out, both f32."""
-    return SS.ssm_scan(*(t.float().contiguous()
-                         for t in (xh, dt, B_, C_, A, h0)))
+    (B,S,H,hd) and h_out, both f32; differentiable (K8's Function),
+    the gradients carried back to each operand's dtype."""
+    return SS.SsmScan.apply(*(t.float().contiguous()
+                              for t in (xh, dt, B_, C_, A, h0)))
 
 
 def depthwise_conv(x: torch.Tensor, kernel: torch.Tensor,

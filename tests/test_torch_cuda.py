@@ -228,24 +228,55 @@ def test_pc_table_kernels_match_plain(dev, T, E, CU, WF, NF, N, scalars):
         assert all(torch.equal(a, b) for a, b in zip(outs[0], other))
 
 
-@pytest.mark.parametrize("scalars", ["float", "tensor"])
-def test_pc_table_wrappers_launch_one_kernel_each(dev, scalars):
-    """A wrapper call on the card is one kernel launch and nothing else
-    (no conversion, scalar packing or copy), as the engine calls it:
-    int64 slots, the hit mask, the scalars on the card or as floats."""
+def _pc_table_launches(scalars):
+    """What 4 calls of each PC-table wrapper run on the card, as the engine
+    calls them (int64 slots, the hit mask, the scalars on the card or as
+    floats): {"predict": {name: records}, "update": {...}}, each from one
+    torch.profiler session."""
+    dev = torch.device("cuda", 0)
     d = _table_case(64, 128, 64, 40, 10, dev, seed=5)
     kp = _scalar_kw(scalars, dev, epoch_us=1.0, cap_per_ghz=5500.0)
     ke = _scalar_kw(scalars, dev, ema=0.5)
     upd = (d["idx"].reshape(64, 40), *(v.reshape(64, 40) for v in d["fb"]))
-    ran = DT.kernel_counts(lambda: KPT.pc_table_predict(
+    return {"predict": DT.kernel_counts(lambda: KPT.pc_table_predict(
         *d["tbl"], d["tid"], d["idx"], *d["fb"], d["F"], **kp,
-        return_hit=True), 4)
-    assert len(ran) == 1 and "pc_table_predict_kernel" in next(iter(ran)) \
-        and set(ran.values()) == {4}, ran
-    ran = DT.kernel_counts(
-        lambda: KPT.pc_table_update(*d["tbl"], *upd, **ke), 4)
-    assert len(ran) == 1 and "pc_table_update_kernel" in next(iter(ran)) \
-        and set(ran.values()) == {4}, ran
+        return_hit=True), 4),
+        "update": DT.kernel_counts(
+            lambda: KPT.pc_table_update(*d["tbl"], *upd, **ke), 4)}
+
+
+@pytest.mark.parametrize("scalars", ["float", "tensor"])
+def test_pc_table_wrappers_launch_one_kernel_each(dev, scalars):
+    """A wrapper call on the card is one kernel launch and nothing else
+    (no conversion, scalar packing or copy), as the engine calls it:
+    int64 slots, the hit mask, the scalars on the card or as floats; 4
+    calls, 4 records of the one kernel. Counted in a fresh process
+    (``_pc_table_launches``): in a process that has traced thousands of
+    kernels, as this file's does by here, CUPTI drops records from a
+    profiler session (``scripts/devtime.py``), and the count read 3 of
+    4 in some runs of the whole file."""
+    import json
+    import os
+    import sys
+    root = Path(__file__).resolve().parents[1]
+    code = ("import importlib.util, json, sys\n"
+            "spec = importlib.util.spec_from_file_location('cuda_tests', "
+            "sys.argv[1])\n"
+            "mod = importlib.util.module_from_spec(spec)\n"
+            "spec.loader.exec_module(mod)\n"
+            "print(json.dumps(mod._pc_table_launches(sys.argv[2])))\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(root / "src"), str(root / "tests"),
+         os.environ.get("PYTHONPATH", "")]))
+    out = subprocess.run([sys.executable, "-c", code, __file__, scalars],
+                         env=env, capture_output=True, text=True,
+                         timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    ran = json.loads(out.stdout.strip().splitlines()[-1])
+    for which in ("predict", "update"):
+        got = ran[which]
+        assert len(got) == 1 and f"pc_table_{which}_kernel" in next(
+            iter(got)) and set(got.values()) == {4}, (which, got)
 
 
 def test_pc_table_wrappers_refuse_bad_operands(dev):
@@ -1450,6 +1481,117 @@ def test_ssm_scan_kernel_refuses_other_shapes(dev, hd, N):
     assert SS.ssm_scan.launches == n0
 
 
+# K8's backward against its plain version: each output within 1e-4 of its
+# largest magnitude + 1e-5 |ref| (the kernel sums over the channels and
+# tokens in other orders than the plain version's einsums)
+def _bwd_close(got, want, what):
+    for name, g, w in zip(("dxh", "ddt", "dB_", "dC_", "dA", "dh0"), got,
+                          want):
+        g, w = g.cpu().double(), w.cpu().double()
+        assert g.shape == w.shape, (what, name)
+        lim = 1e-4 * float(w.abs().max()) + 1e-5 * w.abs()
+        assert bool(((g - w).abs() <= lim).all()), (
+            what, name, float((g - w).abs().max() / w.abs().max()))
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("N", [8, 16])
+def test_ssm_scan_bwd_kernel_matches_plain(dev, hd, N):
+    """Every (hd, N) the backward kernel is built for, from a non-zero h0
+    and with a g_hout, S not a multiple of its 8-token tile (and one
+    tile, and S = 1)."""
+    from repro_torch.kernels import ssm_scan as SS
+    for B, S, H in ((2, 37, 3), (1, 8, 2), (2, 1, 2)):
+        args = _scan_case(B, S, H, hd, N, dev, seed=S + hd + N)
+        rng = np.random.default_rng(S)
+        gy = torch.as_tensor(rng.standard_normal((B, S, H, hd)).astype(
+            np.float32)).to(dev)
+        gh = torch.as_tensor(rng.standard_normal((B, H, hd, N)).astype(
+            np.float32)).to(dev)
+        n0 = SS.ssm_scan_bwd.launches
+        got = SS.ssm_scan_bwd(*args, gy, gh)
+        assert SS.ssm_scan_bwd.launches == n0 + 1
+        want = SS.ssm_scan_bwd_ref(*args, gy, gh)
+        torch.cuda.synchronize()
+        _bwd_close(got, want, (B, S, H, hd, N))
+
+
+def test_ssm_scan_bwd_kernel_at_hymba_layout_bitwise_twice(dev):
+    """hymba's 25 heads of 64 and state 16 at 300 tokens: against the
+    plain version, and two calls bit for bit equal (the sums over channels
+    and heads in a fixed order; no atomics)."""
+    from repro_torch.kernels import ssm_scan as SS
+    args = _scan_case(2, 300, 25, 64, 16, dev, seed=3)
+    rng = np.random.default_rng(4)
+    gy = torch.as_tensor(rng.standard_normal((2, 300, 25, 64)).astype(
+        np.float32)).to(dev)
+    gh = torch.as_tensor(rng.standard_normal((2, 25, 64, 16)).astype(
+        np.float32)).to(dev)
+    a = SS.ssm_scan_bwd(*args, gy, gh)
+    b = SS.ssm_scan_bwd(*args, gy, gh)
+    want = SS.ssm_scan_bwd_ref(*args, gy, gh)
+    torch.cuda.synchronize()
+    _bwd_close(a, want, "hymba")
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("hd,N", [(48, 16), (64, 12)])
+def test_ssm_scan_bwd_kernel_refuses_other_shapes(dev, hd, N):
+    """A head dim or state size the backward has no kernel for raises
+    before any launch; so does an operand that is not f32."""
+    from repro_torch.kernels import ssm_scan as SS
+    args = _scan_case(1, 8, 2, hd, N, dev)
+    gy = torch.zeros_like(args[0])
+    gh = torch.zeros_like(args[5])
+    n0 = SS.ssm_scan_bwd.launches
+    with pytest.raises(ValueError, match="K8 has kernels"):
+        SS.ssm_scan_bwd(*args, gy, gh)
+    args = _scan_case(1, 8, 2, 64, 16, dev)
+    with pytest.raises(ValueError, match="dtype"):
+        SS.ssm_scan_bwd(*args, torch.zeros_like(args[0]).double(),
+                        torch.zeros_like(args[5]))
+    assert SS.ssm_scan_bwd.launches == n0
+
+
+def test_scan_functions_grad_on_card_match_plain(dev):
+    """K8's and K7's Functions on the card (forward and backward kernels
+    for K8, K7's forward and its backward in PyTorch operations) against
+    autograd through their plain versions on the same inputs, f32, TF32
+    off: each gradient to 1e-4 of its largest magnitude."""
+    from repro_torch import no_tf32
+    from repro_torch.kernels import rwkv_chunk as RC
+    from repro_torch.kernels import ssm_scan as SS
+    no_tf32()
+    args = _scan_case(2, 70, 5, 64, 16, dev, seed=8)
+    rng = np.random.default_rng(8)
+    gy = torch.as_tensor(rng.standard_normal((2, 70, 5, 64)).astype(
+        np.float32)).to(dev)
+    gh = torch.as_tensor(rng.standard_normal((2, 5, 64, 16)).astype(
+        np.float32)).to(dev)
+    ins = [t.clone().requires_grad_() for t in args]
+    n = (SS.ssm_scan.launches, SS.ssm_scan_bwd.launches)
+    got = torch.autograd.grad(SS.SsmScan.apply(*ins), ins, (gy, gh))
+    assert (SS.ssm_scan.launches, SS.ssm_scan_bwd.launches) == (n[0] + 1,
+                                                                 n[1] + 1)
+    ins = [t.clone().requires_grad_() for t in args]
+    want = torch.autograd.grad(SS.ssm_scan_ref(*ins), ins, (gy, gh))
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max() / w.abs().max()) < 1e-4
+    r, k, v, w, u = _rwkv_case(2, 512, 3, 64, 0.6, 0.999, dev, seed=9)
+    gy = torch.randn(r.shape, generator=torch.Generator(device=dev)
+                     .manual_seed(1), device=dev)
+    ins = [t.clone().requires_grad_() for t in (r, k, v, w, u)]
+    n7 = RC.rwkv_chunked_bthd.launches
+    y, _ = RC.RwkvChunk.apply(*ins, 128)
+    got = torch.autograd.grad(y, ins, gy)
+    assert RC.rwkv_chunked_bthd.launches == n7 + 1
+    ins = [t.clone().requires_grad_() for t in (r, k, v, w, u)]
+    want = torch.autograd.grad(RC.rwkv_chunked_bthd_ref(*ins), ins, gy)
+    for g, w_ in zip(got, want):
+        assert g.shape == w_.shape
+        assert float((g - w_).abs().max() / w_.abs().max()) < 1e-4
+
+
 @pytest.mark.parametrize("window", [1024, 16])
 def test_hybrid_prefill_runs_k6_and_k8_per_layer_and_matches_cpu(dev,
                                                                  window):
@@ -1549,11 +1691,11 @@ def _smoke_train(arch, comp="none", mb=2, dtype="float32"):
     return cfg, tc
 
 
-def _run_steps(cfg, tc, dev, steps, seed=1, start=0, state=None):
+def _run_steps(cfg, tc, dev, steps, seed=1, start=0, state=None, seq=32):
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data import pipeline as TP
     from repro_torch.train import train_step as TT
-    shape = ShapeConfig("smoke", 32, 4, "train")
+    shape = ShapeConfig("smoke", seq, 4, "train")
     state = state or TT.init_state(cfg, tc, seed, dev)
     step = TT.make_train_step(cfg, tc)
     out = []
@@ -1617,19 +1759,84 @@ def test_train_step_on_card_matches_cpu(dev, arch):
 
 
 @pytest.mark.parametrize("arch,dtype", [("glm4-9b", "float32"),
-                                        ("granite-moe-1b-a400m", "bfloat16")])
+                                        ("granite-moe-1b-a400m", "bfloat16"),
+                                        ("rwkv6-3b", "bfloat16"),
+                                        ("hymba-1.5b", "bfloat16")])
 def test_train_steps_on_card_are_bitwise_deterministic(dev, arch, dtype):
     """Two runs of the same three steps (two microbatches, int8_ef) on the
     card give the same state bit for bit: no float atomics in any
     gradient (the embedding's, the MoE dispatch's and combine's
-    index gathers sum in a fixed order)."""
+    index gathers sum in a fixed order; K8's backward sums over channels
+    and heads in a fixed order). rwkv6-3b at 256 tokens (K7's chunked
+    WKV)."""
     cfg, tc = _smoke_train(arch, "int8_ef", 2, dtype)
-    runs = [_run_steps(cfg, tc, dev, 3) for _ in range(2)]
+    seq = 256 if arch == "rwkv6-3b" else 32
+    runs = [_run_steps(cfg, tc, dev, 3, seq=seq) for _ in range(2)]
     torch.cuda.synchronize()
     assert runs[0][1] == runs[1][1]
     a, b = _leaves(runs[0][0]), _leaves(runs[1][0])
     for key in a:
         assert torch.equal(a[key].detach(), b[key].detach()), key
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "hymba-1.5b"])
+def test_scan_train_step_on_card_matches_cpu(dev, arch):
+    """One f32 step (two microbatches) of the ssm and hybrid smoke configs
+    on the card against the same step on the CPU from the same state and
+    batch (rwkv6-3b at 256 tokens: K7's chunked WKV), to
+    ``test_train_step_on_card_matches_cpu``'s bounds, but v to 2e-5 of its
+    largest magnitude: v is the square of the gradient, so it doubles the
+    gradient's relative error (rwkv6-3b's ``w0``, whose gradient is ~1e-5
+    of the largest, read 1.04e-5 on an H100 80GB HBM3 at 700 W), and the
+    update to 1e-4 of lr plus one f32 ulp of the parameter (the f32
+    leaves at 0.5, the ``mu`` mixes, round ``p - step`` to 5.96e-8, more
+    than 1e-4 of lr: one flip of the last bit read 5.96e-8 there); per
+    layer and microbatch K7 (rwkv) or K6 and K8 (hymba) launch twice (the
+    forward and the remat recompute) and K8's backward once."""
+    from repro_torch import no_tf32
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import rwkv_chunk as RC
+    from repro_torch.kernels import ssm_scan as SS
+    from repro_torch.train import train_step as TT
+    no_tf32()
+    cfg, tc = _smoke_train(arch)
+    seq = 256 if arch == "rwkv6-3b" else 32
+    cpu = TT.init_state(cfg, tc, 3, "cpu")
+    card = TT.init_state(cfg, tc, 3, "cpu")
+    card["params"] = card["params"].to(dev)
+    card["opt"] = card["opt"]._replace(
+        m={k: t.to(dev) for k, t in card["opt"].m.items()},
+        v={k: t.to(dev) for k, t in card["opt"].v.items()},
+        count=card["opt"].count.to(dev))
+    card["step"] = card["step"].to(dev)
+    old = {k: p.detach().clone() for k, p in cpu["params"].named_parameters()}
+    cpu, (mc,) = _run_steps(cfg, tc, "cpu", 1, state=cpu, seq=seq)
+    counts = (FA.flash_attention_bshd.launches, RC.rwkv_chunked_bthd.launches,
+              SS.ssm_scan.launches, SS.ssm_scan_bwd.launches)
+    card, (mg,) = _run_steps(cfg, tc, dev, 1, state=card, seq=seq)
+    per = cfg.n_layers * tc.microbatches
+    want = (0, 2 * per, 0, 0) if arch == "rwkv6-3b" else (2 * per, 0,
+                                                          2 * per, per)
+    assert tuple(a - b for a, b in zip(
+        (FA.flash_attention_bshd.launches, RC.rwkv_chunked_bthd.launches,
+         SS.ssm_scan.launches, SS.ssm_scan_bwd.launches), counts)) == want
+    for key in ("loss", "grad_norm"):
+        assert abs(mg[key] - mc[key]) <= 1e-5 * max(abs(mc[key]), 1e-3), key
+    lr = mc["lr"]
+    cpu_p = dict(cpu["params"].named_parameters())
+    for name, p in card["params"].named_parameters():
+        for got, want_, tol in ((card["opt"].m[name], cpu["opt"].m[name],
+                                 1e-5),
+                                (card["opt"].v[name], cpu["opt"].v[name],
+                                 2e-5)):
+            assert float((got.cpu() - want_).abs().max()) <= tol * float(
+                want_.abs().max()), name
+        upd = (p.detach().cpu() - old[name]) - (cpu_p[name].detach()
+                                                 - old[name])
+        big = (cpu["opt"].m[name] / (1 - tc.beta1)).abs() >= 1e-6
+        ulp = old[name].abs() * 2.0 ** -23 if old[name].dtype == \
+            torch.float32 else torch.zeros_like(old[name])
+        assert bool((upd.abs() <= 1e-4 * lr + ulp)[big].all()), name
 
 
 def test_resume_is_bit_exact_on_card(dev):

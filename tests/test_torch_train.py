@@ -1,8 +1,10 @@
 """The port's training path against the live JAX package on the CPU, at
 smoke sizes: K6's gradient (``kernels.flash_attention.FlashAttention``,
 its plain forward here), ``layers.chunked_ce_loss``, ``model.loss_fn``
-and its gradient leaf by leaf (the MoE aux loss and the vision prefix
-included), one ``make_train_step`` step under each gradient compression
+and its gradient leaf by leaf for every family (the MoE aux loss, the
+vision prefix, K7's and K8's Functions included; the ssm and hybrid
+families' other training tests are ``tests/test_torch_train_scan.py``),
+one ``make_train_step`` step under each gradient compression
 and microbatch count, remat, the token pipeline and checkpoints both
 ways. Inputs and weights are the reference's (numpy-seeded data,
 ``interop.params_from_numpy`` / ``state_from_numpy``).
@@ -62,7 +64,10 @@ ROOT = Path(__file__).resolve().parents[1]
 SHAPE = ShapeConfig("smoke", 32, 4, "train")
 J_SHAPE = JShape("smoke", 32, 4, "train")
 LOSS_ARCHS = ["glm4-9b", "musicgen-medium", "granite-moe-1b-a400m",
-              "paligemma-3b"]
+              "paligemma-3b", "rwkv6-3b", "hymba-1.5b"]
+# the loss's sequence length: 32, and 256 for rwkv6-3b, whose time-mix
+# takes the chunked branch (K7's Function, chunks of 128) only past 128
+LOSS_S = {"rwkv6-3b": 256}
 
 
 def _np(x):
@@ -200,7 +205,7 @@ def test_chunked_ce_loss_matches_reference(S):
 
 def _loss_and_grads(arch, dtype):
     cj, ct, pj, pt = _pair(arch, dtype)
-    bj, bt = _batch(ct, 2, 32, 7)
+    bj, bt = _batch(ct, 2, LOSS_S.get(arch, 32), 7)
     (lj, mj), gj = jax.value_and_grad(
         lambda p: JM.loss_fn(p, cj, bj), has_aux=True)(pj)
     lt, mt = TM.loss_fn(pt, ct, bt)
@@ -215,7 +220,8 @@ def test_loss_fn_and_grads_match_reference(arch):
     """f32: the loss, ce and aux (granite-moe's MoE aux loss) to 1e-5 and
     each gradient leaf to 1e-4 of its largest magnitude; paligemma's
     batch holds patch embeddings, its prefix and labels masked over the
-    patches."""
+    patches; rwkv6-3b's runs 256 tokens through K7's Function (two
+    chunks), hymba-1.5b's through K6's and K8's."""
     (lj, mj, gj), (lt, mt, gt) = _loss_and_grads(arch, "float32")
     assert abs(float(lt) - float(lj)) < 1e-5
     for k in ("ce", "aux"):
@@ -235,15 +241,6 @@ def test_loss_fn_and_grads_bf16_match_reference():
     assert abs(float(lt) - float(lj)) < 1e-2
     for name in gj:
         assert _rel(gt[name], gj[name]) < 2e-2, name
-
-
-@pytest.mark.parametrize("arch", ["rwkv6-3b", "hymba-1.5b"])
-def test_loss_fn_refuses_ssm_and_hybrid(arch):
-    """Their kernels K7 and K8 have no gradient: refused before any work,
-    naming the queue-A item."""
-    cfg = t_smoke(arch)
-    with pytest.raises(NotImplementedError, match="K7 and K8 gradients"):
-        TM.loss_fn(None, cfg, {})
 
 
 def test_remat_policies_are_bitwise_equal():
