@@ -49,9 +49,11 @@ drives the port (never JAX, never ``repro``):
    (head dim 16, N 8, S 1001), from a non-zero h0 and g_hout, two calls
    bit for bit, timed beside its bound; K7's backward (PyTorch
    operations) against autograd through K7's plain version at rwkv6-3b's
-   layout (B 1, S 4096, 40 heads of 64), and its time;
-4. the quickstart path: ``run_workload`` of static17, crisp, pcstall and
-   oracle on ``comd`` for 600 epochs, with the fused epoch kernel's
+   layout (B 1, S 4096, 40 heads of 64), its time and the plain
+   version's;
+4. the quickstart path through ``examples_torch/quickstart.py``:
+   ``run_workload`` of static17, crisp, pcstall and oracle on ``comd``
+   for 600 epochs, with the fused epoch kernel's
    launches counted (crisp and pcstall run K3; static17 and the oracle
    run the unfused body, as in the reference); pcstall with
    ``use_pallas="v1"`` (the PC-table pair; its wall and ms per epoch);
@@ -130,13 +132,20 @@ drives the port (never JAX, never ``repro``):
     1, S 2048, 8 over 1 heads of 256, prefix 256) and hymba's (B 1, S
     2048, 25 over 5 heads of 64, window 1024); K6 at musicgen's training
     layout against its plain version, timed beside its bound and the
-    library, and the attention backward's time; musicgen-medium at full
+    library, and the attention backward's time beside the library's
+    backward (autograd of ``scaled_dot_product_attention``) and the
+    plain version's (autograd through it); musicgen-medium at full
     width through ``launch.train.train`` (TRAIN_4K's 4096 tokens, its 256
     sequences a step cut to 8 in 2 microbatches, 4 steps, warmup 1,
     DVFS on): finite losses, the first within 1.0 of ln 2048, every
     parameter moved, finite grad norms, 192 K6 launches a step (48
     layers x 2 microbatches x forward and remat recompute), the DVFS
-    report, step seconds, tokens/s and peak memory, the final checkpoint
+    report, step seconds, tokens/s and peak memory, the step counted on
+    meta tensors by ``repro_torch.roofline`` (FLOPs and bytes, the
+    model-FLOP share of the measured step, the useful ratio, its K6 calls
+    equal to the card's 192 launches a step; counted by ``python3
+    chip_smoke.py --roofline``, a child process on the host started as
+    the phase begins), the final checkpoint
     (~21.8 GB of npz under a temporary directory, after a check of the
     free disk space) restored bit for bit, save and restore seconds, one
     step's device time by class (K6, the attention backward, GEMMs, the
@@ -179,6 +188,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "scripts"))
 import torch  # noqa: E402
 
 import devtime as DT  # noqa: E402
+from examples_torch import quickstart as QUICKSTART  # noqa: E402
 
 from repro_torch import no_tf32  # noqa: E402
 from repro_torch import kernels as K  # noqa: E402
@@ -204,12 +214,23 @@ from repro_torch.kernels import epoch_fused as KEF  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import rwkv_chunk as RC  # noqa: E402
 from repro_torch.kernels import ssm_scan as SS  # noqa: E402
+from repro_torch.launch.input_specs import input_specs  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
+from repro_torch.roofline.analysis import analyze, roofline_terms  # noqa: E402
+from repro_torch.roofline.report import model_flops  # noqa: E402
 from repro_torch.learn import dataset as LDS  # noqa: E402
 from repro_torch.models import model as LM  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.kernels import pc_table as KPT  # noqa: E402
 from repro_torch.kernels import ref as REF  # noqa: E402
+# each kernel's work and the H100's data-sheet peaks (the roofline bound
+# of each kernel)
+from repro_torch.roofline.work import (HBM_BW, PEAK_FLOPS_BF16,  # noqa: E402
+                                       PEAK_FLOPS_F32, attention_bwd_flops,
+                                       attention_flops, bound_ms,
+                                       epoch_flops, fork_flops, nbytes,
+                                       rwkv_flops, scan_bwd_flops,
+                                       scan_flops)
 
 # main-path shapes (SimConfig defaults)
 CU, WF, NF, T_TABLES, ENTRIES, P = 64, 40, 10, 64, 128, 1024
@@ -222,9 +243,6 @@ V1_PROFILED = 5
 RTOL, ATOL = 1e-5, 1e-4
 # whole runs, kernel engine vs unfused engine: run-level work and energy
 AGG_TOL = 1e-3
-# H100 SXM data-sheet peaks (the roofline bound of each kernel)
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOP_PER_S = 67e12
 EPOCH_FAMS = [("pc", False, None), ("pc", True, None),
               ("reactive", False, "stall"), ("reactive", False, "crisp"),
               ("reactive", True, None)]
@@ -349,7 +367,6 @@ BF16_DECODE_TOL = 0.5
 # bound for its chunked kernel against the exact scan.
 K6_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2.0 ** -7, 1e-5)}
 K7_TOL = 1e-4
-BF16_FLOP_PER_S = 989e12
 # cuBLAS's matrix-product kernels by name (nvjet: CUDA 12.8's Hopper GEMMs)
 GEMM_NAMES = ("gemm", "gemv", "nvjet", "cutlass", "xmma")
 
@@ -466,10 +483,6 @@ def compare(name, got, want, *, rtol=RTOL, atol=ATOL, scale=None):
           f"{name}: max_abs_err {float(err.max()):.3e} "
           f"(worst err/limit {worst:.3f})")
     return float(err.max())
-
-
-def nbytes(*ts) -> int:
-    return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
 # ---------------------------------------------------------------------------
@@ -635,49 +648,6 @@ def epoch_bytes(args, kw, out):
     return nbytes(*ins) + nbytes(*outs) + 4 * (9 + 11)
 
 
-def epoch_flops(family, cu=CU, wf=WF, tables=T_TABLES):
-    """Floating-point operations of one epoch's function at a row of ``cu``
-    CUs x ``wf`` WFs, counted from the plain version: ~27 per WF for each
-    of the 3 execute rows any output reads (fork rows 0 and NF-1 and the
-    selected row; the other fork rows set only their own scale), ~25 per
-    WF for the selected row's counters and energy, ~10 per WF for the
-    estimator, ~40 per (CU, state) for predict and select, and for pc the
-    lookup (2 per WF) and update (3 per WF + 12 per slot)."""
-    n = cu * wf
-    ops = 27 * 3 * n + 25 * n + 10 * n + 40 * cu * NF
-    if family == "pc":
-        ops += 2 * n + 3 * n + 12 * tables * ENTRIES
-    return ops
-
-
-def fork_flops(rows, cu=CU, wf=WF, tables=T_TABLES):
-    """Operations of ``rows`` fork-family rows: a pc row's epoch plus the
-    reactive predictor and the four counter estimators (~20 per WF)."""
-    return rows * (epoch_flops("pc", cu, wf, tables) + 20 * cu * wf)
-
-
-def bound_ms(nb, ops, flop_rate=F32_FLOP_PER_S):
-    t_bytes = nb / HBM_BYTES_PER_S
-    t_ops = ops / flop_rate
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
-
-
-def attention_flops(B, S, H, hd, window=0, prefix=0):
-    """Operations of causal attention: the two products over the kept
-    (query, key) pairs, 2 x hd each. Row i keeps the keys of its window,
-    max(0, i - W + 1) .. i with W the window or S, and the first
-    ``prefix`` keys besides: S (S + 1) / 2 pairs causal, W (W + 1) / 2 +
-    (S - W) W with a window, P^2 + (S (S + 1) - P (P + 1)) / 2 with a
-    prefix of P."""
-    W = min(window, S) if window > 0 else S
-    i = np.arange(S, dtype=np.int64)
-    lo = np.maximum(0, i - W + 1)
-    kept = (i - lo + 1) + np.minimum(prefix, lo) \
-        + np.maximum(0, prefix - 1 - i)
-    return 4 * B * H * hd * int(kept.sum())
-
-
 def k6_window(cfg):
     """The window K6 runs at in ``cfg``'s prefill (0: causal only)."""
     return cfg.window if cfg.attn_kind == "swa" else 0
@@ -711,23 +681,6 @@ def prefill_batch(cfg, B, S, seed, dev):
         batch["patch_embeds"] = torch.as_tensor(rng.standard_normal(
             (B, n, cfg.d_model)).astype(np.float32)).to(dev, torch.bfloat16)
     return batch
-
-
-def scan_flops(B, S, H, hd, N):
-    """Operations of the selective scan: per channel and token dt x, and
-    per state the product with B, the decay's product and the sum into
-    the state, the product with C and the sum into y (5 N + 1); per
-    (batch, token, head) the decay's product and exp."""
-    return B * S * H * (hd * (5 * N + 1) + 2)
-
-
-def rwkv_flops(BH, T, hd):
-    """Operations the WKV needs, counted from the exact token recurrence
-    (the least of its forms): per (batch, head) and token, r . S (2 hd^2),
-    the decay w * S and the outer product k v^T with their sum (3 hd^2),
-    and the u bonus (r u k) v (5 hd). The chunked form K7 computes does
-    more (the (C, C) intra-chunk weights, the logs and exps)."""
-    return BH * T * (5 * hd * hd + 5 * hd)
 
 
 def qkv_case(cfg, dtypes, seed, dev):
@@ -813,7 +766,15 @@ def kernel_split(fn, reps=1):
     inside the ``moe.experts`` or the ``moe.dispatch`` / ``moe.combine``
     profiler ranges), K6's backward (inside ``flash_attention.bwd``),
     K7's backward (inside ``rwkv_chunk.bwd``), the other matrix products,
-    and the rest. None if it reports no device time."""
+    and the rest. None if it reports no device time.
+
+    It reads the profiler's raw events (``kineto_results``): building
+    its event tree (``prof.events()``) costs tens of seconds for a
+    training step. A kernel belongs to the operator it is linked to (its
+    correlation id), and that operator to the range whose span holds it
+    on the operator's thread."""
+    import bisect
+
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -829,37 +790,49 @@ def kernel_split(fn, reps=1):
              "flash_attention.bwd": "attn_bwd", "rwkv_chunk.bwd": "K7_bwd"}
     own = {"flash_attention_kernel": "K6", "rwkv_chunk_kernel": "K7",
            "ssm_scan_kernel": "K8", "ssm_scan_bwd_kernel": "K8_bwd"}
+    ops, ranges, kernels = {}, {}, []
+    for ev in prof.profiler.kineto_results.events():
+        name = ev.name()
+        if "cuda" in str(ev.device_type()).lower():
+            # a range's span on the card is not a kernel
+            if not ev.is_user_annotation() and name not in spans:
+                kernels.append(ev)
+        elif ev.linked_correlation_id() == 0 and not ev.is_hidden_event():
+            # an operator or a range on the host, by its correlation id
+            ops[ev.correlation_id()] = ev
+            if name in spans:
+                ranges.setdefault(ev.start_thread_id(), []).append(
+                    (ev.start_ns(), ev.end_ns(), spans[name]))
+    for r in ranges.values():
+        r.sort()
+    starts = {t: [r[0] for r in rs] for t, rs in ranges.items()}
+
+    def span_of(op):
+        """The range whose span holds ``op`` on its thread, or None (the
+        ranges do not nest: the last one to start before ``op`` is the
+        only candidate)."""
+        t = op.start_thread_id()
+        i = bisect.bisect_right(starts.get(t, []), op.start_ns()) - 1
+        if i >= 0 and ranges[t][i][1] >= op.end_ns():
+            return ranges[t][i][2]
+        return None
+
     # the card's work by name; K6-K8 are launched through ctypes, so no
     # operator of torch's owns them, and the rest by the operator (and its
-    # profiler range) that launched it
-    total = linked = 0.0
-    for ev in prof.events():
-        if "cuda" in str(ev.device_type).lower():
-            if getattr(ev, "is_user_annotation", False) or ev.name in spans:
-                continue                  # a range's span on the card
-            dur = ev.time_range.elapsed_us()
-            total += dur
-            for tag, cls in own.items():
-                if tag in ev.name:
-                    out[cls] += dur
-            continue
-        span, up = None, ev
-        while up is not None and span is None:
-            span, up = spans.get(up.name), up.cpu_parent
-        for kern in ev.kernels:
-            name = kern.name.lower()
-            if kern.name == ev.name or any(t in name for t in own):
-                continue
-            linked += kern.duration
-            if span is not None:
-                out[span] += kern.duration
-            elif any(g in name for g in GEMM_NAMES):
-                out["gemm"] += kern.duration
-            else:
-                out["other"] += kern.duration
-    # what no operator launched besides K6-K8 (K7's memset)
-    out["other"] += max(total - sum(out[c] for c in set(own.values()))
-                        - linked, 0.0)
+    # profiler range) that launched it; what no operator launched besides
+    # K6-K8 (K7's memset) is the rest
+    for ev in kernels:
+        dur = ev.duration_ns() / 1e3
+        name = ev.name()
+        cls = next((c for tag, c in own.items() if tag in name), None)
+        if cls is None:
+            op = ops.get(ev.linked_correlation_id())
+            cls = span_of(op) if op is not None else None
+            if cls is None:
+                low = name.lower()
+                cls = "gemm" if op is not None and any(
+                    g in low for g in GEMM_NAMES) else "other"
+        out[cls] += dur
     if sum(out.values()) <= 0:
         return None
     return {k: v / reps / 1e3 for k, v in out.items()}
@@ -912,6 +885,59 @@ def lm_ran_child() -> int:
         lambda: LM.prefill(params, cfg, batch), 1)
     print(json.dumps(out), flush=True)
     return 0
+
+
+def roofline_child() -> int:
+    """``--roofline``: phase 12's musicgen-medium training step
+    (TRAIN_SHAPE in TRAIN_MB microbatches, remat full) counted on meta
+    tensors by ``roofline.analysis.analyze``, on the host alone (no card,
+    nothing allocated) beside the parent's work; prints the count and
+    its seconds as one JSON line."""
+    cfg = get_config(TRAIN_ARCH)
+    tc = TrainConfig(microbatches=TRAIN_MB)
+    t0 = time.perf_counter()
+    out = analyze(make_train_step(cfg, tc),
+                  *input_specs(cfg, TRAIN_SHAPE, tc))
+    out["seconds"] = time.perf_counter() - t0
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def roofline_check(cfg, roof, mean_s, k6_per_step, card) -> None:
+    """The count of ``roofline_child`` for the step the card trained: its
+    FLOPs and bytes, the model-FLOP share of the measured step (6 N D
+    over its seconds over the bf16 peak) and the useful ratio (model
+    FLOPs over counted FLOPs); checks that the counter's K6 calls a step
+    equal the card's launches a step."""
+    out, err = roof.communicate(timeout=600)
+    lines = out.strip().splitlines()
+    check(roof.returncode == 0 and bool(lines),
+          f"the --roofline child counted {cfg.name}'s step (exit "
+          f"{roof.returncode}) {err.strip()[-2000:]}")
+    if roof.returncode != 0 or not lines:
+        return
+    a = json.loads(lines[-1])
+    terms = roofline_terms(a)
+    mf = model_flops(cfg, TRAIN_SHAPE)
+    calls = {k: v["calls"] for k, v in a["kernels"].items()}
+    print(f"roofline train {cfg.name} (one step, {TRAIN_SHAPE.global_batch}"
+          f" x {TRAIN_SHAPE.seq_len} tokens in {TRAIN_MB} microbatches, "
+          f"remat {cfg.remat}; roofline.analysis on meta tensors, "
+          f"{a['seconds']:.1f} s on the host): {a['flops'] / 1e12:.2f} "
+          f"TFLOP counted (matrix products {a['matmul_flops'] / 1e12:.2f}, "
+          + ", ".join(f"{k} {v['flops'] / 1e12:.2f} in {v['calls']} calls"
+                      for k, v in a["kernels"].items())
+          + f"), {a['hbm_bytes'] / 1e9:.1f} GB of HBM writes and kernel "
+          f"traffic, {a['aten_ops']} aten ops; at the H100's peaks compute "
+          f"{terms['t_compute_s']:.3f} s, memory {terms['t_memory_s']:.3f} "
+          f"s; model FLOPs 6 N D {mf / 1e12:.2f} TFLOP; model-FLOP share "
+          f"{mf / mean_s / PEAK_FLOPS_BF16:.4%} of 989 TFLOP/s at the "
+          f"measured {mean_s:.3f} s a step; useful ratio "
+          f"{mf / a['flops']:.4f} on {card}", flush=True)
+    check(calls.get("flash_attention") == k6_per_step,
+          f"roofline train {cfg.name}: the counter's K6 calls a step "
+          f"{calls.get('flash_attention')} == the card's {k6_per_step} "
+          f"launches a step")
 
 
 def lm_ran_on_card() -> dict:
@@ -1170,15 +1196,19 @@ def k6_grad_checks(dev, card) -> None:
             # and a row's graph holds its (H, S, block) tiles
             want = [torch.empty(t.shape, dtype=torch.float32, device=dev)
                     for t in (q, k, v)]
-            for b in range(B):
-                qs, ks, vs = (t[b:b + 1].float().requires_grad_()
-                              for t in (q, k, v))
-                out = FA.flash_attention_bshd_ref(
-                    qs, ks, vs, causal=True, window=w, prefix_len=pre)
-                for dst, g in zip(want, torch.autograd.grad(
-                        out, (qs, ks, vs), do[b:b + 1].float())):
-                    dst[b:b + 1] = g
-                del out
+
+            def plain():
+                for b in range(B):
+                    qs, ks, vs = (t[b:b + 1].float().requires_grad_()
+                                  for t in (q, k, v))
+                    out = FA.flash_attention_bshd_ref(
+                        qs, ks, vs, causal=True, window=w, prefix_len=pre)
+                    for dst, g in zip(want, torch.autograd.grad(
+                            out, (qs, ks, vs), do[b:b + 1].float())):
+                        dst[b:b + 1] = g
+            # the plain version's time (its forward and autograd), timed
+            # by the events around its one call
+            plain_ms = time_events(plain, reps=1, warm=0)
             qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
             n = FA.flash_attention_bshd.launches
             out = FA.FlashAttention.apply(qs, ks, vs, True, w, pre, 128)
@@ -1199,7 +1229,8 @@ def k6_grad_checks(dev, card) -> None:
             print(f"K6 gradient at {arch}'s layout ({str(dt).split('.')[-1]}"
                   f"): dq {errs[0]:.3e}, dk {errs[1]:.3e}, dv {errs[2]:.3e} "
                   f"of each one's largest magnitude against autograd "
-                  f"through the plain version in f32 on {card}", flush=True)
+                  f"through the plain version in f32 ({plain_ms:.1f} ms, its "
+                  f"forward and backward, events) on {card}", flush=True)
             del q, k, v, do, want, qs, ks, vs, out, got
         torch.cuda.empty_cache()
 
@@ -1209,7 +1240,9 @@ def k6_train_row(dev, card, rows) -> None:
     heads of 64, causal) against its plain version, its device time, the
     plain version's, the library's causal attention and its bound; and
     the attention backward's time at the same layout (PyTorch
-    operations in f32: no kernel of its own)."""
+    operations in f32: no kernel of its own) beside its bound and the
+    library's backward (autograd of ``scaled_dot_product_attention``'s
+    causal attention in bf16, the same function)."""
     B, S, H, Hkv, hd, _, _ = K6_GRAD_LAYOUTS[TRAIN_ARCH]
     rng = np.random.default_rng(44)
     q, k, v, do = (torch.as_tensor(rng.standard_normal(shp).astype(
@@ -1229,7 +1262,7 @@ def k6_train_row(dev, card, rows) -> None:
         lambda: FA.flash_attention_bshd_ref(q, k, v), reps=3, warm=1)
     ops = attention_flops(B, S, H, hd)
     row["bound_ms"], row["bound_by"] = bound_ms(nbytes(q, k, v, q), ops,
-                                                BF16_FLOP_PER_S)
+                                                PEAK_FLOPS_BF16)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     row["library_ms"] = time_events(
@@ -1242,17 +1275,23 @@ def k6_train_row(dev, card, rows) -> None:
               f"us on {card}", flush=True)
     bwd = lambda: FA.flash_attention_bshd_bwd(q, k, v, got, do)  # noqa: E731
     bwd_ms = time_events(bwd, reps=5, warm=1)
-    # five products over the kept pairs (q k^T again, dv, dp, dq, dk):
-    # 2.5x the forward's operations; the port also recomputes each row's
-    # log-sum-exp (a sixth)
-    bwd_ops = 2.5 * ops
+    # the library's backward: dq, dk, dv of one retained graph per call
+    ql, kl, vl = (t.detach().requires_grad_() for t in (qt, kt, vt))
+    lib_out = sdpa(ql, kl, vl, is_causal=True)
+    dot = do.transpose(1, 2)
+    lib_bwd_ms = time_events(lambda: torch.autograd.grad(
+        lib_out, (ql, kl, vl), dot, retain_graph=True), reps=20, warm=3)
+    # the port also recomputes each row's log-sum-exp (a sixth product)
+    bwd_ops = attention_bwd_flops(B, S, H, hd)
     print(f"time K6 backward (flash_attention_bshd_bwd, PyTorch operations "
           f"in f32) at {TRAIN_ARCH}'s training layout: {bwd_ms:.2f} ms per "
-          f"call (events); bound {bwd_ops / BF16_FLOP_PER_S * 1e3:.3f} ms "
+          f"call (events); bound {bwd_ops / PEAK_FLOPS_BF16 * 1e3:.3f} ms "
           f"at the bf16 tensor-core rate, "
-          f"{bwd_ops / F32_FLOP_PER_S * 1e3:.3f} ms at the f32 rate, on "
-          f"{card}", flush=True)
-    del q, k, v, do, got, qt, kt, vt
+          f"{bwd_ops / PEAK_FLOPS_F32 * 1e3:.3f} ms at the f32 rate; "
+          f"library backward (autograd of scaled_dot_product_attention, "
+          f"causal, bf16) {lib_bwd_ms:.3f} ms per call (events), on {card}",
+          flush=True)
+    del q, k, v, do, got, qt, kt, vt, ql, kl, vl, lib_out, dot
     torch.cuda.empty_cache()
 
 
@@ -1347,10 +1386,11 @@ def step_split(cfg, tc, state, mean_s, dev, card) -> None:
           + f" on {card}", flush=True)
 
 
-def train_phase(dev, card, rows) -> None:
+def train_phase(dev, card, rows, roof) -> None:
     """musicgen-medium at full width through ``launch.train.train`` (K6
     forward and recompute, the DVFS manager, the final checkpoint
-    restored bit for bit), one step's device time by class, then
+    restored bit for bit), its step against the count of ``roof`` (the
+    ``--roofline`` child), one step's device time by class, then
     granite-moe-1b-a400m through ``make_train_step``."""
     cfg = get_config(TRAIN_ARCH)
     ckdir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
@@ -1386,6 +1426,7 @@ def train_phase(dev, card, rows) -> None:
               f"train {TRAIN_ARCH}: K6 {n6} launches == {TRAIN_STEPS} steps "
               f"x {per_step} ({cfg.n_layers} layers x {TRAIN_MB} "
               f"microbatches x forward and recompute)")
+        roofline_check(cfg, roof, mean_s, n6 // TRAIN_STEPS, card)
         # the parameters moved from the initial state, and the final
         # checkpoint restores bit for bit into it
         fresh = init_state(cfg, tc, tc.seed, dev)
@@ -1453,16 +1494,6 @@ def train_phase(dev, card, rows) -> None:
                      f"({len(still)} did not: {still[:4]})")
     del state, before, step, batch
     torch.cuda.empty_cache()
-
-
-def scan_bwd_flops(B, S, H, hd, N):
-    """Operations of K8's backward: per channel and token the carried
-    gradient's update with C gy (2 N), its products with B and with the
-    previous state (4 N), the dC and dB terms (4 N), the decay's product
-    into the carry (N), and dx and the ddt and dA terms (5); per (batch,
-    token, head) the decay's exp and its products (4). The recompute of
-    the states is the kernel's choice, not counted."""
-    return B * S * H * (hd * (11 * N + 5) + 4)
 
 
 def scan_bwd_case(B, S, H, hd, N, seed, dev):
@@ -1542,7 +1573,11 @@ def k7_bwd_check(dev, card) -> None:
         np.float32) * 0.1).to(dev)
     got = RC.rwkv_chunked_bthd_bwd(r, k, v, w, u, gy)
     ins = [t.clone().requires_grad_() for t in (r, k, v, w, u)]
-    want = torch.autograd.grad(RC.rwkv_chunked_bthd_ref(*ins), ins, gy)
+    # the plain version (its forward and autograd), timed by the events
+    # around its one call
+    want = []
+    plain_ms = time_events(lambda: want.extend(torch.autograd.grad(
+        RC.rwkv_chunked_bthd_ref(*ins), ins, gy)), reps=1, warm=0)
     torch.cuda.synchronize()
     for name, g, wt in zip("rkvwu", got, want):
         err = float((g - wt).abs().max() / wt.abs().max())
@@ -1556,8 +1591,9 @@ def k7_bwd_check(dev, card) -> None:
     nb = nbytes(r, k, v, w, u, gy, *got)
     print(f"time K7 backward (rwkv_chunked_bthd_bwd, PyTorch operations in "
           f"f32) at rwkv6-3b's layout (B {B} T {T} H {H} hd {hd}): {ms:.3f} "
-          f"ms per call (events); bytes of its operands and gradients "
-          f"{nb / 1e6:.1f} MB, {nb / HBM_BYTES_PER_S * 1e3:.4f} ms at "
+          f"ms per call (events), autograd through the plain version "
+          f"{plain_ms:.3f} ms; bytes of its operands and gradients "
+          f"{nb / 1e6:.1f} MB, {nb / HBM_BW * 1e3:.4f} ms at "
           f"3.35 TB/s, on {card}", flush=True)
     del r, k, v, w, u, gy, got
     torch.cuda.empty_cache()
@@ -2093,7 +2129,7 @@ def main() -> int:
     times["ssm_scan"] = (
         lambda: SS.ssm_scan(*k8_in["prefill"]),
         lambda: SS.ssm_scan_ref(*k8_in["prefill"]), ("ssm_scan_kernel",))
-    rates = dict.fromkeys(k6_in, BF16_FLOP_PER_S)
+    rates = dict.fromkeys(k6_in, PEAK_FLOPS_BF16)
     # the least device time a call of one launch can take
     floor_ms = device_ms(lambda: torch.cuda._sleep(1), "launch floor")
     for key, (kern, plain, names) in times.items():
@@ -2107,7 +2143,7 @@ def main() -> int:
         row["plain_ms"] = time_events(plain, reps=3 if slow else 50,
                                       warm=1 if slow else 5)
         row["bound_ms"], row["bound_by"] = bound_ms(
-            row["nbytes"], row["ops"], rates.get(key, F32_FLOP_PER_S))
+            row["nbytes"], row["ops"], rates.get(key, PEAK_FLOPS_F32))
         if dv is None:
             continue
         print(f"time {key}: device {dv * 1e3:.2f} us per call, "
@@ -2195,22 +2231,19 @@ def main() -> int:
     # ---- 4. the quickstart path -------------------------------------------
     mark("4")
     prog = get_workload("comd", device=dev)
-    sim = SIM.SimConfig(n_epochs=N_EPOCHS)
     for fn in (KEF.epoch_fused, KPT.pc_table_predict, KPT.pc_table_update):
         fn.launches = 0
     reset_lm_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = SIM.run_workload(prog, sim, mechanisms=("static17", "crisp",
-                                                  "pcstall", "oracle"))
+    # examples_torch/quickstart.py: run_workload of static17, crisp,
+    # pcstall and oracle on comd, printing its table
+    res = QUICKSTART.main(device=dev, n_epochs=N_EPOCHS)
     torch.cuda.synchronize()
     main_wall = time.perf_counter() - t0
     v2_launches = dict(KEF.epoch_fused.launches_by_family)
-    print(f"{'mechanism':10s} {'accuracy':>9s} {'ED2P vs 1.7GHz':>15s}")
-    for mech, r in res.items():
-        acc = "-" if mech.startswith("static") else f"{r['accuracy']:.3f}"
-        print(f"{mech:10s} {acc:>9s} {r['ednp_norm']:>15.3f}")
-    print(f"main path wall {main_wall:.2f} s on {card}")
+    print(f"main path wall (examples_torch/quickstart.py) {main_wall:.2f} s "
+          f"on {card}")
     vals = [v for m, r in res.items() for k, v in r.items()
             if not (k == "accuracy" and m.startswith("static"))]
     check(bool(np.isfinite(vals).all()), "main path metrics finite")
@@ -2713,11 +2746,21 @@ def main() -> int:
 
     # ---- 12. training ------------------------------------------------------
     mark("12")
-    k6_grad_checks(dev, card)
-    mark("12, K6's training row")
-    k6_train_row(dev, card, rows)
-    mark("12, musicgen-medium and granite-moe")
-    train_phase(dev, card, rows)
+    # musicgen's step counted on meta tensors in a process of its own, on
+    # the host, while this one trains on the card
+    roof = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                             "--roofline"], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        k6_grad_checks(dev, card)
+        mark("12, K6's training row")
+        k6_train_row(dev, card, rows)
+        mark("12, musicgen-medium and granite-moe")
+        train_phase(dev, card, rows, roof)
+    finally:
+        if roof.poll() is None:
+            roof.kill()
+            roof.wait()
     mark("12, hymba-1.5b and rwkv6-3b")
     scan_train_phase(dev, card, rows)
 
@@ -2779,4 +2822,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(lm_ran_child() if sys.argv[1:] == ["--lm-ran"] else main())
+    sys.exit({"--lm-ran": lm_ran_child, "--roofline": roofline_child}.get(
+        " ".join(sys.argv[1:]), main)())

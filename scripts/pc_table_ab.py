@@ -13,29 +13,22 @@ the same numpy-seeded inputs at ``chip_smoke.py``'s shapes (64 CUs x 40
 WFs, 64 tables x 128 slots, 10 states) and saves:
 
 * K1's I_pred and K2's tables with int32 slots and 0-dim scalars on the
-  card (what every checkout takes), and what the v1 epoch's call sites
-  produce from its int64 slots (I_pred, the hit mask, the tables);
+  card, and what the v1 epoch's call sites produce from its int64 slots
+  (I_pred, the hit mask, the tables);
 * the 600-epoch v1 pcstall run on comd (every output channel).
 
-It prints, for each wrapper called as the epoch calls it and for the
-call site around it (a parent converts the slots and gathers the hit
-mask itself): the device time per call (``scripts/devtime.py``), the
-time per call with the host (events over 200 back-to-back calls) and the
-kernel alone (torch.profiler); the launch floor (``torch.cuda._sleep(1)``
-by the same methods); what a few v1 epochs run on the card, per epoch
-(torch.profiler); and three walls of the 600-epoch v1 run. ``--compare``
-prints, per output, whether the two runs are bitwise equal.
-
-The call sites come in two forms, picked by the checkout's wrapper
-signature. The second (no ``return_hit``) copies the v1 epoch of a
-checkout from before the pair took int64 slots and wrote the hit mask:
-it exists only to measure such a parent against the change, and goes
-once no such checkout is measured.
+It prints, for each wrapper called as the v1 epoch calls it (int64
+slots, 0-dim scalars, K1 with its hit mask): the device time per call
+(``scripts/devtime.py``), the time per call with the host (events over
+200 back-to-back calls) and the kernel alone (torch.profiler); the launch
+floor (``torch.cuda._sleep(1)`` by the same methods); what a few v1
+epochs run on the card, per epoch (torch.profiler); and three walls of
+the 600-epoch v1 run. ``--compare`` prints, per output, whether the two
+runs are bitwise equal.
 """
 from __future__ import annotations
 
 import argparse
-import inspect
 import re
 import subprocess
 import sys
@@ -85,8 +78,6 @@ def run(out_path: str) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
     print(f"card: {card}; checkout: {ROOT}", flush=True)
-    new_api = "return_hit" in inspect.signature(
-        KPT.pc_table_predict).parameters
 
     tbl, tid64, idx64, fb = _inputs(dev)
     tid = tid64.to(torch.int32)
@@ -98,34 +89,13 @@ def run(out_path: str) -> int:
     shp = (T_TABLES, CU // T_TABLES * WF)
     upd = (fb[0].reshape(shp), fb[1].reshape(shp))
 
-    # the call sites of the v1 epoch, as this checkout's body has them
-    if new_api:
-        def k1_site():
-            return KPT.pc_table_predict(*tbl, tid, idx64, *fb, F, **kp,
-                                        return_hit=True)
+    # the call sites of the v1 epoch
+    def k1_site():
+        return KPT.pc_table_predict(*tbl, tid, idx64, *fb, F, **kp,
+                                    return_hit=True)
 
-        def k2_site():
-            return KPT.pc_table_update(*tbl, idx64.reshape(shp), *upd,
-                                       ema=ema)
-        k1_wrap, k2_wrap = k1_site, k2_site
-    else:
-        # a checkout from before int64 slots and the hit-mask output: its
-        # body converts the slots and gathers the mask itself
-        def k1_site():
-            out = KPT.pc_table_predict(*tbl, tid, idx64.to(torch.int32),
-                                       *fb, F, **kp)
-            return out, (tbl[2][tid64[:, None], idx64] > 0).to(torch.float32)
-
-        def k2_site():
-            return KPT.pc_table_update(
-                *tbl, idx64.to(torch.int32).reshape(shp), *upd, ema=ema)
-
-        def k1_wrap():
-            return KPT.pc_table_predict(*tbl, tid, idx32, *fb, F, **kp)
-
-        def k2_wrap():
-            return KPT.pc_table_update(*tbl, idx32.reshape(shp), *upd,
-                                       ema=ema)
+    def k2_site():
+        return KPT.pc_table_update(*tbl, idx64.reshape(shp), *upd, ema=ema)
 
     saved = {}
     saved["K1 int32"] = {"I_pred": KPT.pc_table_predict(
@@ -162,9 +132,7 @@ def run(out_path: str) -> int:
 
     times = {}
     for label, fn, kern in (
-            ("K1 wrapper", k1_wrap, "pc_table_predict_kernel"),
             ("K1 call site", k1_site, "pc_table_predict_kernel"),
-            ("K2 wrapper", k2_wrap, "pc_table_update_kernel"),
             ("K2 call site", k2_site, "pc_table_update_kernel"),
             ("launch floor", lambda: torch.cuda._sleep(1), "spin_kernel")):
         dv = DT.device_ms(fn)

@@ -49,6 +49,7 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch.kernels import check, library, require, stream_ptr
+from repro_torch.roofline import work as W
 
 NEG_INF = -1e30
 # head dims the kernel is instantiated for, and the largest key block
@@ -147,14 +148,17 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Returns (B,S,H,hd) in q's dtype; every row also sees the first
     ``prefix_len`` keys (0 <= prefix_len <= S). On CUDA: f32 or bf16,
     contiguous, hd in ``HEAD_DIMS``, ``min(blk_k, S) <= MAX_BLK_K`` (in
-    bf16 at most ``RING_BLK_K[hd]`` where it names the head dim)."""
+    bf16 at most ``RING_BLK_K[hd]`` where it names the head dim). On the
+    ``meta`` device the same checks, then an empty output, and K6's work
+    (``roofline.work.attention_flops``) goes to the open work counter
+    in place of a launch (not counted in ``launches``)."""
     B, S, H, hd = q.shape
     Hkv = k.shape[2]
     if H % Hkv:
         raise ValueError(f"{H} query heads over {Hkv} KV heads")
     bk = _key_block(S, blk_k)
     _check_prefix(S, prefix_len)
-    if not q.is_cuda:
+    if not q.is_cuda and not q.is_meta:
         return flash_attention_bshd_ref(q, k, v, causal=causal,
                                         window=window, prefix_len=prefix_len,
                                         blk_q=blk_q, blk_k=blk_k)
@@ -172,6 +176,10 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     require(k, "k", q.dtype, (B, S, Hkv, hd), dev)
     require(v, "v", q.dtype, (B, S, Hkv, hd), dev)
     out = torch.empty_like(q)
+    if q.is_meta:
+        W.record("flash_attention", W.attention_flops(
+            B, S, H, hd, window, prefix_len, causal), W.nbytes(q, k, v, out))
+        return out
     code = library().flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H,
         Hkv, hd, bk, int(causal), int(window), int(prefix_len),
@@ -191,7 +199,7 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The reference's layout: q/k/v (BH,S,hd), k/v already expanded to
     q's heads. Returns (BH,S,hd). K6 on a CUDA tensor, the plain version
     on a CPU tensor."""
-    if not q.is_cuda:
+    if not q.is_cuda and not q.is_meta:
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    prefix_len=prefix_len, blk_q=blk_q,
                                    blk_k=blk_k)
@@ -228,12 +236,24 @@ def flash_attention_bshd_bwd(q: torch.Tensor, k: torch.Tensor,
     dout``, ``ds = p (dout v^T - D) scale``, ``dq += ds k``, ``dk = ds^T
     q``. Query heads stay grouped by KV head (row ``s * rep + r`` of a KV
     head's group), so each product over rows sums dk and dv over the
-    group, and a block only visits the rows that see one of its keys."""
+    group, and a block only visits the rows that see one of its keys.
+
+    On the ``meta`` device: empty gradients, and the function's work
+    (``roofline.work.attention_bwd_flops``, its operands and gradients
+    moved once) goes to the open work counter, as a kernel's would
+    (walking these operations on ``meta`` tensors costs ~0.6 s a call at
+    a training layout: a step's count would take a minute)."""
     B, S, H, hd = q.shape
     Hkv = k.shape[2]
     if H % Hkv:
         raise ValueError(f"{H} query heads over {Hkv} KV heads")
     _check_prefix(S, prefix_len)
+    if q.is_meta:
+        grads = tuple(torch.empty_like(t) for t in (q, k, v))
+        W.record("flash_attention_bwd", W.attention_bwd_flops(
+            B, S, H, hd, window, prefix_len, causal),
+            W.nbytes(q, k, v, out, dout, *grads))
+        return grads
     rep = H // Hkv
     bk = min(blk_k, S)
     if S % bk:

@@ -1,4 +1,4 @@
-"""Public wrappers of the LM kernels, as ``repro/kernels/ops.py`` has them.
+"""Public wrappers of the kernels, as ``repro/kernels/ops.py`` has them.
 
 ``flash_attention`` takes the model's (B,S,H,hd) layout with grouped KV
 heads and ``rwkv_chunked`` the reference's (BH,T,hd) one. Each launches
@@ -6,7 +6,13 @@ its CUDA kernel (K6, K7) on a CUDA tensor and runs the plain version on a
 CPU tensor; ``flash_attention`` is differentiable
 (``flash_attention.FlashAttention``). The launches are counted in
 ``flash_attention.flash_attention_bshd.launches`` and
-``rwkv_chunk.rwkv_chunked_bthd.launches``.
+``rwkv_chunk.rwkv_chunked_bthd.launches``. ``pc_table_predict`` and
+``pc_table_update`` are the PC-table pair (K1, K2) of ``pc_table``, which
+take the reference's operands.
+
+The reference's ``set_backend`` is not ported: it switches its Pallas
+kernels between interpret mode and the TPU. Here the tensor's device
+chooses: the kernel on a CUDA tensor, its plain version on a CPU one.
 """
 from __future__ import annotations
 
@@ -14,6 +20,8 @@ import torch
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import rwkv_chunk as _rc
+from repro_torch.kernels.pc_table import (  # noqa: F401
+    pc_table_predict, pc_table_update)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

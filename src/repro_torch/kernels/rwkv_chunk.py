@@ -35,6 +35,7 @@ from torch.profiler import record_function
 
 from repro_torch import no_tf32
 from repro_torch.kernels import check, library, require, stream_ptr
+from repro_torch.roofline import work as W
 
 _F32 = torch.float32
 # the C entry point's codes for a chunk one CTA cannot hold and for a head
@@ -108,11 +109,14 @@ def rwkv_chunked_bthd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       return_state: bool = False):
     """r/k/v/w (B,T,H,hd); u (H,hd) or (B,H,hd); S0 (B,H,hd,hd) or None.
     Returns y (B,T,H,hd) f32, and the final state (B,H,hd,hd) when
-    ``return_state``. On CUDA: f32, r/k/v/w contiguous, S0 None."""
+    ``return_state``. On CUDA: f32, r/k/v/w contiguous, S0 None. On the
+    ``meta`` device the same checks, then empty outputs, and K7's work
+    (``roofline.work.rwkv_flops``) goes to the open work counter in
+    place of a launch (not counted in ``launches``)."""
     B, T, H, hd = r.shape
     C = _chunk(T, chunk)
-    u = u.expand(B, H, hd)
-    if not r.is_cuda:
+    u_in, u = u, u.expand(B, H, hd)
+    if not r.is_cuda and not r.is_meta:
         return rwkv_chunked_bthd_ref(r, k, v, w, u, chunk=chunk, S0=S0,
                                      return_state=return_state)
     if S0 is not None:
@@ -130,6 +134,10 @@ def rwkv_chunked_bthd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # work: the tiles' ticket and each (batch, head)'s count of published
     # state tiles (reset by the launch)
     S = torch.empty((B, H, hd, hd), dtype=_F32, device=dev)
+    if r.is_meta:
+        W.record("rwkv_chunked", W.rwkv_flops(B * H, T, hd), W.nbytes(
+            r, k, v, w, u_in, y, S if return_state else None))
+        return (y, S) if return_state else y
     work = torch.empty(1 + B * H, dtype=torch.int32, device=dev)
     code = library().rwkv_chunk_launch(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
@@ -156,7 +164,7 @@ def rwkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The reference's layout: r/k/v/w (BH,T,hd), u (BH,hd). Returns y
     (BH,T,hd) f32. K7 on a CUDA tensor, the plain version on a CPU
     tensor."""
-    if not r.is_cuda:
+    if not r.is_cuda and not r.is_meta:
         return rwkv_chunked_ref(r, k, v, w, u, chunk=chunk)
     return rwkv_chunked_bthd(r[:, :, None], k[:, :, None], v[:, :, None],
                              w[:, :, None], u[:, None], chunk=chunk)[:, :, 0]

@@ -32,6 +32,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import check, library, require, stream_ptr
+from repro_torch.roofline import work as W
 
 _F32 = torch.float32
 # head dims and state sizes K8 is instantiated for
@@ -65,8 +66,11 @@ def ssm_scan(xh: torch.Tensor, dt: torch.Tensor, B_: torch.Tensor,
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Shapes as :func:`ssm_scan_ref`. Returns y (B,S,H,hd) f32 and h_out
     (B,H,hd,N) f32. On CUDA: every operand f32 and contiguous, hd in
-    ``HEAD_DIMS``, N in ``STATE_SIZES``."""
-    if not xh.is_cuda:
+    ``HEAD_DIMS``, N in ``STATE_SIZES``. On the ``meta`` device the same
+    checks, then empty outputs, and K8's work
+    (``roofline.work.scan_flops``) goes to the open work counter in
+    place of a launch (not counted in ``launches``)."""
+    if not xh.is_cuda and not xh.is_meta:
         return ssm_scan_ref(xh, dt, B_, C_, A, h0)
     B, S, H, hd = xh.shape
     N = B_.shape[-1]
@@ -78,6 +82,11 @@ def ssm_scan(xh: torch.Tensor, dt: torch.Tensor, B_: torch.Tensor,
                            ("B_", B_, (B, S, N)), ("C_", C_, (B, S, N)),
                            ("A", A, (H,)), ("h0", h0, (B, H, hd, N))):
         require(t, name, _F32, shape, dev)
+    if xh.is_meta:
+        y, h_out = torch.empty_like(xh), torch.empty_like(h0)
+        W.record("ssm_scan", W.scan_flops(B, S, H, hd, N),
+                 W.nbytes(xh, dt, B_, C_, A, h0, y, h_out))
+        return y, h_out
     for name, t in (("xh", xh), ("B_", B_), ("C_", C_)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: K8 reads it in 16-byte vectors; its "
@@ -148,8 +157,11 @@ def ssm_scan_bwd(xh: torch.Tensor, dt: torch.Tensor, B_: torch.Tensor,
     f32 and contiguous, hd in ``HEAD_DIMS``, N in ``STATE_SIZES``; it
     writes dB_ and dC_ per head and dA per batch row, which are then
     summed (torch's reductions, in a fixed order). On a CPU tensor the
-    plain version."""
-    if not xh.is_cuda:
+    plain version. On the ``meta`` device the same checks, then empty
+    gradients, and the backward's work (``roofline.work.scan_bwd_flops``)
+    goes to the open work counter in place of a launch (not counted in
+    ``launches``)."""
+    if not xh.is_cuda and not xh.is_meta:
         return ssm_scan_bwd_ref(xh, dt, B_, C_, A, h0, gy, g_hout)
     B, S, H, hd = xh.shape
     N = B_.shape[-1]
@@ -163,6 +175,11 @@ def ssm_scan_bwd(xh: torch.Tensor, dt: torch.Tensor, B_: torch.Tensor,
                            ("gy", gy, (B, S, H, hd)),
                            ("g_hout", g_hout, (B, H, hd, N))):
         require(t, name, _F32, shape, dev)
+    if xh.is_meta:
+        grads = tuple(torch.empty_like(t) for t in (xh, dt, B_, C_, A, h0))
+        W.record("ssm_scan_bwd", W.scan_bwd_flops(B, S, H, hd, N),
+                 W.nbytes(xh, dt, B_, C_, A, h0, gy, g_hout, *grads))
+        return grads
     for name, t in (("B_", B_), ("C_", C_)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: K8 reads it in 16-byte vectors; its "

@@ -37,7 +37,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -99,12 +99,17 @@ class Tree(nn.Module):
 
 
 class _Init:
-    """The reference's initialisers from one explicit generator."""
+    """The reference's initialisers from one explicit generator. On the
+    ``meta`` device (no generator: ``torch.Generator`` refuses it) every
+    leaf is an empty tensor of its shape and dtype, and nothing is
+    drawn."""
 
-    def __init__(self, gen: torch.Generator, device: torch.device):
+    def __init__(self, gen: Optional[torch.Generator], device: torch.device):
         self.gen, self.device = gen, device
 
     def normal(self, shape, dtype, scale=0.02) -> torch.Tensor:
+        if self.device.type == "meta":
+            return torch.empty(shape, dtype=dtype, device=self.device)
         x = torch.randn(shape, generator=self.gen, dtype=torch.float32,
                         device=self.device) * scale
         return x.to(dtype)
@@ -193,11 +198,14 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     constants (normal x 0.02; output projections x 1/sqrt(2L); mu 0.5,
     w0 -1, u 0, norms 0), frozen unless ``trainable``. The bits differ
     from the reference's ``jax.random``; ``interop.params_from_numpy``
-    carries its weights."""
+    carries its weights. On ``device="meta"`` the leaves have shapes and
+    dtypes only (``launch.input_specs``)."""
     _check_family(cfg)
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    gen = None
+    if dev.type != "meta":
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
     init = _Init(gen, dev)
     p = {"embed": init.normal((cfg.vocab, cfg.d_model), _dtype(cfg))}
     p["layers"] = nn.ModuleList(_init_layer(init, cfg)

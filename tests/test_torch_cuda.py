@@ -1890,3 +1890,54 @@ def test_loss_decreases_quick_train_on_card(dev):
         after = float(M.loss_fn(state["params"], cfg, held)[0])
     assert all(np.isfinite(losses))
     assert after < before, (before, after, losses[:3] + losses[-3:])
+
+
+def _example(name):
+    spec = importlib.util.spec_from_file_location(
+        f"examples_torch_{name}",
+        Path(__file__).resolve().parents[1] / "examples_torch" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("custom_mechanism", dict(workloads=("comd", "hacc"))),
+    ("dvfs_granularity", dict(domains=(1, 4))),
+    ("ivr_regime", dict(workloads=("comd", "hacc")))])
+def test_grid_examples_on_card_run_the_fork_kernel(dev, name, kw):
+    """The three ``run_grid`` examples at 8 CUs x 40 epochs on the card:
+    their pcstall (and crisp) rows on K4, every ED^nP finite."""
+    before = KEF.epoch_fused.launches_by_family.get("fork", 0)
+    res = _example(name).main(device=dev, n_epochs=40, n_cu=8, **kw)
+    assert KEF.epoch_fused.launches_by_family["fork"] > before
+    vals = [v for r in res.values() for v in r.values()]
+    assert vals and all(np.isfinite(v) for v in vals)
+
+
+def test_serve_batched_example_on_card_runs_k7(dev):
+    """A prompt of two 128-token chunks: K7 once per layer of the
+    prefill."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import rwkv_chunk as RC
+    n = RC.rwkv_chunked_bthd.launches
+    rep = _example("serve_batched").main(device=dev, batch=2, prompt_len=256,
+                                         gen=4, dvfs=False)
+    assert RC.rwkv_chunked_bthd.launches - n == \
+        get_smoke_config("rwkv6-3b").n_layers
+    assert rep["tokens"].shape == (2, 5) and rep["tokens"].is_cuda
+
+
+def test_train_lm_example_on_card_runs_k6_and_its_gradient(dev, tmp_path):
+    """The example at its own sizes (the llama3 smoke config, 60 steps of
+    8 x 128 tokens in 2 microbatches) on the card: K6 twice per layer and
+    microbatch (the forward and the remat recompute), the loss falling
+    (the example's own assertion), checkpoints written."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import flash_attention as FA
+    n = FA.flash_attention_bshd.launches
+    losses = _example("train_lm").main(str(tmp_path), device=dev)
+    layers = get_smoke_config("llama3-405b").n_layers
+    assert FA.flash_attention_bshd.launches - n == 60 * layers * 2 * 2
+    assert len(losses) == 60 and losses[-1] < losses[0]
+    assert (tmp_path / "step_00000059").exists()

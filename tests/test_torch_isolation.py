@@ -1,8 +1,8 @@
 """Static checks of the port that need neither JAX nor a card.
 
-* The port (``src/repro_torch``) and ``chip_smoke.py`` import neither JAX
-  nor the reference package ``repro``: every import statement is checked
-  in the AST.
+* The port (``src/repro_torch``), its examples (``examples_torch``) and
+  ``chip_smoke.py`` import neither JAX nor the reference package
+  ``repro``: every import statement is checked in the AST.
 * The ctypes declarations of the kernel library match the C sources: each
   entry point's parameter count and kinds, and the field order of the
   fused epoch kernel's argument struct (K1-K8). A mismatch would not fail to
@@ -25,7 +25,7 @@ from repro_torch.kernels import epoch_fused as KEF  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"]
+    + sorted((ROOT / "examples_torch").glob("*.py")) + [ROOT / "chip_smoke.py"]
 CSRC = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
 
 
@@ -64,7 +64,12 @@ def test_port_file_list_is_complete():
         "models/__init__.py",
         "launch/serve.py", "launch/train.py", "train/__init__.py",
         "train/train_step.py", "train/checkpoint.py",
-        "optim/adamw.py")} | {"chip_smoke.py"} <= names
+        "optim/adamw.py", "launch/input_specs.py", "roofline/work.py",
+        "roofline/analysis.py", "roofline/report.py")} \
+        | {f"examples_torch/{f}.py" for f in (
+            "quickstart", "custom_mechanism", "dvfs_granularity",
+            "ivr_regime", "serve_batched", "train_lm")} \
+        | {"chip_smoke.py"} <= names
 
 
 def _c_entry_points():
