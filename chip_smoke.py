@@ -126,36 +126,41 @@ drives the port (never JAX, never ``repro``):
     element at the kernel-vs-plain limits; and a 2-workload dataset from
     each engine, PCSTALL's rows element by element;
 12. the training path: K6's gradient (``FlashAttention``: the forward on
-    K6, the backward in PyTorch operations) against autograd through the
-    plain version in f32, from f32 and bf16 inputs, at musicgen-medium's
-    training layout (B 4, S 4096, 24 heads of 64, causal), paligemma's (B
-    1, S 2048, 8 over 1 heads of 256, prefix 256) and hymba's (B 1, S
-    2048, 25 over 5 heads of 64, window 1024); K6 at musicgen's training
-    layout against its plain version, timed beside its bound and the
-    library, and the attention backward's time beside the library's
-    backward (autograd of ``scaled_dot_product_attention``) and the
-    plain version's (autograd through it); musicgen-medium at full
+    K6, which also writes each row's log-sum-exp, the backward on K6's
+    backward kernels, ``csrc/flash_attention_bwd.cu``) against autograd
+    through the plain version in f32, from f32 and bf16 inputs, at
+    musicgen-medium's training layout (B 4, S 4096, 24 heads of 64,
+    causal), paligemma's (B 1, S 2048, 8 over 1 heads of 256, prefix 256)
+    and hymba's (B 1, S 2048, 25 over 5 heads of 64, window 1024), two
+    backward calls bit for bit; K6 at musicgen's training layout against
+    its plain version, timed beside its bound and the library, and K6's
+    backward kernel there against its plain version on the same
+    log-sum-exp, timed beside its bound, the plain version's time and the
+    library's backward (autograd of ``scaled_dot_product_attention``);
+    musicgen-medium at full
     width through ``launch.train.train`` (TRAIN_4K's 4096 tokens, its 256
     sequences a step cut to 8 in 2 microbatches, 4 steps, warmup 1,
     DVFS on): finite losses, the first within 1.0 of ln 2048, every
     parameter moved, finite grad norms, 192 K6 launches a step (48
-    layers x 2 microbatches x forward and remat recompute), the DVFS
+    layers x 2 microbatches x forward and remat recompute) and 96 of the
+    backward, the DVFS
     report, step seconds, tokens/s and peak memory, the step counted on
     meta tensors by ``repro_torch.roofline`` (FLOPs and bytes, the
-    model-FLOP share of the measured step, the useful ratio, its K6 calls
-    equal to the card's 192 launches a step; counted by ``python3
-    chip_smoke.py --roofline``, a child process on the host started as
-    the phase begins), the final checkpoint
+    model-FLOP share of the measured step, the useful ratio, its K6 and
+    K6 backward calls equal to the card's 192 and 96 launches a step;
+    counted by ``python3 chip_smoke.py --roofline``, a child process on
+    the host started as the phase begins), the final checkpoint
     (~21.8 GB of npz under a temporary directory, after a check of the
     free disk space) restored bit for bit, save and restore seconds, one
-    step's device time by class (K6, the attention backward, GEMMs, the
-    rest); then granite-moe-1b-a400m through ``make_train_step`` (2 steps
-    at 4 x 2048): finite loss, MoE aux loss and grad norm, every
+    step's device time by class (K6, the attention backward's kernels,
+    GEMMs, the rest); then granite-moe-1b-a400m through ``make_train_step``
+    (2 steps at 4 x 2048): finite loss, MoE aux loss and grad norm, every
     parameter moved; then hymba-1.5b and rwkv6-3b at full width through
     ``launch.train.train`` (8 x 4096 tokens a step in 2 microbatches, 2
     steps, remat full, DVFS on, no checkpoint): finite losses, the first
     within 1.0 of ln V, finite grad norms, every parameter moved, per
-    layer and microbatch K6 and K8 twice and K8's backward once (hymba)
+    layer and microbatch K6 and K8 twice and K6's and K8's backwards once
+    (hymba)
     or K7 twice (rwkv), step seconds, tokens/s and peak memory, and one
     step's device time by class (K6, the attention backward, K7, K7's
     backward by its ``rwkv_chunk.bwd`` range, K8, K8's backward, GEMMs,
@@ -400,6 +405,7 @@ TRAIN_ARCH = "musicgen-medium"
 TRAIN_SHAPE = ShapeConfig("train_card", TRAIN_4K.seq_len, 8, "train")
 TRAIN_STEPS, TRAIN_MB = 4, 2
 K6_TRAIN_ROW = "flash_attention[musicgen-medium train]"
+K6_BWD_ROW = "flash_attention_bwd[musicgen-medium train]"
 # the ssm and hybrid families at full width through launch.train.train:
 # the same 8 x 4096 tokens a step in 2 microbatches, 2 steps, DVFS on, no
 # checkpoint (the musicgen round trip covers the module)
@@ -751,6 +757,7 @@ def lm_counts():
 
 def reset_lm_counts():
     FA.flash_attention_bshd.launches = 0
+    FA.flash_attention_bshd_bwd.launches = 0
     RC.rwkv_chunked_bthd.launches = 0
     SS.ssm_scan.launches = 0
     SS.ssm_scan_bwd.launches = 0
@@ -764,7 +771,8 @@ def kernel_split(fn, reps=1):
     in ms per call: K6, K7, K8, K8's backward kernel, the MoE layer's
     expert products and its dispatch and combine (every kernel launched
     inside the ``moe.experts`` or the ``moe.dispatch`` / ``moe.combine``
-    profiler ranges), K6's backward (inside ``flash_attention.bwd``),
+    profiler ranges), K6's backward (its kernels by name, and what its
+    plain version launches inside ``flash_attention.bwd``),
     K7's backward (inside ``rwkv_chunk.bwd``), the other matrix products,
     and the rest. None if it reports no device time.
 
@@ -788,8 +796,9 @@ def kernel_split(fn, reps=1):
     spans = {"moe.experts": "experts", "moe.dispatch": "dispatch/combine",
              "moe.combine": "dispatch/combine",
              "flash_attention.bwd": "attn_bwd", "rwkv_chunk.bwd": "K7_bwd"}
-    own = {"flash_attention_kernel": "K6", "rwkv_chunk_kernel": "K7",
-           "ssm_scan_kernel": "K8", "ssm_scan_bwd_kernel": "K8_bwd"}
+    own = {"flash_attention_kernel": "K6", "flash_attention_bwd": "attn_bwd",
+           "rwkv_chunk_kernel": "K7", "ssm_scan_kernel": "K8",
+           "ssm_scan_bwd_kernel": "K8_bwd"}
     ops, ranges, kernels = {}, {}, []
     for ev in prof.profiler.kineto_results.events():
         name = ev.name()
@@ -817,10 +826,10 @@ def kernel_split(fn, reps=1):
             return ranges[t][i][2]
         return None
 
-    # the card's work by name; K6-K8 are launched through ctypes, so no
-    # operator of torch's owns them, and the rest by the operator (and its
-    # profiler range) that launched it; what no operator launched besides
-    # K6-K8 (K7's memset) is the rest
+    # the card's work by name; K6-K8 and the K6 and K8 backwards are
+    # launched through ctypes, so no operator of torch's owns them, and the
+    # rest by the operator (and its profiler range) that launched it; what
+    # no operator launched besides them (K7's memset) is the rest
     for ev in kernels:
         dur = ev.duration_ns() / 1e3
         name = ev.name()
@@ -903,12 +912,13 @@ def roofline_child() -> int:
     return 0
 
 
-def roofline_check(cfg, roof, mean_s, k6_per_step, card) -> None:
+def roofline_check(cfg, roof, mean_s, k6_per_step, bwd_per_step,
+                   card) -> None:
     """The count of ``roofline_child`` for the step the card trained: its
     FLOPs and bytes, the model-FLOP share of the measured step (6 N D
     over its seconds over the bf16 peak) and the useful ratio (model
-    FLOPs over counted FLOPs); checks that the counter's K6 calls a step
-    equal the card's launches a step."""
+    FLOPs over counted FLOPs); checks that the counter's K6 calls and K6
+    backward calls a step equal the card's launches a step."""
     out, err = roof.communicate(timeout=600)
     lines = out.strip().splitlines()
     check(roof.returncode == 0 and bool(lines),
@@ -938,6 +948,10 @@ def roofline_check(cfg, roof, mean_s, k6_per_step, card) -> None:
           f"roofline train {cfg.name}: the counter's K6 calls a step "
           f"{calls.get('flash_attention')} == the card's {k6_per_step} "
           f"launches a step")
+    check(calls.get("flash_attention_bwd") == bwd_per_step,
+          f"roofline train {cfg.name}: the counter's K6 backward calls a "
+          f"step {calls.get('flash_attention_bwd')} == the card's "
+          f"{bwd_per_step} backward launches a step")
 
 
 def lm_ran_on_card() -> dict:
@@ -1178,10 +1192,11 @@ def learn_phase(dev, card) -> None:
 
 
 def k6_grad_checks(dev, card) -> None:
-    """K6's gradient (``FlashAttention``: the forward on K6, one launch;
-    the backward ``flash_attention_bshd_bwd`` in PyTorch operations, no
-    launch) against autograd through the plain version in f32, at the
-    three training layouts, from f32 and from bf16 inputs."""
+    """K6's gradient (``FlashAttention``: the forward on K6, one launch
+    that also writes each row's log-sum-exp; the backward on K6's
+    backward kernels, one call) against autograd through the plain
+    version in f32, at the three training layouts, from f32 and from bf16
+    inputs; a second backward on the same inputs bit for bit the first."""
     check(not torch.backends.cuda.matmul.allow_tf32
           and not torch.backends.cudnn.allow_tf32,
           "TF32 is off for the f32 gradient checks")
@@ -1210,28 +1225,37 @@ def k6_grad_checks(dev, card) -> None:
             # by the events around its one call
             plain_ms = time_events(plain, reps=1, warm=0)
             qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
-            n = FA.flash_attention_bshd.launches
+            n = (FA.flash_attention_bshd.launches,
+                 FA.flash_attention_bshd_bwd.launches)
             out = FA.FlashAttention.apply(qs, ks, vs, True, w, pre, 128)
-            got = torch.autograd.grad(out, (qs, ks, vs), do)
+            got = torch.autograd.grad(out, (qs, ks, vs), do,
+                                      retain_graph=True)
+            again = torch.autograd.grad(out, (qs, ks, vs), do)
             torch.cuda.synchronize()
-            check(FA.flash_attention_bshd.launches == n + 1,
+            check((FA.flash_attention_bshd.launches,
+                   FA.flash_attention_bshd_bwd.launches)
+                  == (n[0] + 1, n[1] + 2),
                   f"K6 gradient at {arch}'s layout: one K6 launch (the "
-                  f"forward), none in the backward")
+                  f"forward), one backward call for each of two gradients")
+            tag = (f"at {arch}'s training layout (B {B} S {S} H {H} Hkv "
+                   f"{Hkv} hd {hd} window {w} prefix {pre}, "
+                   f"{str(dt).split('.')[-1]})")
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"K6 gradient {tag}: two backward calls bit for bit")
             errs = []
             for name, a, b_ in zip("qkv", got, want):
                 errs.append(float((a.float() - b_).abs().max()
                                   / b_.abs().max()))
                 check(a.dtype == dt and errs[-1] < K6_GRAD_TOL[dt],
-                      f"K6 gradient d{name} at {arch}'s training layout (B "
-                      f"{B} S {S} H {H} Hkv {Hkv} hd {hd} window {w} prefix "
-                      f"{pre}, {str(dt).split('.')[-1]}): {errs[-1]:.3e} of "
-                      f"its largest magnitude (limit {K6_GRAD_TOL[dt]})")
+                      f"K6 gradient d{name} {tag}: {errs[-1]:.3e} of its "
+                      f"largest magnitude (limit {K6_GRAD_TOL[dt]})")
             print(f"K6 gradient at {arch}'s layout ({str(dt).split('.')[-1]}"
-                  f"): dq {errs[0]:.3e}, dk {errs[1]:.3e}, dv {errs[2]:.3e} "
-                  f"of each one's largest magnitude against autograd "
-                  f"through the plain version in f32 ({plain_ms:.1f} ms, its "
-                  f"forward and backward, events) on {card}", flush=True)
-            del q, k, v, do, want, qs, ks, vs, out, got
+                  f"; backward kernel): dq {errs[0]:.3e}, dk {errs[1]:.3e}, "
+                  f"dv {errs[2]:.3e} of each one's largest magnitude against "
+                  f"autograd through the plain version in f32 "
+                  f"({plain_ms:.1f} ms, its forward and backward, events) "
+                  f"on {card}", flush=True)
+            del q, k, v, do, want, qs, ks, vs, out, got, again
         torch.cuda.empty_cache()
 
 
@@ -1239,8 +1263,8 @@ def k6_train_row(dev, card, rows) -> None:
     """K6 at musicgen-medium's training layout (bf16, B 4, S 4096, 24
     heads of 64, causal) against its plain version, its device time, the
     plain version's, the library's causal attention and its bound; and
-    the attention backward's time at the same layout (PyTorch
-    operations in f32: no kernel of its own) beside its bound and the
+    K6's backward kernel at the same layout: against its plain version,
+    its device time beside its bound, the plain version's and the
     library's backward (autograd of ``scaled_dot_product_attention``'s
     causal attention in bf16, the same function)."""
     B, S, H, Hkv, hd, _, _ = K6_GRAD_LAYOUTS[TRAIN_ARCH]
@@ -1273,25 +1297,49 @@ def k6_train_row(dev, card, rows) -> None:
               f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}), "
               f"scaled_dot_product_attention {row['library_ms'] * 1e3:.2f} "
               f"us on {card}", flush=True)
-    bwd = lambda: FA.flash_attention_bshd_bwd(q, k, v, got, do)  # noqa: E731
-    bwd_ms = time_events(bwd, reps=5, warm=1)
-    # the library's backward: dq, dk, dv of one retained graph per call
+    # K6's backward kernel at the same layout: against its plain version
+    # on the same inputs and log-sum-exp, its device time beside its bound,
+    # the plain version's and the library's backward (dq, dk, dv of one
+    # retained graph of scaled_dot_product_attention per call)
+    out, lse = FA.flash_attention_bshd(q, k, v, return_lse=True)
+    grads = FA.flash_attention_bshd_bwd(q, k, v, out, do, lse)
+    want = FA.flash_attention_bshd_bwd_ref(q, k, v, out, do, lse)
+    torch.cuda.synchronize()
+    tol = K6_GRAD_TOL[torch.bfloat16]
+    brow = rows[K6_BWD_ROW] = dict(max_abs_err=0.0)
+    for name, g, wt in zip("qkv", grads, want):
+        top = float(wt.float().abs().max())
+        brow["max_abs_err"] = max(brow["max_abs_err"], compare(
+            f"{K6_BWD_ROW}.d{name} (bf16 against the plain version's bf16 "
+            f"on the same lse; {tol} of its largest |ref| {top:.3e})",
+            g.float(), wt.float(), rtol=0.0, atol=tol * top))
+    del want
+    bwd = lambda: FA.flash_attention_bshd_bwd(  # noqa: E731
+        q, k, v, out, do, lse)
+    brow["ms"] = device_ms(bwd, K6_BWD_ROW, reps=20)
+    brow["plain_ms"] = time_events(lambda: FA.flash_attention_bshd_bwd_ref(
+        q, k, v, out, do, lse), reps=3, warm=1)
+    bwd_ops = attention_bwd_flops(B, S, H, hd)
+    brow["bound_ms"], brow["bound_by"] = bound_ms(
+        nbytes(q, k, v, out, do, lse, *grads), bwd_ops, PEAK_FLOPS_BF16)
     ql, kl, vl = (t.detach().requires_grad_() for t in (qt, kt, vt))
     lib_out = sdpa(ql, kl, vl, is_causal=True)
     dot = do.transpose(1, 2)
-    lib_bwd_ms = time_events(lambda: torch.autograd.grad(
+    brow["library_ms"] = time_events(lambda: torch.autograd.grad(
         lib_out, (ql, kl, vl), dot, retain_graph=True), reps=20, warm=3)
-    # the port also recomputes each row's log-sum-exp (a sixth product)
-    bwd_ops = attention_bwd_flops(B, S, H, hd)
-    print(f"time K6 backward (flash_attention_bshd_bwd, PyTorch operations "
-          f"in f32) at {TRAIN_ARCH}'s training layout: {bwd_ms:.2f} ms per "
-          f"call (events); bound {bwd_ops / PEAK_FLOPS_BF16 * 1e3:.3f} ms "
-          f"at the bf16 tensor-core rate, "
-          f"{bwd_ops / PEAK_FLOPS_F32 * 1e3:.3f} ms at the f32 rate; "
-          f"library backward (autograd of scaled_dot_product_attention, "
-          f"causal, bf16) {lib_bwd_ms:.3f} ms per call (events), on {card}",
-          flush=True)
-    del q, k, v, do, got, qt, kt, vt, ql, kl, vl, lib_out, dot
+    if brow["ms"] is not None:
+        print(f"time {K6_BWD_ROW} (flash_attention_bshd_bwd, the kernel): "
+              f"device {brow['ms']:.4f} ms per call, plain "
+              f"{brow['plain_ms']:.2f} ms (events), bound "
+              f"{brow['bound_ms']:.4f} ms ({brow['bound_by']}; "
+              f"{bwd_ops / 1e9:.1f} GFLOP of 5 products, this design does "
+              f"7), {brow['ms'] / brow['bound_ms']:.2f}x; library backward "
+              f"(autograd of scaled_dot_product_attention, causal, bf16) "
+              f"{brow['library_ms']:.4f} ms (events), ours "
+              f"{brow['ms'] / brow['library_ms']:.2f}x, on {card}",
+              flush=True)
+    del q, k, v, do, got, out, lse, grads, qt, kt, vt, ql, kl, vl, lib_out
+    del dot
     torch.cuda.empty_cache()
 
 
@@ -1418,15 +1466,22 @@ def train_phase(dev, card, rows, roof) -> None:
             return
         state, log, mean_s = run_train(cfg, tc, TRAIN_STEPS, dev, card)
         n6 = FA.flash_attention_bshd.launches
+        nb = FA.flash_attention_bshd_bwd.launches
         rows[K6_TRAIN_ROW]["launches"] = n6
+        rows[K6_BWD_ROW]["launches"] = nb
         # every layer of every microbatch, forward and the full remat's
-        # recompute: 192 a step
+        # recompute: 192 a step; the backward once: 96
         per_step = cfg.n_layers * TRAIN_MB * 2
         check(n6 == TRAIN_STEPS * per_step,
               f"train {TRAIN_ARCH}: K6 {n6} launches == {TRAIN_STEPS} steps "
               f"x {per_step} ({cfg.n_layers} layers x {TRAIN_MB} "
               f"microbatches x forward and recompute)")
-        roofline_check(cfg, roof, mean_s, n6 // TRAIN_STEPS, card)
+        check(nb == TRAIN_STEPS * per_step // 2,
+              f"train {TRAIN_ARCH}: K6 backward {nb} launches == "
+              f"{TRAIN_STEPS} steps x {per_step // 2} ({cfg.n_layers} layers "
+              f"x {TRAIN_MB} microbatches)")
+        roofline_check(cfg, roof, mean_s, n6 // TRAIN_STEPS,
+                       nb // TRAIN_STEPS, card)
         # the parameters moved from the initial state, and the final
         # checkpoint restores bit for bit into it
         fresh = init_state(cfg, tc, tc.seed, dev)
@@ -1474,6 +1529,7 @@ def train_phase(dev, card, rows, roof) -> None:
         mets.append({k: float(x) for k, x in m.items()})
         secs.append(time.perf_counter() - t0)
     n6 = FA.flash_attention_bshd.launches
+    nb = FA.flash_attention_bshd_bwd.launches
     still = [k for k, p in state["params"].named_parameters()
              if torch.equal(p, before[k])]
     print(f"time train {MOE_TRAIN_ARCH} (make_train_step, "
@@ -1481,15 +1537,16 @@ def train_phase(dev, card, rows, roof) -> None:
           f"microbatch): step seconds {[round(x, 3) for x in secs]}, losses "
           f"{[round(x['loss'], 4) for x in mets]}, aux "
           f"{[round(x['aux'], 4) for x in mets]}, grad_norm "
-          f"{[round(x['grad_norm'], 4) for x in mets]}, K6 {n6} launches on "
-          f"{card}", flush=True)
+          f"{[round(x['grad_norm'], 4) for x in mets]}, K6 {n6} launches, "
+          f"K6 backward {nb} on {card}", flush=True)
     check(all(math.isfinite(x[k]) for x in mets
               for k in ("loss", "aux", "grad_norm"))
           and all(x["aux"] > 0 for x in mets),
           f"train {MOE_TRAIN_ARCH}: loss, aux and grad_norm finite, aux > 0")
-    check(n6 == 2 * cfg.n_layers * 2,
+    check(n6 == 2 * cfg.n_layers * 2 and nb == 2 * cfg.n_layers,
           f"train {MOE_TRAIN_ARCH}: K6 {n6} launches == 2 steps x "
-          f"{cfg.n_layers} layers x forward and recompute")
+          f"{cfg.n_layers} layers x forward and recompute, K6 backward {nb} "
+          f"== 2 steps x {cfg.n_layers} layers")
     check(not still, f"train {MOE_TRAIN_ARCH}: every parameter moved "
                      f"({len(still)} did not: {still[:4]})")
     del state, before, step, batch
@@ -1618,17 +1675,18 @@ def scan_train_phase(dev, card, rows) -> None:
         state, _, mean_s = run_train(cfg, tc, steps, dev, card,
                                      save_final=False)
         got = (FA.flash_attention_bshd.launches,
+               FA.flash_attention_bshd_bwd.launches,
                RC.rwkv_chunked_bthd.launches, SS.ssm_scan.launches,
                SS.ssm_scan_bwd.launches)
         want = tuple(steps * cfg.n_layers * mb * n for n in (
-            (2, 0, 2, 1) if cfg.family == "hybrid" else (0, 2, 0, 0)))
+            (2, 1, 0, 2, 1) if cfg.family == "hybrid" else (0, 0, 2, 0, 0)))
         check(got == want,
-              f"train {arch}: launches K6 {got[0]}, K7 {got[1]}, K8 {got[2]},"
-              f" K8 backward {got[3]} == {want} ({steps} steps x "
-              f"{cfg.n_layers} layers x {mb} microbatches x (forward and "
-              f"recompute; the backward once))")
+              f"train {arch}: launches K6 {got[0]}, K6 backward {got[1]}, K7 "
+              f"{got[2]}, K8 {got[3]}, K8 backward {got[4]} == {want} "
+              f"({steps} steps x {cfg.n_layers} layers x {mb} microbatches x "
+              f"(forward and recompute; the backwards once))")
         if cfg.family == "hybrid":
-            rows[K8_BWD_ROW]["launches"] = got[3]
+            rows[K8_BWD_ROW]["launches"] = got[4]
         moved_check(cfg, state, LM.init_params(cfg, tc.seed, dev))
         torch.cuda.empty_cache()
         step_split(cfg, tc, state, mean_s, dev, card)
@@ -1660,6 +1718,13 @@ def main() -> int:
                        r"ELi(\d+)E", line)
         if k8:
             print(f"  ssm_scan_kernel<hd {k8.group(1)}, N {k8.group(2)}>")
+            continue
+        kb = re.search(r"Function properties for .*?(flash_attention_bwd_"
+                       r"(?:dkdv_f32|dq_f32|dkdv|dq|dot))I(.*?)EEv", line)
+        if kb:
+            args = re.findall(r"Li(\d+)E", kb.group(2)) or [
+                "bf16" if "bfloat16" in kb.group(2) else "f32"]
+            print(f"  {kb.group(1)}<{', '.join(args)}>")
             continue
         k6 = re.search(r"Function properties for .*?"
                        r"flash_attention_kernel_wgmmaILi(\d+)ELb([01])E", line)
@@ -2780,6 +2845,9 @@ def main() -> int:
         # its backward, XLA's transpose of that scan
         "ssm_scan": "src/repro/models/ssm.py:16",
         K8_BWD_ROW: "src/repro/models/ssm.py:16",
+        # K6's backward replaces no TPU kernel: XLA's transpose of the
+        # reference's jnp attention
+        K6_BWD_ROW: "src/repro/models/layers.py:122",
     }
     sources = dict.fromkeys(
         ("epoch_fused[pc]", "epoch_fused[reactive]", "epoch_fused[pc@304]",
@@ -2792,6 +2860,7 @@ def main() -> int:
         rwkv_chunked="src/repro_torch/kernels/csrc/rwkv_chunk.cu",
         ssm_scan="src/repro_torch/kernels/csrc/ssm_scan.cu",
         ssm_scan_bwd="src/repro_torch/kernels/csrc/ssm_scan_bwd.cu",
+        **{K6_BWD_ROW: "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"},
         **{key: "src/repro_torch/kernels/csrc/flash_attention.cu"
            for key in [k for k, _ in K6_ROWS.values()] + [K6_TRAIN_ROW]})
     kernels = []

@@ -15,9 +15,11 @@ tokens at each layout the tree's K6 takes (the model's window, and its
 prefix where the tree has ``prefix_len``), inputs from numpy seed 41;
 and the entry the models call, ``ops.flash_attention`` (over inputs that
 need no gradient, as a prefill's), by the same method and by events over
-back-to-back calls (with the host). ``--compare`` prints each layout's
-microseconds per call, run by run, and the card's name and power
-limit.
+back-to-back calls (with the host). At musicgen-medium's training layout
+(batch 4, 4096 tokens, causal) it times K6 without the log-sum-exp and,
+where the tree's K6 has ``return_lse``, with it (what training's forward
+asks for). ``--compare`` prints each layout's microseconds per call, run
+by run, and the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -39,6 +41,9 @@ LAYOUTS = [("glm4-9b", 32, 2, 128, 0, 0), ("phi3-mini-3.8b", 32, 32, 96, 0, 0),
            ("qwen2-moe-a2.7b", 16, 16, 128, 0, 0),
            ("hymba-1.5b", 25, 5, 64, 1024, 0),
            ("paligemma-3b", 8, 1, 256, 0, 256)]
+# musicgen-medium's training layout: (batch, tokens, heads, head dim)
+TRAIN = (4, 4096, 24, 64)
+TRAIN_ROWS = ("musicgen-medium train", "musicgen-medium train, lse")
 
 
 def run(src: Path, out: Path) -> int:
@@ -60,6 +65,8 @@ def run(src: Path, out: Path) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0], "us": {}, "ops_us": {},
         "ops_events_us": {}}
+    has_lse = "return_lse" in inspect.signature(
+        FA.flash_attention_bshd).parameters
     for name, H, Hkv, hd, window, prefix in LAYOUTS:
         if hd not in FA.HEAD_DIMS or (prefix and not has_prefix):
             continue
@@ -76,6 +83,16 @@ def run(src: Path, out: Path) -> int:
         res["ops_us"][name] = None if ms is None else ms * 1e3
         res["ops_events_us"][name] = DT.events_ms(
             lambda: ops.flash_attention(q, k, v, **kw)) * 1e3
+    Bt, St, Ht, hdt = TRAIN
+    rng = np.random.default_rng(44)
+    q, k, v = (torch.as_tensor(rng.standard_normal((Bt, St, Ht, hdt)).astype(
+        np.float32)).to(dev, torch.bfloat16) for _ in range(3))
+    for name, lse in zip(TRAIN_ROWS, (False, True)):
+        if lse and not has_lse:
+            continue
+        kw = dict(return_lse=True) if lse else {}
+        ms = DT.device_ms(lambda: FA.flash_attention_bshd(q, k, v, **kw), 100)
+        res["us"][name] = None if ms is None else ms * 1e3
     out.write_text(json.dumps(res))
     print(json.dumps(res), flush=True)
     return 0
@@ -90,8 +107,10 @@ def compare(paths) -> int:
                       ("ops_us", "ops.flash_attention, device"),
                       ("ops_events_us", "ops.flash_attention, with the host")):
         print(f" {what}:")
-        for name, *_ in LAYOUTS:
+        for name in [row[0] for row in LAYOUTS] + list(TRAIN_ROWS):
             vals = [r.get(key, {}).get(name) for r in runs]
+            if all(x is None for x in vals):
+                continue
             print(f"  {name}: " + " / ".join(
                 "-" if v is None else f"{v:.2f}" for v in vals))
     return 0

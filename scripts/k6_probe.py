@@ -123,7 +123,8 @@ def build(tmp: Path) -> dict:
         d = tmp / name
         d.mkdir()
         (d / "flash_attention.cu").write_text(text)
-        (d / "common.cuh").write_text((CSRC / "common.cuh").read_text())
+        for h in ("common.cuh", "attention_mask.cuh"):
+            (d / h).write_text((CSRC / h).read_text())
         procs[name] = subprocess.Popen(
             [K._nvcc(), *K.NVCC_FLAGS, "-shared", "-o", str(d / "lib.so"),
              str(d / "flash_attention.cu")],
@@ -195,8 +196,8 @@ def main() -> int:
         def run(name):
             out = torch.empty_like(q)
             code = libs[name](q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                              out.data_ptr(), B, S, H, HKV, HD, 128, 1, 0,
-                              0, 1, stream)
+                              out.data_ptr(), None, B, S, H, HKV, HD, 128,
+                              1, 0, 0, 1, stream)
             if code:
                 raise RuntimeError(f"{name}: cuda error {code}")
             return out

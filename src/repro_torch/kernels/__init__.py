@@ -1,6 +1,6 @@
 """Hand-written CUDA kernels of the port (sm_90a).
 
-Nine kernels, one shared library. The DVFS engine's hot path:
+Ten kernels, one shared library. The DVFS engine's hot path:
 
 * ``pc_table.pc_table_predict`` / ``pc_table.pc_table_update`` — the PC
   table predict/update pair (``csrc/pc_table.cu``);
@@ -18,7 +18,13 @@ public wrappers):
   with causal, sliding-window and prefix-LM masks over grouped KV heads at
   head dims 16, 32, 64, 96, 128 and 256 (``csrc/flash_attention.cu``):
   bf16 on the tensor cores (``wgmma``, TMA-staged K/V, p split into two
-  bf16 terms), f32 on the CUDA cores;
+  bf16 terms), f32 on the CUDA cores; it also writes each row's
+  log-sum-exp where asked;
+* ``flash_attention.flash_attention_bshd_bwd`` — K6's backward
+  (``csrc/flash_attention_bwd.cu``): dq, dk and dv from the log-sum-exp
+  K6 saved, a dk/dv kernel per key tile and a dq kernel per query tile,
+  bf16 on the tensor cores (``mma.sync``), f32 on the CUDA cores, no
+  atomics;
 * ``rwkv_chunk.rwkv_chunked_bthd`` — K7, the chunked RWKV6 WKV
   (``csrc/rwkv_chunk.cu``): persistent CTAs walk the (batch, head,
   chunk) tiles, the state carried from chunk to chunk through a chain of
@@ -73,7 +79,8 @@ SIGNATURES = {
                                + [_VP] * 2),
     "epoch_fused_launch": (_CI, [_VP, _VP]),
     "epoch_fused_cta_width": (_CI, [_CI] * 3),
-    "flash_attention_launch": (_CI, [_VP] * 4 + [_CI] * 10 + [_VP]),
+    "flash_attention_launch": (_CI, [_VP] * 5 + [_CI] * 10 + [_VP]),
+    "flash_attention_bwd_launch": (_CI, [_VP] * 10 + [_CI] * 9 + [_VP]),
     "rwkv_chunk_launch": (_CI, [_VP] * 8 + [_CI] * 7 + [_VP]),
     "ssm_scan_launch": (_CI, [_VP] * 8 + [_CI] * 5 + [_VP]),
     "ssm_scan_bwd_launch": (_CI, [_VP] * 15 + [_CI] * 5 + [_VP]),

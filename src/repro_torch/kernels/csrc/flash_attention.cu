@@ -99,6 +99,7 @@
 
 #include <type_traits>
 
+#include "attention_mask.cuh"
 #include "common.cuh"
 
 namespace {
@@ -106,38 +107,6 @@ namespace {
 constexpr int kMaxBlkK = 256;
 constexpr int kMaxSmem = 232448;
 constexpr float kNegInf = -1e30f;
-
-// The mask: query row `row` keeps key `col` where the causal and the
-// window conditions hold, or where the key lies in the prefix (prefix-LM:
-// every row sees the first `prefix` keys), in the reference's order
-// (causal & window) | prefix. The mask travels as three ints, as the
-// kernels take it: a struct of them made the bf16 kernel slower (the
-// compiler rereads its fields inside the loops).
-__device__ __forceinline__ bool keep(int row, int col, int causal,
-                                     int window, int prefix) {
-  bool k = true;
-  if (causal) k = k && (col <= row);
-  if (window > 0) k = k && (col > row - window);
-  return k || col < prefix;
-}
-
-// no key of [k0, k1) is kept for any row of [r0, r1] (with a window and
-// causal, a range this lets through may still keep nothing: its p is 0)
-__device__ __forceinline__ bool keys_dead(int k0, int k1, int r0, int r1,
-                                          int causal, int window,
-                                          int prefix) {
-  if (k0 < prefix) return false;
-  return (causal && k0 > r1) || (window > 0 && k1 - 1 <= r0 - window);
-}
-
-// every key of [k0, k1) is kept for every row of [r0, r1]
-__device__ __forceinline__ bool keys_whole(int k0, int k1, int r0, int r1,
-                                           int causal, int window,
-                                           int prefix) {
-  if (k1 - 1 < prefix) return true;
-  const int lo = max(k0, prefix);  // the first key past the prefix
-  return !(causal && k1 - 1 > r0) && !(window > 0 && lo <= r1 - window);
-}
 
 // ---------------------------------------------------------------------------
 // f32: CUDA cores
@@ -152,8 +121,9 @@ constexpr int kThreads = 256;
 template <int HD>
 __global__ void __launch_bounds__(kThreads, 1) flash_attention_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, float* __restrict__ o, int S, int H,
-    int Hkv, int BK, int causal, int window, int prefix, float scale) {
+    const float* __restrict__ v, float* __restrict__ o,
+    float* __restrict__ lse, int S, int H, int Hkv, int BK, int causal,
+    int window, int prefix, float scale) {
   extern __shared__ float smem[];
   constexpr int LD = HD + 1;
   constexpr int ND = HD / 4;
@@ -274,13 +244,15 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_kernel(
     float* orow = ob + (size_t)qrow * rowq + ps;
 #pragma unroll
     for (int j = 0; j < ND; ++j) orow[4 * j] = acc[j] / denom;
+    if (lse != nullptr && ps == 0)
+      lse[((size_t)b * H + h) * S + qrow] = row_lse(m, l);
   }
 }
 
 template <int HD>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
-               int S, int H, int Hkv, int blk_k, int causal, int window,
-               int prefix, cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int S, int H, int Hkv, int blk_k,
+               int causal, int window, int prefix, cudaStream_t stream) {
   const size_t bytes =
       sizeof(float) * ((size_t)(kQT + kKT) * (HD + 1) +
                        (size_t)kQT * (blk_k + 1));
@@ -292,8 +264,8 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
   const float scale = (float)(1.0 / sqrt((double)HD));
   const dim3 grid((S + kQT - 1) / kQT, H, B);
   kern<<<grid, kThreads, bytes, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, S, H,
-      Hkv, blk_k, causal, window, prefix, scale);
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, lse, S,
+      H, Hkv, blk_k, causal, window, prefix, scale);
   return (int)cudaGetLastError();
 }
 
@@ -762,9 +734,9 @@ template <int HD>
 __device__ __forceinline__ void consume(
     uint32_t sQ, uint32_t sK, uint32_t sV, uint32_t full_k,
     uint32_t empty_k, uint32_t full_v, uint32_t empty_v, uint32_t bar_q,
-    __nv_bfloat16* __restrict__ o, int S, int H, int BK, int causal,
-    int window, int prefix, float scale, int h, int b, int q0, int q_last,
-    int jb1, int nsub) {
+    __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int S, int H,
+    int BK, int causal, int window, int prefix, float scale, int h, int b,
+    int q0, int q_last, int jb1, int nsub) {
   using T = Tile<HD>;
   constexpr int NA = T::HDP / 2;  // accumulator floats per thread
   constexpr int kStages = T::kStages;
@@ -946,6 +918,13 @@ __device__ __forceinline__ void consume(
       *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)f.row1 * rs + col) =
           __floats2bfloat162_rn(acc[4 * jj + 2] / d1, acc[4 * jj + 3] / d1);
   }
+  // each row's log-sum-exp, where asked for: m and l are the same on the
+  // four threads of a row's quad, and its first thread writes them
+  if (lse != nullptr && lane % 4 == 0) {
+    float* lb = lse + ((size_t)b * H + h) * S;
+    if (f.row0 < S) lb[f.row0] = row_lse(m0, l0);
+    if (f.row1 < S) lb[f.row1] = row_lse(m1, l1);
+  }
 }
 
 // PREFIX: the instance takes a prefix. Without one the prefix is INT_MIN,
@@ -958,8 +937,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_kernel_wgmma(
     const __grid_constant__ CUtensorMap map_q,
     const __grid_constant__ CUtensorMap map_k,
     const __grid_constant__ CUtensorMap map_v, __nv_bfloat16* __restrict__ o,
-    int B, int S, int H, int Hkv, int BK, int causal, int window,
-    int prefix_len, float scale) {
+    float* __restrict__ lse, int B, int S, int H, int Hkv, int BK,
+    int causal, int window, int prefix_len, float scale) {
   using T = Tile<HD>;
   const int prefix = PREFIX ? prefix_len : INT_MIN;
   constexpr int NP = T::NP;
@@ -1037,9 +1016,9 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_kernel_wgmma(
   } else {
     // ---- consumer warpgroups: 64 query rows each ------------------------
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
-    consume<HD>(sQ, sK, sV, full_k, empty_k, full_v, empty_v, bar_q, o, S,
-                H, BK, causal, window, prefix, scale, h, b, q0, q_last, jb1,
-                nsub);
+    consume<HD>(sQ, sK, sV, full_k, empty_k, full_v, empty_v, bar_q, o,
+                lse, S, H, BK, causal, window, prefix, scale, h, b, q0,
+                q_last, jb1, nsub);
   }
 }
 
@@ -1085,8 +1064,8 @@ bool encode(CUtensorMap* map, const void* ptr, int B, int S, int heads,
 }
 
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int S, int H, int Hkv, int blk_k, int causal, int window,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int S, int H, int Hkv, int blk_k, int causal, int window,
            int prefix, cudaStream_t stream) {
   // every sub-tile of a key block sits in the K ring at once
   if ((blk_k + kKeys - 1) / kKeys > Tile<HD>::kStages)
@@ -1106,7 +1085,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   if (err != cudaSuccess) return (int)err;
   const float scale = (float)(1.0 / sqrt((double)HD));
   kern<<<(unsigned)grid, kThreads, bytes, stream>>>(
-      mq, mkey, mv, (__nv_bfloat16*)o, B, S, H, Hkv, blk_k, causal,
+      mq, mkey, mv, (__nv_bfloat16*)o, lse, B, S, H, Hkv, blk_k, causal,
       window, prefix, scale);
   return (int)cudaGetLastError();
 }
@@ -1114,13 +1093,13 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 }  // namespace tc
 
 template <bool TC>
-int launch_hd(const void* q, const void* k, const void* v, void* o, int B,
-              int S, int H, int Hkv, int hd, int blk_k, int causal,
-              int window, int prefix, cudaStream_t stream) {
+int launch_hd(const void* q, const void* k, const void* v, void* o,
+              float* lse, int B, int S, int H, int Hkv, int hd, int blk_k,
+              int causal, int window, int prefix, cudaStream_t stream) {
 #define FA_LAUNCH(HD)                                                      \
-  return TC ? tc::launch<HD>(q, k, v, o, B, S, H, Hkv, blk_k, causal,      \
+  return TC ? tc::launch<HD>(q, k, v, o, lse, B, S, H, Hkv, blk_k, causal, \
                              window, prefix, stream)                       \
-            : launch_f32<HD>(q, k, v, o, B, S, H, Hkv, blk_k, causal,      \
+            : launch_f32<HD>(q, k, v, o, lse, B, S, H, Hkv, blk_k, causal, \
                              window, prefix, stream)
   switch (hd) {
     case 16:
@@ -1146,21 +1125,24 @@ int launch_hd(const void* q, const void* k, const void* v, void* o, int B,
 // q (B,S,H,hd), k/v (B,S,Hkv,hd), o (B,S,H,hd), all contiguous, dtype 0 =
 // f32 (CUDA cores), 1 = bf16 (tensor cores); keys walked in blocks of
 // blk_k (S % blk_k == 0; at head dim 256 in bf16 at most 128, the K ring);
-// every row sees the first `prefix` keys (0 <= prefix <= S).
+// every row sees the first `prefix` keys (0 <= prefix <= S). Where lse is
+// not null, each row's log-sum-exp m + log(l) of its scaled scores goes to
+// lse (B,H,S) f32 (+inf for a row that keeps no key): the backward's
+// (flash_attention_bwd.cu) p = exp(s - lse).
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int B, int S,
-                                      int H, int Hkv, int hd, int blk_k,
-                                      int causal, int window, int prefix,
-                                      int dtype, void* stream) {
+                                      const void* v, void* o, void* lse,
+                                      int B, int S, int H, int Hkv, int hd,
+                                      int blk_k, int causal, int window,
+                                      int prefix, int dtype, void* stream) {
   if (B < 1 || S < 1 || Hkv < 1 || H % Hkv != 0 || blk_k < 1 ||
       blk_k > kMaxBlkK || S % blk_k != 0 || prefix < 0 || prefix > S)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
-    return launch_hd<false>(q, k, v, o, B, S, H, Hkv, hd, blk_k, causal,
-                            window, prefix, st);
+    return launch_hd<false>(q, k, v, o, (float*)lse, B, S, H, Hkv, hd, blk_k,
+                            causal, window, prefix, st);
   if (dtype == 1)
-    return launch_hd<true>(q, k, v, o, B, S, H, Hkv, hd, blk_k, causal,
-                           window, prefix, st);
+    return launch_hd<true>(q, k, v, o, (float*)lse, B, S, H, Hkv, hd, blk_k,
+                           causal, window, prefix, st);
   return (int)cudaErrorInvalidValue;
 }

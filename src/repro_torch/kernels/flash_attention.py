@@ -34,12 +34,19 @@ holds two 64-key sub-tiles, so a key block is at most 128 keys there.
 On a CPU tensor it runs the plain version on the reference's expanded
 (B*H,S,hd) layout.
 
+With ``return_lse`` both versions also return each row's log-sum-exp
+``m + log(l)`` of its scaled scores, (B,H,S) f32 (+inf for a row that
+keeps no key): the backward's ``p = exp(s - lse)``.
+
 :class:`FlashAttention` makes K6 differentiable. The reference has no
 backward kernel (no ``custom_vjp``): its training differentiates the jnp
-attention with XLA, and so :func:`flash_attention_bshd_bwd` computes dq,
-dk and dv in PyTorch operations, key block by key block in f32, as that
-transpose does. A Hopper backward kernel would be the port's own (ROADMAP
-queue B).
+attention with XLA. The port's backward is its own kernel,
+:func:`flash_attention_bshd_bwd` (``csrc/flash_attention_bwd.cu``): dq,
+dk and dv from the log-sum-exp the forward saved, bf16 on the tensor
+cores (``mma.sync``), f32 on the CUDA cores, no atomics (bit for bit from
+run to run). Its plain version, :func:`flash_attention_bshd_bwd_ref`,
+computes the same key block by key block in f32 PyTorch operations, as
+XLA's transpose does.
 """
 from __future__ import annotations
 
@@ -84,9 +91,11 @@ def _check_prefix(S: int, prefix_len: int) -> None:
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int = 0,
                         prefix_len: int = 0, blk_q: int = 128,
-                        blk_k: int = 128) -> torch.Tensor:
+                        blk_k: int = 128, return_lse: bool = False):
     """Plain version of K6 on any device. q/k/v (BH,S,hd), k/v already
-    expanded to q's heads. Returns (BH,S,hd) in q's dtype."""
+    expanded to q's heads. Returns (BH,S,hd) in q's dtype; with
+    ``return_lse`` also each row's ``m + log(max(l, 1e-20))``, (BH,S)
+    f32, +inf where the row keeps no key (l = 0), as K6 writes it."""
     BH, S, hd = q.shape
     blk_k = _key_block(S, blk_k)
     _check_prefix(S, prefix_len)
@@ -116,17 +125,22 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         l = l * alpha + p.sum(-1)
         acc = acc * alpha[..., None] + torch.matmul(p, vj)
         m = m_new
-    return (acc / torch.clamp(l, min=1e-20)[..., None]).to(q.dtype)
+    out = (acc / torch.clamp(l, min=1e-20)[..., None]).to(q.dtype)
+    if not return_lse:
+        return out
+    return out, torch.where(l > 0, m + torch.log(torch.clamp(l, min=1e-20)),
+                            math.inf)
 
 
 def flash_attention_bshd_ref(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, *, causal: bool = True,
                              window: int = 0, prefix_len: int = 0,
-                             blk_q: int = 128,
-                             blk_k: int = 128) -> torch.Tensor:
+                             blk_q: int = 128, blk_k: int = 128,
+                             return_lse: bool = False):
     """Plain version of K6 on the (B,S,H,hd) layout, on any device: the
     reference's GQA expansion to (B*H,S,hd), then
-    :func:`flash_attention_ref`."""
+    :func:`flash_attention_ref`; with ``return_lse`` also the rows'
+    log-sum-exp, (B,H,S) f32."""
     B, S, H, hd = q.shape
     rep = H // k.shape[2]
 
@@ -136,17 +150,23 @@ def flash_attention_bshd_ref(q: torch.Tensor, k: torch.Tensor,
     out = flash_attention_ref(q.transpose(1, 2).reshape(B * H, S, hd),
                               bh(k), bh(v), causal=causal, window=window,
                               prefix_len=prefix_len, blk_q=blk_q,
-                              blk_k=blk_k)
-    return out.reshape(B, H, S, hd).transpose(1, 2)
+                              blk_k=blk_k, return_lse=return_lse)
+    if not return_lse:
+        return out.reshape(B, H, S, hd).transpose(1, 2)
+    out, lse = out
+    return out.reshape(B, H, S, hd).transpose(1, 2), lse.reshape(B, H, S)
 
 
 def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int = 0,
                          prefix_len: int = 0, blk_q: int = 128,
-                         blk_k: int = 128) -> torch.Tensor:
+                         blk_k: int = 128, return_lse: bool = False):
     """q (B,S,H,hd), k/v (B,S,Hkv,hd) with H % Hkv == 0, one float dtype.
     Returns (B,S,H,hd) in q's dtype; every row also sees the first
-    ``prefix_len`` keys (0 <= prefix_len <= S). On CUDA: f32 or bf16,
+    ``prefix_len`` keys (0 <= prefix_len <= S). With ``return_lse``,
+    ``(out, lse)``: lse (B,H,S) f32, each row's log-sum-exp (K6 writes it
+    in its epilogue; without it K6 is given a null pointer and writes
+    none). On CUDA: f32 or bf16,
     contiguous, hd in ``HEAD_DIMS``, ``min(blk_k, S) <= MAX_BLK_K`` (in
     bf16 at most ``RING_BLK_K[hd]`` where it names the head dim). On the
     ``meta`` device the same checks, then an empty output, and K6's work
@@ -161,7 +181,8 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not q.is_cuda and not q.is_meta:
         return flash_attention_bshd_ref(q, k, v, causal=causal,
                                         window=window, prefix_len=prefix_len,
-                                        blk_q=blk_q, blk_k=blk_k)
+                                        blk_q=blk_q, blk_k=blk_k,
+                                        return_lse=return_lse)
     if q.dtype not in _DTYPES:
         raise ValueError(f"flash attention takes f32 or bf16, got {q.dtype}")
     if hd not in HEAD_DIMS:
@@ -176,17 +197,21 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     require(k, "k", q.dtype, (B, S, Hkv, hd), dev)
     require(v, "v", q.dtype, (B, S, Hkv, hd), dev)
     out = torch.empty_like(q)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=dev) \
+        if return_lse else None
     if q.is_meta:
         W.record("flash_attention", W.attention_flops(
-            B, S, H, hd, window, prefix_len, causal), W.nbytes(q, k, v, out))
-        return out
+            B, S, H, hd, window, prefix_len, causal),
+            W.nbytes(q, k, v, out, lse))
+        return (out, lse) if return_lse else out
     code = library().flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H,
-        Hkv, hd, bk, int(causal), int(window), int(prefix_len),
-        _DTYPES[q.dtype], stream_ptr(q))
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr() if return_lse else None, B, S, H, Hkv, hd, bk,
+        int(causal), int(window), int(prefix_len), _DTYPES[q.dtype],
+        stream_ptr(q))
     check(code, "flash_attention")
     flash_attention_bshd.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention_bshd.launches = 0
@@ -220,40 +245,31 @@ def _bwd_rows(c0: int, c1: int, S: int, causal: bool, window: int,
     return r0, r1
 
 
-def flash_attention_bshd_bwd(q: torch.Tensor, k: torch.Tensor,
-                             v: torch.Tensor, out: torch.Tensor,
-                             dout: torch.Tensor, *, causal: bool = True,
-                             window: int = 0, prefix_len: int = 0,
-                             blk_k: int = BWD_BLK_K):
-    """dq, dk, dv of ``out = flash_attention_bshd(q, k, v, ...)`` for the
-    output gradient ``dout``, each in its input's dtype, in PyTorch
-    operations on any device. q/out/dout (B,S,H,hd), k/v (B,S,Hkv,hd).
+def flash_attention_bshd_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, out: torch.Tensor,
+                                 dout: torch.Tensor,
+                                 lse: torch.Tensor | None = None, *,
+                                 causal: bool = True, window: int = 0,
+                                 prefix_len: int = 0,
+                                 blk_k: int = BWD_BLK_K):
+    """Plain version of K6's backward, in PyTorch operations on any
+    device: dq, dk, dv of ``out = flash_attention_bshd(q, k, v, ...)`` for
+    the output gradient ``dout``, each in its input's dtype. q/out/dout
+    (B,S,H,hd), k/v (B,S,Hkv,hd), lse (B,H,S) f32 as the forward returns
+    it; where ``lse`` is None each row's is recomputed from q and k first.
 
-    K6 returns no log-sum-exp, so each row's is recomputed from q and k
-    first. Then, key block by key block in f32 (``min(blk_k, S)``, the
-    largest common divisor where that does not divide S): ``p = exp(s -
-    lse)`` under K6's mask, ``D = rowsum(dout * out)``, ``dv = p^T
-    dout``, ``ds = p (dout v^T - D) scale``, ``dq += ds k``, ``dk = ds^T
-    q``. Query heads stay grouped by KV head (row ``s * rep + r`` of a KV
-    head's group), so each product over rows sums dk and dv over the
-    group, and a block only visits the rows that see one of its keys.
-
-    On the ``meta`` device: empty gradients, and the function's work
-    (``roofline.work.attention_bwd_flops``, its operands and gradients
-    moved once) goes to the open work counter, as a kernel's would
-    (walking these operations on ``meta`` tensors costs ~0.6 s a call at
-    a training layout: a step's count would take a minute)."""
+    Key block by key block in f32 (``min(blk_k, S)``, the largest common
+    divisor where that does not divide S): ``p = exp(s - lse)`` under K6's
+    mask, ``D = rowsum(dout * out)``, ``dv = p^T dout``, ``ds = p (dout
+    v^T - D) scale``, ``dq += ds k``, ``dk = ds^T q``. Query heads stay
+    grouped by KV head (row ``s * rep + r`` of a KV head's group), so each
+    product over rows sums dk and dv over the group, and a block only
+    visits the rows that see one of its keys."""
     B, S, H, hd = q.shape
     Hkv = k.shape[2]
     if H % Hkv:
         raise ValueError(f"{H} query heads over {Hkv} KV heads")
     _check_prefix(S, prefix_len)
-    if q.is_meta:
-        grads = tuple(torch.empty_like(t) for t in (q, k, v))
-        W.record("flash_attention_bwd", W.attention_bwd_flops(
-            B, S, H, hd, window, prefix_len, causal),
-            W.nbytes(q, k, v, out, dout, *grads))
-        return grads
     rep = H // Hkv
     bk = min(blk_k, S)
     if S % bk:
@@ -292,15 +308,19 @@ def flash_attention_bshd_bwd(q: torch.Tensor, k: torch.Tensor,
             r0, r1 = _bwd_rows(c0, c0 + bk, S, causal, window, prefix_len)
             if r0 < r1:
                 blocks.append((c0, c0 + bk, r0, r1))
-        lse = torch.full((B, Hkv, S * rep), -math.inf, dtype=torch.float32,
-                         device=dev)
-        for c0, c1, r0, r1 in blocks:
-            rs = slice(r0 * rep, r1 * rep)
-            s = scores(qf[:, :, rs], kf[:, :, c0:c1], r0, r1, c0, c1)
-            lse[:, :, rs] = torch.logaddexp(lse[:, :, rs],
-                                            torch.logsumexp(s, -1))
-        # a row that sees no key: p = exp(s - inf) = 0
-        lse = torch.where(torch.isinf(lse), math.inf, lse)[..., None]
+        if lse is not None:    # (B,H,S) -> (B,Hkv,S*rep), grouped
+            lse = lse.float().reshape(B, Hkv, rep, S).transpose(
+                2, 3).reshape(B, Hkv, S * rep)[..., None]
+        else:
+            lse = torch.full((B, Hkv, S * rep), -math.inf,
+                             dtype=torch.float32, device=dev)
+            for c0, c1, r0, r1 in blocks:
+                rs = slice(r0 * rep, r1 * rep)
+                s = scores(qf[:, :, rs], kf[:, :, c0:c1], r0, r1, c0, c1)
+                lse[:, :, rs] = torch.logaddexp(lse[:, :, rs],
+                                                torch.logsumexp(s, -1))
+            # a row that sees no key: p = exp(s - inf) = 0
+            lse = torch.where(torch.isinf(lse), math.inf, lse)[..., None]
         D = (dof * of).sum(-1, keepdim=True)
         dq = torch.zeros_like(qf)
         dk = torch.zeros_like(kf)
@@ -322,26 +342,108 @@ def flash_attention_bshd_bwd(q: torch.Tensor, k: torch.Tensor,
                 dv.permute(0, 2, 1, 3).to(v.dtype))
 
 
+def flash_attention_bshd_bwd(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, out: torch.Tensor,
+                             dout: torch.Tensor,
+                             lse: torch.Tensor | None = None, *,
+                             causal: bool = True, window: int = 0,
+                             prefix_len: int = 0, blk_k: int = BWD_BLK_K):
+    """dq, dk, dv of ``out = flash_attention_bshd(q, k, v, ...)`` for the
+    output gradient ``dout``, each in its input's dtype. q/out/dout
+    (B,S,H,hd), k/v (B,S,Hkv,hd), lse (B,H,S) f32 as
+    ``flash_attention_bshd(..., return_lse=True)`` returns it.
+
+    On a CUDA tensor one call of K6's backward kernels
+    (``csrc/flash_attention_bwd.cu``: D = rowsum(dout * out), then the
+    dk/dv and the dq kernels; counted once in ``launches``) under the
+    ``flash_attention.bwd`` profiler range: q, k, v, out and dout of one
+    dtype (f32 or bf16), contiguous and 16-byte aligned, hd in
+    ``HEAD_DIMS``, and ``lse`` given (on ``meta`` it may be None);
+    anything else raises before a launch. ``blk_k`` is the plain
+    version's and has no effect there. On a CPU tensor the plain version,
+    :func:`flash_attention_bshd_bwd_ref`.
+    On the ``meta`` device the same checks, then empty gradients, and the
+    function's work (``roofline.work.attention_bwd_flops``, its operands
+    and gradients moved once) goes to the open work counter in place of a
+    launch (not counted in ``launches``)."""
+    if not q.is_cuda and not q.is_meta:
+        return flash_attention_bshd_bwd_ref(
+            q, k, v, out, dout, lse, causal=causal, window=window,
+            prefix_len=prefix_len, blk_k=blk_k)
+    B, S, H, hd = q.shape
+    Hkv = k.shape[2]
+    if H % Hkv:
+        raise ValueError(f"{H} query heads over {Hkv} KV heads")
+    _check_prefix(S, prefix_len)
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"K6's backward takes f32 or bf16, got {q.dtype}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
+    dev = q.device
+    for name, t, shape in (("q", q, (B, S, H, hd)), ("k", k, (B, S, Hkv, hd)),
+                           ("v", v, (B, S, Hkv, hd)),
+                           ("out", out, (B, S, H, hd)),
+                           ("dout", dout, (B, S, H, hd))):
+        require(t, name, q.dtype, shape, dev)
+    if lse is not None:
+        require(lse, "lse", torch.float32, (B, H, S), dev)
+    elif not q.is_meta:
+        raise ValueError("K6's backward kernel reads the log-sum-exp the "
+                         "forward saved: pass flash_attention_bshd(..., "
+                         "return_lse=True)'s lse")
+    grads = tuple(torch.empty_like(t) for t in (q, k, v))
+    if q.is_meta:
+        W.record("flash_attention_bwd", W.attention_bwd_flops(
+            B, S, H, hd, window, prefix_len, causal),
+            W.nbytes(q, k, v, out, dout, lse, *grads))
+        return grads
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out),
+                    ("dout", dout)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: K6's backward reads it in 16-byte "
+                             f"vectors; its storage must start 16-byte "
+                             f"aligned")
+    D = torch.empty((B, H, S), dtype=torch.float32, device=dev)
+    dq, dk, dv = grads
+    with record_function("flash_attention.bwd"):
+        code = library().flash_attention_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), D.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), B, S, H, Hkv, hd, int(causal),
+            int(window), int(prefix_len), _DTYPES[q.dtype], stream_ptr(q))
+    check(code, "flash_attention_bwd")
+    flash_attention_bshd_bwd.launches += 1
+    return grads
+
+
+flash_attention_bshd_bwd.launches = 0
+
+
 class FlashAttention(torch.autograd.Function):
     """K6 with a gradient: the forward is :func:`flash_attention_bshd`
     (the kernel on a CUDA tensor, its plain version on a CPU tensor), the
-    backward :func:`flash_attention_bshd_bwd`. q, k, v and the output are
-    saved only where an input needs a gradient, so a forward over frozen
-    weights (serving) saves nothing. Under a non-reentrant checkpoint the
+    backward :func:`flash_attention_bshd_bwd` (the backward kernel on a
+    CUDA tensor, its plain version on a CPU tensor). Where an input needs
+    a gradient the forward asks K6 for each row's log-sum-exp and saves it
+    beside q, k, v and the output; a forward over frozen weights (serving)
+    asks for none and saves nothing. Under a non-reentrant checkpoint the
     recompute launches K6 again and saves its own tensors."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, prefix_len, blk_k):
-        out = flash_attention_bshd(q, k, v, causal=causal, window=window,
-                                   prefix_len=prefix_len, blk_k=blk_k)
-        ctx.opts = dict(causal=causal, window=window, prefix_len=prefix_len)
-        if any(ctx.needs_input_grad[:3]):
-            ctx.save_for_backward(q, k, v, out)
+        kw = dict(causal=causal, window=window, prefix_len=prefix_len)
+        ctx.opts = kw
+        if not any(ctx.needs_input_grad[:3]):
+            return flash_attention_bshd(q, k, v, blk_k=blk_k, **kw)
+        out, lse = flash_attention_bshd(q, k, v, blk_k=blk_k,
+                                        return_lse=True, **kw)
+        ctx.save_for_backward(q, k, v, out, lse)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bshd_bwd(q, k, v, out, dout,
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bshd_bwd(q, k, v, out,
+                                              dout.contiguous(), lse,
                                               **ctx.opts)
         return dq, dk, dv, None, None, None, None

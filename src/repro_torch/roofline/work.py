@@ -83,8 +83,11 @@ def attention_flops(B, S, H, hd, window=0, prefix=0, causal=True):
 
 def attention_bwd_flops(B, S, H, hd, window=0, prefix=0, causal=True):
     """Operations of K6's gradient: five products over the kept pairs (q
-    k^T again, dv, dp, dq, dk), 2.5x the forward's. A backward that
-    recomputes each row's log-sum-exp does a sixth."""
+    k^T again, dv, dp, dq, dk), 2.5x the forward's: the least the
+    function needs, from the log-sum-exp the forward saved. The backward
+    kernel (``csrc/flash_attention_bwd.cu``) does seven: its dk/dv and its
+    dq kernels each compute q k^T and dp, so that no output is summed
+    across CTAs, and so its least time is 1.4x this bound."""
     return 2.5 * attention_flops(B, S, H, hd, window, prefix, causal)
 
 

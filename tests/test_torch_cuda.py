@@ -1651,13 +1651,15 @@ def _grad_ref(q, k, v, do, causal, window, prefix, blk):
 ])
 def test_flash_attention_grad_on_card_matches_plain(dev, dtype, B, S, H, Hkv,
                                                     hd, window, prefix, blk):
-    """The Function (forward on K6, one launch; backward in PyTorch
-    operations, no K6 launch) against autograd through the plain version
-    in f32 on the same inputs: f32 to 1e-4 of each gradient's largest
-    magnitude (both sum up to S terms in other orders; TF32 off), bf16
-    (inputs rounded to bf16, the reference from those values in f32) to
-    2e-2 (K6's bf16 output and the bf16 gradients: a few bf16 ulps of the
-    largest element)."""
+    """The Function (forward on K6, one launch that also writes the rows'
+    log-sum-exp; backward on K6's backward kernels, one call counted on
+    ``flash_attention_bshd_bwd.launches``, no K6 launch) against autograd
+    through the plain version in f32 on the same inputs: f32 to 1e-4 of
+    each gradient's largest magnitude (both sum up to S terms in other
+    orders; TF32 off), bf16 (inputs rounded to bf16, the reference from
+    those values in f32) to 2e-2 (K6's bf16 output, p and ds rounded to
+    bf16 as product operands, and the bf16 gradients: a few bf16 ulps of
+    the largest element)."""
     from repro_torch import no_tf32
     from repro_torch.kernels import flash_attention as FA
     no_tf32()
@@ -1670,16 +1672,125 @@ def test_flash_attention_grad_on_card_matches_plain(dev, dtype, B, S, H, Hkv,
     want = _grad_ref(q, k, v, do, True, window, prefix, blk)
     qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
     n = FA.flash_attention_bshd.launches
+    nb = FA.flash_attention_bshd_bwd.launches
     out = FA.FlashAttention.apply(qs, ks, vs, True, window, prefix, blk)
     assert FA.flash_attention_bshd.launches == n + 1
+    assert FA.flash_attention_bshd_bwd.launches == nb
     got = torch.autograd.grad(out, (qs, ks, vs), do)
     torch.cuda.synchronize()
     assert FA.flash_attention_bshd.launches == n + 1
+    assert FA.flash_attention_bshd_bwd.launches == nb + 1
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     for name, a, b in zip("qkv", got, want):
         assert a.dtype == dtype and a.shape == b.shape
         err = float((a.float() - b).abs().max() / b.abs().max())
         assert err < tol, (name, err)
+
+
+# (B, S, H, Hkv, hd, causal, window, prefix, blk): the four above, a
+# ragged S at head dims 96 and 128, and no causal mask
+K6_BWD_LAYOUTS = [
+    (1, 128, 4, 2, 16, True, 0, 0, 128),
+    (2, 256, 2, 1, 256, True, 0, 256, 128),
+    (1, 512, 4, 1, 64, True, 100, 0, 128),
+    (1, 384, 4, 2, 16, True, 0, 40, 64),
+    (2, 100, 3, 1, 96, True, 0, 0, 128),
+    (1, 200, 4, 2, 128, True, 37, 0, 40),
+    (1, 192, 2, 1, 32, False, 0, 9, 64),
+]
+
+
+def _k6_case(dev, dtype, B, S, H, Hkv, hd, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.as_tensor(rng.standard_normal(s).astype(np.float32)).to(
+        dev, dtype) for s in ((B, S, H, hd), (B, S, Hkv, hd), (B, S, Hkv, hd),
+                              (B, S, H, hd))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,S,H,Hkv,hd,causal,window,prefix,blk",
+                         K6_BWD_LAYOUTS)
+def test_flash_attention_lse_on_card_matches_plain(dev, dtype, B, S, H, Hkv,
+                                                   hd, causal, window, prefix,
+                                                   blk):
+    """K6's log-sum-exp (``return_lse``) against the plain version's from
+    the same inputs (bf16 from the same bf16 values), to 1e-5 of its
+    largest magnitude (f32 sums in other orders); the output is the one
+    K6 returns without it, bit for bit, and one launch either way."""
+    from repro_torch.kernels import flash_attention as FA
+    q, k, v, _ = _k6_case(dev, dtype, B, S, H, Hkv, hd, S + hd)
+    kw = dict(causal=causal, window=window, prefix_len=prefix, blk_k=blk)
+    n = FA.flash_attention_bshd.launches
+    out, lse = FA.flash_attention_bshd(q, k, v, return_lse=True, **kw)
+    assert FA.flash_attention_bshd.launches == n + 1
+    assert lse.shape == (B, H, S) and lse.dtype == torch.float32
+    assert torch.equal(out, FA.flash_attention_bshd(q, k, v, **kw))
+    _, want = FA.flash_attention_bshd_ref(q, k, v, return_lse=True, **kw)
+    err = float((lse - want).abs().max() / want.abs().max())
+    assert err < 1e-5, err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,S,H,Hkv,hd,causal,window,prefix,blk",
+                         K6_BWD_LAYOUTS)
+def test_flash_attention_bwd_kernel_matches_plain_bitwise_twice(
+        dev, dtype, B, S, H, Hkv, hd, causal, window, prefix, blk):
+    """K6's backward kernel against its plain version
+    (``flash_attention_bshd_bwd_ref``) on the same inputs and log-sum-exp:
+    f32 to 1e-4 and bf16 to 2e-2 of each gradient's largest magnitude (p
+    and ds rounded to bf16 as product operands, the gradients rounded to
+    bf16); one launch a call, and two calls bit for bit (no atomics)."""
+    from repro_torch.kernels import flash_attention as FA
+    q, k, v, do = _k6_case(dev, dtype, B, S, H, Hkv, hd, S + H + hd)
+    kw = dict(causal=causal, window=window, prefix_len=prefix)
+    out, lse = FA.flash_attention_bshd(q, k, v, blk_k=blk, return_lse=True,
+                                       **kw)
+    n = FA.flash_attention_bshd_bwd.launches
+    got = FA.flash_attention_bshd_bwd(q, k, v, out, do, lse, **kw)
+    again = FA.flash_attention_bshd_bwd(q, k, v, out, do, lse, **kw)
+    torch.cuda.synchronize()
+    assert FA.flash_attention_bshd_bwd.launches == n + 2
+    want = FA.flash_attention_bshd_bwd_ref(q, k, v, out, do, lse, **kw)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for name, a, b, c in zip("qkv", got, again, want):
+        assert a.dtype == dtype and a.shape == c.shape
+        assert torch.equal(a, b), name
+        err = float((a.float() - c.float()).abs().max()
+                    / c.float().abs().max())
+        assert err < tol, (name, err)
+
+
+def test_flash_attention_bwd_refuses_before_a_launch(dev):
+    """The backward's wrapper raises on what its kernels do not take, and
+    launches nothing: a head dim outside ``HEAD_DIMS``, a missing
+    log-sum-exp, mixed dtypes."""
+    from repro_torch.kernels import flash_attention as FA
+    n = FA.flash_attention_bshd_bwd.launches
+    q, k, v, do = _k6_case(dev, torch.bfloat16, 1, 64, 2, 1, 48, 1)
+    lse = torch.zeros((1, 2, 64), device=dev)
+    with pytest.raises(ValueError, match="head dim 48"):
+        FA.flash_attention_bshd_bwd(q, k, v, q, do, lse)
+    q, k, v, do = _k6_case(dev, torch.bfloat16, 1, 64, 2, 1, 64, 1)
+    with pytest.raises(ValueError, match="log-sum-exp"):
+        FA.flash_attention_bshd_bwd(q, k, v, q, do)
+    with pytest.raises(ValueError, match="dout: dtype"):
+        FA.flash_attention_bshd_bwd(q, k, v, q, do.float(), lse)
+    assert FA.flash_attention_bshd_bwd.launches == n
+
+
+def test_flash_attention_bwd_kernels_spill_nothing(dev):
+    """ptxas spills none of the registers of the backward's bf16 kernels
+    (dk/dv and dq at head dims 16/32/64/96/128/256) or of its pre-pass."""
+    K.library()
+    props = re.findall(
+        r"Function properties for (\S*flash_attention_bwd_(?:dkdv|dq|dot)I"
+        r"\S*)\n\s*(\d+) bytes stack frame, (\d+) bytes spill stores, "
+        r"(\d+) bytes spill loads", K.BUILD["log"])
+    assert len(props) == 14, "dk/dv and dq per head dim, two pre-passes"
+    for name, _, stores, loads in props:
+        assert (stores, loads) == ("0", "0"), f"{name} spills"
 
 
 def _smoke_train(arch, comp="none", mb=2, dtype="float32"):

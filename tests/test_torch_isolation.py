@@ -152,13 +152,21 @@ def test_rwkv_too_large_code_matches_c_source():
 
 def test_flash_attention_limits_match_c_source():
     """The head dims K6 is instantiated for and its largest key block, as
-    the wrapper checks them before a launch."""
+    the wrapper checks them before a launch; the head dims of K6's
+    backward (its ``launch_hd`` switch and its entry point's check) are
+    the same."""
     from repro_torch.kernels import flash_attention as FA
     src = (CSRC / "flash_attention.cu").read_text()
     assert FA.HEAD_DIMS == tuple(int(x) for x in
                                  re.findall(r"case (\d+):", src))
     assert FA.MAX_BLK_K == int(re.search(r"kMaxBlkK = (\d+);", src)
                                .group(1))
+    bwd = (CSRC / "flash_attention_bwd.cu").read_text()
+    assert FA.HEAD_DIMS == tuple(int(x) for x in
+                                 re.findall(r"case (\d+):", bwd))
+    entry = bwd[bwd.index('extern "C" int flash_attention_bwd_launch'):]
+    assert FA.HEAD_DIMS == tuple(int(x) for x in
+                                 re.findall(r"hd != (\d+)", entry))
 
 
 def test_ssm_scan_limits_match_c_source():
