@@ -1720,7 +1720,8 @@ def main() -> int:
             print(f"  ssm_scan_kernel<hd {k8.group(1)}, N {k8.group(2)}>")
             continue
         kb = re.search(r"Function properties for .*?(flash_attention_bwd_"
-                       r"(?:dkdv_f32|dq_f32|dkdv|dq|dot))I(.*?)EEv", line)
+                       r"(?:dkdv_wgmma|dq_wgmma|dkdv_f32|dq_f32|dkdv|dq|"
+                       r"dot))I(.*?)EEv", line)
         if kb:
             args = re.findall(r"Li(\d+)E", kb.group(2)) or [
                 "bf16" if "bfloat16" in kb.group(2) else "f32"]

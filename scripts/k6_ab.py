@@ -18,14 +18,25 @@ need no gradient, as a prefill's), by the same method and by events over
 back-to-back calls (with the host). At musicgen-medium's training layout
 (batch 4, 4096 tokens, causal) it times K6 without the log-sum-exp and,
 where the tree's K6 has ``return_lse``, with it (what training's forward
-asks for). ``--compare`` prints each layout's microseconds per call, run
-by run, and the card's name and power limit.
+asks for); where the tree has K6's backward (``flash_attention_bshd_bwd``)
+it times that by the same method at musicgen-medium's and hymba-1.5b's
+training layouts (batch 4, 4096 tokens; 24 heads of 64, causal; 25 over 5
+heads of 64, window 1024), inputs from numpy seed 45. Each run also
+records a digest of the SASS of the tree's bf16 forward kernels
+(``flash_attention_kernel_wgmma``, by ``cuobjdump -sass`` of its library,
+names stripped of their per-build namespace tag): two trees whose K6
+forward compiles to the same machine code print the same digest.
+``--compare`` prints each layout's microseconds per call, run by run,
+the digests, and the card's name and power limit.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import inspect
 import json
+import re
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -44,6 +55,29 @@ LAYOUTS = [("glm4-9b", 32, 2, 128, 0, 0), ("phi3-mini-3.8b", 32, 32, 96, 0, 0),
 # musicgen-medium's training layout: (batch, tokens, heads, head dim)
 TRAIN = (4, 4096, 24, 64)
 TRAIN_ROWS = ("musicgen-medium train", "musicgen-medium train, lse")
+# K6's backward at the training layouts: (name, batch, tokens, query heads,
+# KV heads, head dim, window)
+BWD_ROWS = [("musicgen-medium train, backward", 4, 4096, 24, 24, 64, 0),
+            ("hymba-1.5b train, backward", 4, 4096, 25, 5, 64, 1024)]
+
+
+def sass_digest(lib: Path) -> str | None:
+    """sha256 (16 hex digits) of the SASS of every bf16 K6 forward kernel
+    in ``lib``, function by function in name order, or None where
+    cuobjdump is missing."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return None
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=600).stdout
+    funcs = [re.sub(r"_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "anon", f)
+             for f in re.split(r"\n\s*Function : ", text)
+             if f.lstrip().startswith("_Z")
+             and "flash_attention_kernel_wgmma" in f.split("\n", 1)[0]]
+    h = hashlib.sha256()
+    for f in sorted(funcs):
+        h.update(f.encode())
+    return f"{len(funcs)} kernels, {h.hexdigest()[:16]}"
 
 
 def run(src: Path, out: Path) -> int:
@@ -52,6 +86,7 @@ def run(src: Path, out: Path) -> int:
     import torch
 
     import devtime as DT
+    from repro_torch import kernels as K
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ops
     if not torch.cuda.is_available():
@@ -93,6 +128,24 @@ def run(src: Path, out: Path) -> int:
         kw = dict(return_lse=True) if lse else {}
         ms = DT.device_ms(lambda: FA.flash_attention_bshd(q, k, v, **kw), 100)
         res["us"][name] = None if ms is None else ms * 1e3
+    if hasattr(FA, "flash_attention_bshd_bwd"):
+        for name, Bb, Sb, Hb, Hkvb, hdb, wb in BWD_ROWS:
+            rng = np.random.default_rng(45)
+            q, do = (torch.as_tensor(rng.standard_normal(
+                (Bb, Sb, Hb, hdb)).astype(np.float32)).to(
+                    dev, torch.bfloat16) for _ in range(2))
+            k, v = (torch.as_tensor(rng.standard_normal(
+                (Bb, Sb, Hkvb, hdb)).astype(np.float32)).to(
+                    dev, torch.bfloat16) for _ in range(2))
+            o, lse = FA.flash_attention_bshd(q, k, v, window=wb,
+                                             return_lse=True)
+            ms = DT.device_ms(lambda: FA.flash_attention_bshd_bwd(
+                q, k, v, o, do, lse, window=wb), 20)
+            res["us"][name] = None if ms is None else ms * 1e3
+            del q, k, v, do, o, lse
+            torch.cuda.empty_cache()
+    K.library()
+    res["forward_sass"] = sass_digest(K._BUILD_ROOT / K._digest() / K._LIB_NAME)
     out.write_text(json.dumps(res))
     print(json.dumps(res), flush=True)
     return 0
@@ -107,12 +160,15 @@ def compare(paths) -> int:
                       ("ops_us", "ops.flash_attention, device"),
                       ("ops_events_us", "ops.flash_attention, with the host")):
         print(f" {what}:")
-        for name in [row[0] for row in LAYOUTS] + list(TRAIN_ROWS):
+        for name in ([row[0] for row in LAYOUTS] + list(TRAIN_ROWS)
+                     + [row[0] for row in BWD_ROWS]):
             vals = [r.get(key, {}).get(name) for r in runs]
             if all(x is None for x in vals):
                 continue
             print(f"  {name}: " + " / ".join(
                 "-" if v is None else f"{v:.2f}" for v in vals))
+    print(" forward SASS: " + " / ".join(
+        str(r.get("forward_sass")) for r in runs))
     return 0
 
 

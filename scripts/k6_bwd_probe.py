@@ -15,18 +15,19 @@ version (events) and the library's backward (autograd of
 ``scaled_dot_product_attention``, events), and splits a call by kernel
 (the pre-pass, dk/dv, dq; torch.profiler). ``--quick`` keeps the small
 layouts and musicgen's bf16 one, and times nothing but the kernel.
-``--variants`` also rebuilds ``flash_attention_bwd.cu`` with other tile
-choices (``VARIANTS``: text edits of the source, each built alone with
-nvcc) and times each against this tree's at musicgen's and hymba's
-training layouts in turns (forward order, then reversed), every variant's
-gradients bit for bit this tree's, with nvcc's registers for the head
-dim 64 instances.
+``--variants`` also rebuilds ``flash_attention_bwd.cu`` with other
+pipeline choices (``VARIANTS``: text edits of the source, each built
+alone with nvcc) and times each against this tree's at musicgen's and
+hymba's training layouts and at head dim 128 in turns (forward order,
+then reversed), every variant's gradients bit for bit this tree's, with
+nvcc's registers and spills for the ``wgmma`` instances.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -56,26 +57,30 @@ TRAIN = [("musicgen-medium", 4, 4096, 24, 24, 64, 0, 0),
          ("paligemma-3b", 1, 2048, 8, 1, 256, 0, 256),
          ("hymba-1.5b", 1, 2048, 25, 5, 64, 1024, 0)]
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-# tile choices of the bf16 kernels, as edits of flash_attention_bwd.cu
-_BR = "constexpr int BR = HD <= 32 ? 64 : 32;"
-_KV_BOUNDS = "__launch_bounds__(Dkdv<HD, BR, NSPLIT>::kThreads)"
+# pipeline choices of the bf16 wgmma kernels (head dims 16-128), as edits
+# of flash_attention_bwd.cu's tile constants
+_SUBKV = "static constexpr int kSubKV = NP == 1 ? 128 : 64;"
+_SUBQ = "static constexpr int kSubQ = HD == 64 ? 128 : 64;"
+_STAGES = "static constexpr int kStages = 4;"
+_FMA = "static constexpr bool kFma = NP == 1;"
 VARIANTS = {
     "this tree": [],
-    "dk/dv: 64-row query tiles at hd 64":
-        [(_BR, "constexpr int BR = HD <= 64 ? 64 : 32;")],
-    "dk/dv: 64-row query tiles, 3 CTAs an SM at hd 64":
-        [(_BR, "constexpr int BR = HD <= 64 ? 64 : 32;"),
-         (_KV_BOUNDS, "__launch_bounds__(Dkdv<HD, BR, NSPLIT>::kThreads, "
-                      "HD == 64 ? 3 : 1)")],
-    "dq: 128-key tiles at hd 64":
-        [("constexpr int BC = HD > 128 ? 32 : 64;",
-          "constexpr int BC = HD > 128 ? 32 : HD == 64 ? 128 : 64;")],
+    "dk/dv: 64-row query tiles": [(_SUBKV, "static constexpr int kSubKV = "
+                                           "64;")],
+    "dq: 64-key sub-tiles": [(_SUBQ, "static constexpr int kSubQ = 64;")],
+    "rings of 2 stages": [(_STAGES, "static constexpr int kStages = 2;")],
+    "the exponent's argument by a multiply and a subtract":
+        [(_FMA, "static constexpr bool kFma = false;")],
+    "the exponent's argument by one fused multiply-add at every head dim":
+        [(_FMA, "static constexpr bool kFma = true;")],
 }
-# (B, S, H, Hkv, hd, window) the variants are timed at
-VARIANT_LAYOUTS = [(4, 4096, 24, 24, 64, 0), (4, 4096, 25, 5, 64, 1024)]
+# (B, S, H, Hkv, hd, window) the variants are timed at: musicgen-medium's
+# and hymba-1.5b's training layouts, and glm4-9b's heads at head dim 128
+VARIANT_LAYOUTS = [(4, 4096, 24, 24, 64, 0), (4, 4096, 25, 5, 64, 1024),
+                   (1, 4096, 32, 2, 128, 0)]
 # the backward's three kernels, by the names the profiler reports
-KERNELS = ("flash_attention_bwd_dot", "flash_attention_bwd_dkdv",
-           "flash_attention_bwd_dq")
+KERNELS = ("flash_attention_bwd_dot", "flash_attention_bwd_dkdv_wgmma",
+           "flash_attention_bwd_dq_wgmma")
 
 
 def card() -> str:
@@ -193,7 +198,7 @@ def build_variants(tmp: Path) -> dict:
         d = tmp / str(i)
         d.mkdir()
         (d / "flash_attention_bwd.cu").write_text(text)
-        for h in ("common.cuh", "attention_mask.cuh"):
+        for h in ("common.cuh", "attention_mask.cuh", "hopper.cuh"):
             (d / h).write_text((csrc / h).read_text())
         procs[name] = (d, subprocess.Popen(
             [K._nvcc(), *K.NVCC_FLAGS, "-shared", "-o", str(d / "lib.so"),
@@ -216,12 +221,12 @@ def variants(dev) -> None:
         libs = build_variants(Path(tmp))
         for name, (_, log) in libs.items():
             lines = log.splitlines()
-            regs = [f"{'dk/dv' if 'dkdvI' in ln else 'dq'} "
+            regs = [f"{'dk/dv' if 'dkdv' in ln else 'dq'} hd "
+                    f"{re.search(r'wgmmaILi(\d+)E', ln).group(1)} "
                     f"{lines[i + 2].split(':')[-1].strip()}, "
                     f"{lines[i + 1].strip()}"
                     for i, ln in enumerate(lines)
-                    if "Function properties" in ln
-                    and ("dkdvILi64E" in ln or "dqILi64E" in ln)]
+                    if "Function properties" in ln and "_wgmmaILi" in ln]
             print(f"  {name}: {'; '.join(regs)}", flush=True)
         for B, S, H, Hkv, hd, w in VARIANT_LAYOUTS:
             q, k, v, do = case(dev, torch.bfloat16, B, S, H, Hkv, hd, 3)
@@ -286,8 +291,8 @@ def main() -> int:
             del res
             torch.cuda.empty_cache()
     if args.variants:
-        print("tile variants of flash_attention_bwd.cu (nvcc: registers, "
-              "spills of the head dim 64 instances):", flush=True)
+        print("pipeline variants of flash_attention_bwd.cu (nvcc: registers "
+              "and spills of the wgmma instances):", flush=True)
         variants(dev)
     print(f"k6_bwd_probe: {len(fails)} layout(s) failed {fails}", flush=True)
     return 1 if fails else 0

@@ -123,7 +123,7 @@ def build(tmp: Path) -> dict:
         d = tmp / name
         d.mkdir()
         (d / "flash_attention.cu").write_text(text)
-        for h in ("common.cuh", "attention_mask.cuh"):
+        for h in ("common.cuh", "attention_mask.cuh", "hopper.cuh"):
             (d / h).write_text((CSRC / h).read_text())
         procs[name] = subprocess.Popen(
             [K._nvcc(), *K.NVCC_FLAGS, "-shared", "-o", str(d / "lib.so"),

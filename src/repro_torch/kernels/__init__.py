@@ -23,8 +23,8 @@ public wrappers):
 * ``flash_attention.flash_attention_bshd_bwd`` — K6's backward
   (``csrc/flash_attention_bwd.cu``): dq, dk and dv from the log-sum-exp
   K6 saved, a dk/dv kernel per key tile and a dq kernel per query tile,
-  bf16 on the tensor cores (``mma.sync``), f32 on the CUDA cores, no
-  atomics;
+  bf16 on the tensor cores (``wgmma`` with TMA-fed rings up to head dim
+  128, ``mma.sync`` at 256), f32 on the CUDA cores, no atomics;
 * ``rwkv_chunk.rwkv_chunked_bthd`` — K7, the chunked RWKV6 WKV
   (``csrc/rwkv_chunk.cu``): persistent CTAs walk the (batch, head,
   chunk) tiles, the state carried from chunk to chunk through a chain of

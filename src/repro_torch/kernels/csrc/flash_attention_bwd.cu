@@ -17,17 +17,17 @@
 // Three kernels on the caller's stream:
 //   flash_attention_bwd_dot   D, eight threads a row (16-byte loads), their
 //                             sums combined by a fixed xor tree;
-//   flash_attention_bwd_dkdv  one CTA per (64-key tile, KV head, batch row)
+//   a dk/dv kernel            one CTA per (key tile, KV head, batch row)
 //                             with its K and V tiles in shared memory; it
 //                             walks the query tiles that see one of its
 //                             keys (flash_attention.py's _bwd_rows), for
 //                             each of the group's rep query heads in turn,
 //                             and writes dk and dv once;
-//   flash_attention_bwd_dq    one CTA per (64 query rows, head, batch row),
-//                             the tiles that walk the most keys first, with
-//                             its q and dout rows in shared memory; it walks
-//                             the key tiles the mask does not remove for all
-//                             its rows (keys_dead) and writes dq once.
+//   a dq kernel               one CTA per (query tile, head, batch row), the
+//                             tiles that walk the most keys first, with its
+//                             q and dout rows in shared memory; it walks the
+//                             key tiles the mask does not remove for all its
+//                             rows (keys_dead) and writes dq once.
 // No float atomics: every output element is summed by one thread in a fixed
 // order, so the gradient is bit for bit the same from run to run. The price
 // is that s and dp are computed in both kernels: 7 products a (query, key)
@@ -38,63 +38,106 @@
 // 24 heads of 64, causal) the 5 products are 515.5 GFLOP, 0.521 ms at the
 // bf16 tensor-core rate (this design's 7: 0.73 ms); the bytes (q, k, v,
 // out, dout and lse read once, dq, dk, dv written once: 0.404 GB) take
-// 0.121 ms. Bound by the operations.
+// 0.121 ms. Bound by the operations; of the CUDA-core work, one
+// exponential a pair in each kernel (805 M pairs on the MUFU unit's 16 a
+// clock an SM: ~0.22 ms a kernel at 1.75 GHz) is the largest part.
 //
-// bf16: on the tensor cores, mma.sync m16n8k16 bf16 x bf16 -> f32 (wgmma
-// and TMA are a later design). Each warp owns 16 rows of its CTA's tile:
-// 16 keys in the dk/dv kernel, which computes s and dp transposed (s^T = k
-// q^T), so that p^T and ds^T come out of the accumulators already in the A
-// operand's layout; 16 query rows in the dq kernel. Operands come from
-// shared memory by ldmatrix: non-transposed for the score products (q, k,
-// v and dout are K-major there), transposed (.trans) for the B operands of
-// p^T dout, ds^T q and ds k. Tiles arrive by cp.async in two stages (q and
-// dout tiles in the dk/dv kernel, k and v tiles in the dq kernel), the
-// next one loading while the warps compute on the current one. Rows in
-// shared memory are padded by 16 bytes, so the 8 row addresses of an
-// ldmatrix fall in distinct banks. p and ds are rounded to bf16 as product
-// operands (each once, as the forward's tensor-core products do with q and
-// k); every sum is f32. Rows per tile shrink as the head dim grows, to keep
-// the f32 accumulators in registers: the dk/dv kernel walks query tiles of
-// 64 rows up to head dim 32 and of 32 above (at head dim 64, 32-row tiles
-// take 168 registers a thread, 3 CTAs an SM, where 64-row tiles took 214,
-// 2 CTAs, and were slower: scripts/k6_bwd_probe.py --variants); at head
-// dim 256 its 16 keys' dk and dv (16 x 256 x 2 f32) would take 256
-// registers a thread, so the
-// CTA has 8 warps, two to each 16 keys, each summing dk and dv for half the
-// columns (both compute the keys' s and dp); the dq kernel walks key tiles
-// of 64 keys, 32 at head dim 256.
+// bf16 at head dims 16, 32, 64, 96 and 128: flash_attention_bwd_dkdv_wgmma
+// and flash_attention_bwd_dq_wgmma, on wgmma with TMA-fed rings
+// (csrc/hopper.cuh, the forward's machinery). Each CTA has three
+// warpgroups: warpgroup 2 gives up its registers (setmaxnreg 24) and loads,
+// warpgroups 0 and 1 (setmaxnreg 240) own 64 rows each of the CTA's 128.
+// A streamed tile has SUB rows: 128 where the registers allow, 64 where
+// they do not (Shape::kSubKV, kSubQ); its ring has 4 stages.
+//   dk/dv: 128 keys a CTA, K and V loaded once by TMA. Query tiles of SUB
+//          rows (128 up to head dim 64, 64 at 96 and 128) stream through
+//          the ring: the q and dout tiles by TMA, each row's lse and D by
+//          the loading warp's 32 lanes with cp.async, each stage's full
+//          barrier completing on the copies' bytes and the lanes'
+//          arrivals. Per tile, a warpgroup's 64 keys:
+//            s^T  = K q^T        wgmma SS m64nSUBk16 (K and q K-major);
+//            dp^T = V dout^T     SS, issued behind s^T;
+//            p^T  = 2^(s^T scale log2 e - lse log2 e), masked, while dp^T
+//                   runs;
+//            ds^T = p^T (dp^T - D);
+//            dv  += p^T dout     wgmma RS m64nNk16: A = p^T rounded to
+//                                bf16 from the accumulator's registers, B
+//                                the dout tile in its (row, hd) layout,
+//                                MN-major (the transpose bit);
+//            dk  += ds^T q       RS, B the q tile, MN-major.
+//          Both products wait for ds^T, so that s^T and dp^T are free
+//          before p^T's and ds^T's fragments exist (issuing dv's before
+//          ds^T is formed read slower); dv's runs while ds^T's fragments
+//          are formed. dk x scale and dv are written once, in bf16.
+//   dq:    128 query rows a CTA, q and dout loaded once by TMA, each
+//          thread's two rows' lse and D in registers; K and V sub-tiles of
+//          SUB keys (128 at head dim 64, 64 otherwise) stream through two
+//          rings, skipping the sub-tiles the mask removes for every row.
+//          Per sub-tile, a warpgroup's 64 rows: s = q K^T and dp = dout V^T
+//          (SS, the second behind the first), p while dp runs, ds = p (dp -
+//          D), dq += ds K (RS, K MN-major); dq x scale is written once.
+// At musicgen-medium's layout a call with both kernels' score products at
+// N = 128 takes 0.83x the time of one at N = 64 (scripts/k6_bwd_probe.py
+// --variants); issuing the next tile's products before the current
+// tile's last one is waited for, keeping the score products' A operand
+// in registers, and dv's product before ds^T is formed, read slower or
+// no faster. N of the RS
+// products is 64 up to head dim 64 and 128 above: head dims 16 and 32
+// fill their one 64-column panel with zeros past hd and 96 its second (the
+// TMA boxes are 64 columns of one head), and those columns come out zero
+// and are not stored. A key range (or query tile) the mask removes for all
+// of a warpgroup's rows is skipped by that warpgroup; one it keeps whole
+// skips the mask. In the dq kernel, rows past S read zeros and an lse of
+// +inf (p = 0) and keys past S read zeros and are masked; in the dk/dv
+// kernel, rows past S read zeros for q, dout, lse and D (p^T = 1, ds^T =
+// 0: nothing added) and keys past S are not stored. p and ds are rounded
+// to bf16 as product operands (each once, as the forward's tensor-core
+// products do with q and k); every sum is f32; the exponential is
+// ex2.approx (2 ulp) of s scale log2 e - lse log2 e, that argument one
+// fused multiply-add up to head dim 64, below p's bf16 rounding.
+//
+// bf16 at head dim 256: flash_attention_bwd_dkdv and flash_attention_bwd_dq
+// on mma.sync m16n8k16 from ldmatrix (a 64-key dk/dv tile's dk and dv
+// alone would take 256 registers a thread at M = 64 on wgmma): 8 warps, two
+// to each 16 keys, each summing dk and dv for half the columns, over query
+// tiles of 32 rows staged by cp.async in two stages; the dq kernel walks
+// key tiles of 32.
 //
 // f32: on the CUDA cores in f32 (the tensor cores would take f32 only as
 // TF32), in the same two-kernel structure: CTAs of 256 threads over tiles
 // of 32 keys and 32 query rows staged in shared memory (rows padded to
 // hd + 1 floats), s and dp a 4-element register tile per thread, p and ds
-// through shared memory, dk, dv or dq rows accumulated in registers.
+// through shared memory, dk, dv or dq rows accumulated in registers; exp
+// as expf.
 //
-// Built with --fmad=false and exp as expf, as the forward: the products'
-// sums run in another order than the plain version's matmuls.
+// Built with --fmad=false, as the forward: the products' sums run in
+// another order than the plain version's matmuls.
 //
 // ptxas (-Xptxas -v, sm_90a; CUDA 12.8), registers a thread and dynamic
 // shared memory a CTA at head dims 16 / 32 / 64 / 96 / 128 / 256:
-//   dkdv bf16  125 / 158 / 168 / 222 / 252 / 250 (8 warps at 256);
-//              19,456 / 31,744 / 37,376 / 53,760 / 70,144 / 135,680 B
-//   dq bf16    88 / 128 / 159 / 167 / 171 / 243;
-//              18,432 / 30,720 / 55,296 / 79,872 / 104,448 / 135,168 B
-//   dkdv f32   32 / 40 / 64 / 64 / 80 / 128;  dq f32  48 / 48 / 64 / 64 /
-//              80 / 80; both 17,408 / 25,600 / 41,984 / 58,368 / 74,752 /
-//              140,288 B
-//   dot        30 (f32) / 32 (bf16), no shared memory
+//   dkdv_wgmma  168 at launch (384 threads), then 240 a consumer thread and
+//               24 a loading one (setmaxnreg); 169,096 / 169,096 /
+//               169,096 / 199,816 / 199,816 B
+//   dq_wgmma    the same registers; 101,512 / 101,512 / 169,096 / 199,816
+//               / 199,816 B
+//   dkdv, dq    (mma.sync, head dim 256) 250 and 243; 135,680 and 135,168 B
+//   dkdv f32    32 / 40 / 64 / 64 / 80 / 128;  dq f32  48 / 48 / 64 / 64 /
+//               80 / 80; both 17,408 / 25,600 / 41,984 / 58,368 / 74,752 /
+//               140,288 B
+//   dot         30 (f32) / 32 (bf16), no shared memory
 // Nothing spills but the f32 dq kernel at head dim 32 (8 bytes of stack).
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 #include "attention_mask.cuh"
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 constexpr int kMaxSmem = 232448;
-constexpr int kKeyTile = 64;   // keys per dk/dv CTA (bf16)
-constexpr int kRowTile = 64;   // query rows per dq CTA (bf16)
+constexpr int kKeyTile = 64;   // keys per dk/dv CTA (bf16, head dim 256)
+constexpr int kRowTile = 64;   // query rows per dq CTA (bf16, head dim 256)
 constexpr int kPad = 8;        // bf16 elements of padding per shared row
 constexpr int kDotThreads = 8; // threads per row of the pre-pass
 constexpr int kF32Tile = 32;   // keys and query rows per f32 tile
@@ -102,9 +145,8 @@ constexpr int kF32Threads = 256;
 
 typedef __nv_bfloat16 bf16;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
+using tc::pack_bf16;
+using tc::smem_u32;
 
 // 16 bytes global -> shared, zeros where !ok (nothing is read then)
 __device__ __forceinline__ void cp16(uint32_t dst, const void* src, bool ok) {
@@ -153,11 +195,6 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // R rows [r0, r0 + R) of a (B,S,heads,HD) bf16 tensor (base: its batch
@@ -308,7 +345,7 @@ __global__ void __launch_bounds__(256) flash_attention_bwd_dot(
 }
 
 // ---------------------------------------------------------------------------
-// bf16: dk and dv
+// bf16 at head dim 256: dk and dv on mma.sync
 // ---------------------------------------------------------------------------
 
 struct BwdArgs {
@@ -469,7 +506,7 @@ __global__ void __launch_bounds__(Dkdv<HD, BR, NSPLIT>::kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// bf16: dq
+// bf16 at head dim 256: dq on mma.sync
 // ---------------------------------------------------------------------------
 
 template <int HD, int BC>
@@ -610,6 +647,568 @@ __global__ void __launch_bounds__(Dq<HD, BC>::kThreads)
     }
   }
 }
+
+// ---------------------------------------------------------------------------
+// bf16 at head dims 16-128: wgmma, TMA-fed rings
+// ---------------------------------------------------------------------------
+
+namespace wg {
+
+using tc::kPanel;
+constexpr int kThreads = 384;      // warpgroups 0-1 consume, 2 loads
+constexpr int kTile = 128;         // a CTA's keys (dk/dv) or query rows (dq)
+constexpr int kEmptyArrivals = 8;  // one per consumer warp
+// dk/dv: a stage's full barrier takes the loading warp's 32 cp.async
+// arrivals (lse, D) and lane 0's arrival with the TMA copies' bytes
+constexpr int kFullArrivals = 33;
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int HD>
+struct Shape {
+  // 64-column panels (head dim 96 pads to two, 16 and 32 fill one)
+  static constexpr int NP = (HD + kPanel - 1) / kPanel;
+  static constexpr int NA = NP * kPanel / 2;  // dk, dv or dq floats a thread
+  // rows of a streamed tile: query rows a dk/dv stage, keys a dq stage.
+  // 128 where the registers allow, so that the score products run at
+  // N = 128 (64 f32 accumulators a thread each for s and dp; with both
+  // kernels' at N = 64 a call took 1.2x the time at head dim 64,
+  // scripts/k6_bwd_probe.py --variants); 64 where dk and dv take 64
+  // accumulators a thread each (head dims 96 and 128), and in the dq
+  // kernel at every head dim but 64, where ptxas spilled the 128-key form
+  static constexpr int kSubKV = NP == 1 ? 128 : 64;
+  static constexpr int kSubQ = HD == 64 ? 128 : 64;
+  // the exponent's argument s scale log2 e - lse log2 e by one fused
+  // multiply-add up to head dim 64; a multiply and a subtract above, where
+  // the fused form read slower (scripts/k6_bwd_probe.py --variants)
+  static constexpr bool kFma = NP == 1;
+};
+
+// shared memory of a kernel whose resident tiles have kTile rows and whose
+// streamed tiles SUB: two resident tiles (K and V, or q and dout), two
+// rings of kStages streamed tiles (q and dout, or K and V; 8 or 16 KB
+// each), each 64-column panel 1024-byte aligned; the dk/dv kernel's lse
+// and D (SUB f32 each a stage); the barriers
+template <int HD, int SUB>
+struct Smem {
+  static constexpr int NP = Shape<HD>::NP;
+  static constexpr int kStages = 4;
+  static constexpr uint32_t kTilePanel = kTile * 128;  // resident: a panel
+  static constexpr uint32_t kSubPanel = SUB * 128;     // streamed: a panel
+  static constexpr uint32_t kResident = NP * kTilePanel;
+  static constexpr uint32_t kStream = NP * kSubPanel;
+  static constexpr uint32_t kTiles = 2 * kResident + 2 * kStages * kStream;
+  static constexpr uint32_t kBars = kTiles + 2 * kStages * SUB * 4;
+  // + 1024 to align the base; barriers: full and empty rings (two of each
+  // in the dq kernel), then the resident tiles'
+  static constexpr uint32_t kSmem = 1024 + kBars + 8 * (4 * kStages + 1);
+  static_assert(kSmem <= (uint32_t)kMaxSmem, "shared memory");
+};
+
+// 2^x, one MUFU instruction (2 ulp; -inf gives 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// p = 2^(s c2 - l): the score s times c2 = scale log2 e, less the row's
+// lse log2 e
+template <bool FMA>
+__device__ __forceinline__ float p_of(float s, float c2, float l) {
+  return ex2(FMA ? __fmaf_rn(s, c2, -l) : s * c2 - l);
+}
+
+// d (64 x N, f32) = A . B^T over hd: A 64 rows, B N rows of hd bf16
+// columns in shared memory (K-major, 128-byte swizzle), their 64-column
+// panels a_panel and b_panel bytes apart; hd / 16 k-steps
+template <int HD, int N>
+__device__ __forceinline__ void issue_ss(float (&d)[N / 2], uint32_t a,
+                                         uint32_t a_panel, uint32_t b,
+                                         uint32_t b_panel) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint32_t off = (kk % 4) * 32;
+    const uint64_t da = tc::sw128_desc(a + (kk / 4) * a_panel + off, 16, 1024);
+    const uint64_t db = tc::sw128_desc(b + (kk / 4) * b_panel + off, 16, 1024);
+    if constexpr (N == 128) {
+      if (kk == 0)
+        tc::wgmma_ss_n128<false>(d, da, db);
+      else
+        tc::wgmma_ss_n128<true>(d, da, db);
+    } else {
+      if (kk == 0)
+        tc::wgmma_ss_n64_first(d, da, db);
+      else
+        tc::wgmma_ss_n64_acc(d, da, db);
+    }
+  }
+}
+
+// acc (64 x 2 NA, f32) += A . B: A (64 x 16 KS) as KS k-steps of bf16
+// fragments, B 16 KS rows of a streamed tile at b in its (row, hd)
+// layout, which is MN-major (the transpose bit); its second 64-column panel
+// (b_panel bytes on) the leading-byte-offset step, its 8-row groups the
+// stride-byte-offset step
+template <int NA, int KS>
+__device__ __forceinline__ void issue_rs(float (&acc)[NA],
+                                         const uint32_t (&a)[KS][4],
+                                         uint32_t b, uint32_t b_panel) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    const uint64_t db = tc::sw128_desc(b + kk * 16 * 128, b_panel, 1024);
+    if constexpr (NA == 64)
+      tc::wgmma_rs_n128<0>(acc, a[kk], db);
+    else
+      tc::wgmma_rs_n64(acc, a[kk], db);
+  }
+}
+
+// a 64 x 8 KS f32 accumulator as the bf16 A fragments of KS k-steps: the
+// accumulator's (row, 2 columns) pairs are the A fragment's, k-step kk
+// takes column groups 2 kk and 2 kk + 1
+template <int KS>
+__device__ __forceinline__ void to_frags(const float (&s)[4 * KS],
+                                         uint32_t (&a)[KS / 2][4]) {
+#pragma unroll
+  for (int kk = 0; kk < KS / 2; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int e = 4 * (2 * kk + (r >> 1)) + 2 * (r & 1);
+      a[kk][r] = tc::pack_bf16(s[e], s[e + 1]);
+    }
+}
+
+template <int KS>
+__device__ __forceinline__ void fence_frags(uint32_t (&a)[KS][4]) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) tc::fence_regs(a[kk]);
+}
+
+// a 64 x 2 NA accumulator (rows row0 and row0 + 8 of this thread, column
+// pairs 8 j + col0) times `mul`, in bf16 into the rows below S of a
+// (B,S,heads,HD) tensor at `base` (row stride `stride`); columns past HD
+// (a padded panel's) are not stored
+template <int HD, int NA>
+__device__ __forceinline__ void store_rows(const float (&acc)[NA], bf16* base,
+                                           size_t stride, int row0, int col0,
+                                           int S, float mul) {
+#pragma unroll
+  for (int jj = 0; jj < NA / 4; ++jj) {
+    const int col = 8 * jj + col0;
+    if (col >= HD) continue;
+    if (row0 < S)
+      *reinterpret_cast<__nv_bfloat162*>(base + (size_t)row0 * stride + col) =
+          __floats2bfloat162_rn(acc[4 * jj] * mul, acc[4 * jj + 1] * mul);
+    if (row0 + 8 < S)
+      *reinterpret_cast<__nv_bfloat162*>(base + (size_t)(row0 + 8) * stride +
+                                         col) =
+          __floats2bfloat162_rn(acc[4 * jj + 2] * mul, acc[4 * jj + 3] * mul);
+  }
+}
+
+// dk and dv of 128 keys (a KV head's, a batch row's): warpgroups 0 and 1
+// own 64 keys each, with K and V resident; warpgroup 2 streams the query
+// tiles of SUB rows that see one of the keys, for each of the group's rep
+// query heads in turn, through a ring of kStages (q, dout, lse, D) stages
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1) flash_attention_bwd_dkdv_wgmma(
+    const __grid_constant__ CUtensorMap map_k,
+    const __grid_constant__ CUtensorMap map_v,
+    const __grid_constant__ CUtensorMap map_q,
+    const __grid_constant__ CUtensorMap map_do, BwdArgs a, float c2) {
+  constexpr int SUB = Shape<HD>::kSubKV;
+  using T = Smem<HD, SUB>;
+  constexpr int NP = T::NP, NA = Shape<HD>::NA, kStages = T::kStages;
+  constexpr int NS = SUB / 2;  // s^T and dp^T floats a thread
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = tc::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t sK = base, sV = base + T::kResident;
+  // stage st: q at ring + 2 st kStream, dout kStream on; its lse at sL +
+  // st SUB, its D at sL + (kStages + st) SUB (f32)
+  const uint32_t ring = base + 2 * T::kResident;
+  const uint32_t sL_u = base + T::kTiles;
+  const float* const sL =
+      reinterpret_cast<const float*>(smem_raw + (sL_u - raw));
+  const uint32_t bars = base + T::kBars;
+  const uint32_t full = bars, empty = bars + 8 * kStages,
+                 bar_kv = bars + 16 * kStages;
+
+  const int S = a.S, H = a.H, Hkv = a.Hkv;
+  const int causal = a.causal, window = a.window, prefix = a.prefix;
+  const int kt = (int)(blockIdx.x / (unsigned)(Hkv * a.B));
+  const int hb = (int)(blockIdx.x % (unsigned)(Hkv * a.B));
+  const int hk = hb % Hkv, b = hb / Hkv;
+  const int rep = H / Hkv;
+  const int c0 = kt * kTile;
+  int r0, r1;
+  bwd_rows(c0, c0 + kTile, S, causal, window, prefix, r0, r1);
+  const int qt0 = r0 / SUB;
+  const int nqt = r0 < r1 ? (r1 + SUB - 1) / SUB - qt0 : 0;
+  const int n_it = rep * nqt;  // it: head hk rep + it / nqt, tile it % nqt
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      tc::mbar_init(full + 8 * s, kFullArrivals);
+      tc::mbar_init(empty + 8 * s, kEmptyArrivals);
+    }
+    tc::mbar_init(bar_kv, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tc::warpgroup() == 2) {
+    // ---- producer: one warp. Lane 0 issues every TMA copy; the 32 lanes
+    // copy each stage's lse and D by cp.async (zeros past S: there q and
+    // dout are zeros, so p^T = 1 and ds^T = 0 add nothing), each lane's
+    // copies arriving on the stage's full barrier when they land --------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (tid >= 2 * 128 + 32) return;
+    const int lane = tid % 32;
+    if (lane == 0) {
+      tc::mbar_expect_tx(bar_kv, 2 * T::kResident);
+      for (int p = 0; p < NP; ++p) {
+        tc::tma_load(sK + p * T::kTilePanel, &map_k, bar_kv, p * kPanel, hk,
+                     c0, b);
+        tc::tma_load(sV + p * T::kTilePanel, &map_v, bar_kv, p * kPanel, hk,
+                     c0, b);
+      }
+    }
+    for (int it = 0; it < n_it; ++it) {
+      const int st = it % kStages;
+      tc::mbar_wait(empty + 8 * st, ((it / kStages) & 1) ^ 1);
+      const int h = hk * rep + it / nqt;
+      const int q0 = (qt0 + it % nqt) * SUB;
+      const size_t lrow = ((size_t)b * H + h) * S;
+      const uint32_t f = full + 8 * st;
+#pragma unroll
+      for (int r = lane; r < SUB; r += 32) {
+        const bool ok = q0 + r < S;
+        const size_t at = lrow + (ok ? q0 + r : 0);
+        cp4(sL_u + (st * SUB + r) * 4, a.lse + at, ok);
+        cp4(sL_u + ((kStages + st) * SUB + r) * 4, a.D + at, ok);
+      }
+      asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+                   ::"r"(f)
+                   : "memory");
+      if (lane == 0) {
+        tc::mbar_expect_tx(f, 2 * T::kStream);
+        const uint32_t tq = ring + 2 * st * T::kStream;
+        for (int p = 0; p < NP; ++p) {
+          tc::tma_load(tq + p * T::kSubPanel, &map_q, f, p * kPanel, h, q0, b);
+          tc::tma_load(tq + T::kStream + p * T::kSubPanel, &map_do, f,
+                       p * kPanel, h, q0, b);
+        }
+      }
+    }
+    cp_wait<0>();
+    return;
+  }
+
+  // ---- consumers: 64 keys each ------------------------------------------
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  const int g = tc::warpgroup();
+  const int w = (tid / 32) % 4, lane = tid % 32;
+  const int row0 = 16 * w + lane / 4;  // fragment rows row0, row0 + 8: keys
+  const int col0 = 2 * (lane % 4);     // columns 8 j + col0 (+1): queries
+  const int kb = c0 + 64 * g;          // this warpgroup's first key
+  const uint32_t kA = sK + g * 64 * 128, vA = sV + g * 64 * 128;
+  float dk[NA], dv[NA];
+#pragma unroll
+  for (int i = 0; i < NA; ++i) dk[i] = dv[i] = 0.f;
+
+  tc::mbar_wait(bar_kv, 0);
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it % kStages;
+    tc::mbar_wait(full + 8 * st, (it / kStages) & 1);
+    const int q0 = (qt0 + it % nqt) * SUB;
+    const bool live =
+        kb < S && !keys_dead(kb, kb + 64, q0, q0 + SUB - 1, causal, window,
+                             prefix);
+    if (live) {
+      const bool whole =
+          keys_whole(kb, kb + 64, q0, q0 + SUB - 1, causal, window, prefix);
+      const uint32_t tq = ring + 2 * st * T::kStream, tdo = tq + T::kStream;
+      const float* tl = sL + st * SUB;
+      const float* td = sL + (kStages + st) * SUB;
+      float s[NS], dp[NS];  // s^T = K q^T, then p^T; dp^T = V dout^T, then ds^T
+      uint32_t pa[SUB / 16][4], da[SUB / 16][4];  // p^T, ds^T: A fragments
+      tc::wgmma_fence();
+      issue_ss<HD, SUB>(s, kA, T::kTilePanel, tq, T::kSubPanel);
+      tc::wgmma_commit();
+      issue_ss<HD, SUB>(dp, vA, T::kTilePanel, tdo, T::kSubPanel);
+      tc::wgmma_commit();
+      tc::wgmma_wait<1>();
+      tc::fence_regs(s);
+      // p^T = 2^(s^T scale log2 e - lse log2 e), 0 where masked (while
+      // dp^T runs)
+#pragma unroll
+      for (int j = 0; j < SUB / 8; ++j) {
+        const float2 l = *reinterpret_cast<const float2*>(tl + 8 * j + col0);
+        const float l0 = l.x * kLog2e, l1 = l.y * kLog2e;
+#pragma unroll
+        for (int e = 4 * j; e < 4 * j + 4; ++e)
+          s[e] = p_of<Shape<HD>::kFma>(s[e], c2, (e & 1) ? l1 : l0);
+      }
+      if (!whole) {
+#pragma unroll
+        for (int e = 0; e < NS; ++e) {
+          const int key = kb + row0 + ((e & 2) ? 8 : 0);
+          const int row = q0 + 8 * (e / 4) + col0 + (e & 1);
+          s[e] = keep(row, key, causal, window, prefix) ? s[e] : 0.f;
+        }
+      }
+      tc::wgmma_wait<0>();
+      tc::fence_regs(dp);
+      // ds^T = p^T (dp^T - D); the scale goes on dk at the end
+#pragma unroll
+      for (int j = 0; j < SUB / 8; ++j) {
+        const float2 d = *reinterpret_cast<const float2*>(td + 8 * j + col0);
+#pragma unroll
+        for (int e = 4 * j; e < 4 * j + 4; ++e)
+          dp[e] = (dp[e] - ((e & 1) ? d.y : d.x)) * s[e];
+      }
+      // dv += p^T dout once p^T is fragments (s^T's registers then free),
+      // running while ds^T's fragments are formed; then dk += ds^T q
+      to_frags<SUB / 8>(s, pa);
+      tc::fence_regs(dv);
+      tc::wgmma_fence();
+      issue_rs(dv, pa, tdo, T::kSubPanel);
+      tc::wgmma_commit();
+      to_frags<SUB / 8>(dp, da);
+      tc::fence_regs(dk);
+      tc::wgmma_fence();
+      issue_rs(dk, da, tq, T::kSubPanel);
+      tc::wgmma_commit();
+      tc::wgmma_wait<0>();
+      tc::fence_regs(dk);
+      tc::fence_regs(dv);
+      fence_frags(pa);
+      fence_frags(da);
+    }
+    if (lane == 0) tc::mbar_arrive(empty + 8 * st);
+  }
+
+  const size_t rowk = (size_t)Hkv * HD;
+  const size_t off = (size_t)b * S * rowk + (size_t)hk * HD;
+  store_rows<HD>(dk, (bf16*)a.dk + off, rowk, kb + row0, col0, S, a.scale);
+  store_rows<HD>(dv, (bf16*)a.dv + off, rowk, kb + row0, col0, S, 1.f);
+}
+
+// dq of 128 query rows (a head's, a batch row's): warpgroups 0 and 1 own
+// 64 rows each, with q, dout, lse and D resident; warpgroup 2 streams K and
+// V in sub-tiles of SUB keys through two rings of kStages, skipping those
+// the mask removes for every row of the tile
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1) flash_attention_bwd_dq_wgmma(
+    const __grid_constant__ CUtensorMap map_q,
+    const __grid_constant__ CUtensorMap map_do,
+    const __grid_constant__ CUtensorMap map_k,
+    const __grid_constant__ CUtensorMap map_v, BwdArgs a, float c2) {
+  constexpr int SUB = Shape<HD>::kSubQ;
+  using T = Smem<HD, SUB>;
+  constexpr int NP = T::NP, NA = Shape<HD>::NA, kStages = T::kStages;
+  constexpr int NS = SUB / 2;  // s and dp floats a thread
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (tc::smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sQ = base, sO = base + T::kResident;
+  const uint32_t sK = base + 2 * T::kResident;
+  const uint32_t sV = sK + kStages * T::kStream;
+  const uint32_t bars = base + T::kBars;
+  const uint32_t full_k = bars, empty_k = bars + 8 * kStages,
+                 full_v = bars + 16 * kStages, empty_v = bars + 24 * kStages,
+                 bar_q = bars + 32 * kStages;
+
+  const int S = a.S, H = a.H, Hkv = a.Hkv;
+  const int causal = a.causal, window = a.window, prefix = a.prefix;
+  // the query tiles that walk the most key tiles first
+  const int nqt = (S + kTile - 1) / kTile;
+  const int hb = (int)(blockIdx.x % (unsigned)(H * a.B));
+  const int qt = nqt - 1 - (int)(blockIdx.x / (unsigned)(H * a.B));
+  const int h = hb % H, b = hb / H;
+  const int hk = h / (H / Hkv);
+  const int q0 = qt * kTile;
+  const int q_last = min(q0 + kTile, S) - 1;
+  const int nkt = (S + SUB - 1) / SUB;
+  const int jend = causal ? min(nkt, max(q_last, prefix - 1) / SUB + 1) : nkt;
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      tc::mbar_init(full_k + 8 * s, 1);
+      tc::mbar_init(empty_k + 8 * s, kEmptyArrivals);
+      tc::mbar_init(full_v + 8 * s, 1);
+      tc::mbar_init(empty_v + 8 * s, kEmptyArrivals);
+    }
+    tc::mbar_init(bar_q, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tc::warpgroup() == 2) {
+    // ---- producer: one thread issues every TMA copy ---------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (tid != 2 * 128) return;
+    tc::mbar_expect_tx(bar_q, 2 * T::kResident);
+    for (int p = 0; p < NP; ++p) {
+      tc::tma_load(sQ + p * T::kTilePanel, &map_q, bar_q, p * kPanel, h, q0,
+                   b);
+      tc::tma_load(sO + p * T::kTilePanel, &map_do, bar_q, p * kPanel, h, q0,
+                   b);
+    }
+    int c = 0;  // sub-tiles issued so far
+    for (int j = 0; j < jend; ++j) {
+      if (keys_dead(j * SUB, j * SUB + SUB, q0, q_last, causal, window,
+                    prefix))
+        continue;
+      const int slot = c % kStages;
+      const uint32_t ph = ((c / kStages) & 1) ^ 1;
+      for (int kv = 0; kv < 2; ++kv) {  // the sub-tile's K, then its V
+        const CUtensorMap* map = kv ? &map_v : &map_k;
+        const uint32_t f = (kv ? full_v : full_k) + 8 * slot;
+        const uint32_t dst = (kv ? sV : sK) + slot * T::kStream;
+        tc::mbar_wait((kv ? empty_v : empty_k) + 8 * slot, ph);
+        tc::mbar_expect_tx(f, T::kStream);
+        for (int p = 0; p < NP; ++p)
+          tc::tma_load(dst + p * T::kSubPanel, map, f, p * kPanel, hk,
+                       j * SUB, b);
+      }
+      ++c;
+    }
+    return;
+  }
+
+  // ---- consumers: 64 query rows each ------------------------------------
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  const int g = tc::warpgroup();
+  const int w = (tid / 32) % 4, lane = tid % 32;
+  const int qlo = q0 + 64 * g;
+  const int qhi = min(qlo + 63, S - 1);
+  const bool rows_live = qlo < S;
+  const int row0 = qlo + 16 * w + lane / 4;  // this thread's rows: row0, +8
+  const int col0 = 2 * (lane % 4);           // its keys: 8 j + col0 (+1)
+  float lse2[2], Dr[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int r = row0 + 8 * hf;
+    const size_t at = ((size_t)b * H + h) * S + r;
+    lse2[hf] = r < S ? a.lse[at] * kLog2e : INFINITY;
+    Dr[hf] = r < S ? a.D[at] : 0.f;
+  }
+  const uint32_t qA = sQ + g * 64 * 128, oA = sO + g * 64 * 128;
+  float dq[NA];
+#pragma unroll
+  for (int i = 0; i < NA; ++i) dq[i] = 0.f;
+
+  tc::mbar_wait(bar_q, 0);
+  int c = 0;  // sub-tiles consumed so far
+  for (int j = 0; j < jend; ++j) {
+    const int k0 = j * SUB;
+    if (keys_dead(k0, k0 + SUB, q0, q_last, causal, window, prefix))
+      continue;
+    const int slot = c % kStages;
+    const uint32_t ph = (c / kStages) & 1;
+    const uint32_t tk = sK + slot * T::kStream, tv = sV + slot * T::kStream;
+    const bool live =
+        rows_live && !keys_dead(k0, k0 + SUB, qlo, qhi, causal, window,
+                                prefix);
+    tc::mbar_wait(full_k + 8 * slot, ph);
+    tc::mbar_wait(full_v + 8 * slot, ph);
+    if (live) {
+      const bool whole = k0 + SUB <= S &&
+                         keys_whole(k0, k0 + SUB, qlo, qlo + 63, causal,
+                                    window, prefix);
+      float s[NS], dp[NS];  // s = q K^T, then p; dp = dout V^T, then ds
+      uint32_t da[SUB / 16][4];  // ds as A fragments
+      tc::wgmma_fence();
+      issue_ss<HD, SUB>(s, qA, T::kTilePanel, tk, T::kSubPanel);
+      tc::wgmma_commit();
+      issue_ss<HD, SUB>(dp, oA, T::kTilePanel, tv, T::kSubPanel);
+      tc::wgmma_commit();
+      tc::wgmma_wait<1>();
+      tc::fence_regs(s);
+      // p = 2^(s scale log2 e - lse log2 e), 0 where masked or past S
+      // (while dp runs)
+#pragma unroll
+      for (int e = 0; e < NS; ++e)
+        s[e] = p_of<Shape<HD>::kFma>(s[e], c2, lse2[(e >> 1) & 1]);
+      if (!whole) {
+#pragma unroll
+        for (int e = 0; e < NS; ++e) {
+          const int row = row0 + ((e & 2) ? 8 : 0);
+          const int key = k0 + 8 * (e / 4) + col0 + (e & 1);
+          s[e] = key < S && keep(row, key, causal, window, prefix) ? s[e]
+                                                                   : 0.f;
+        }
+      }
+      tc::wgmma_wait<0>();
+      tc::fence_regs(dp);
+      if (lane == 0) tc::mbar_arrive(empty_v + 8 * slot);
+      // ds = p (dp - D); the scale goes on dq at the end
+#pragma unroll
+      for (int e = 0; e < NS; ++e) dp[e] = (dp[e] - Dr[(e >> 1) & 1]) * s[e];
+      to_frags<SUB / 8>(dp, da);
+      // dq += ds K
+      tc::fence_regs(dq);
+      tc::wgmma_fence();
+      issue_rs(dq, da, tk, T::kSubPanel);
+      tc::wgmma_commit();
+      tc::wgmma_wait<0>();
+      tc::fence_regs(dq);
+      fence_frags(da);
+    } else if (lane == 0) {
+      tc::mbar_arrive(empty_v + 8 * slot);
+    }
+    if (lane == 0) tc::mbar_arrive(empty_k + 8 * slot);
+    ++c;
+  }
+
+  const size_t rowq = (size_t)H * HD;
+  store_rows<HD>(dq, (bf16*)a.dq + (size_t)b * S * rowq + (size_t)h * HD,
+                 rowq, row0, col0, S, a.scale);
+}
+
+// the dk/dv kernel, then the dq kernel; each reads its operands through
+// four tensor maps (boxes of 128 rows for its resident tiles, of its
+// streamed tiles' rows for the others)
+template <int HD>
+int launch(const BwdArgs& a, cudaStream_t st) {
+  constexpr int SKV = Shape<HD>::kSubKV, SQ = Shape<HD>::kSubQ;
+  using TKV = Smem<HD, SKV>;
+  using TQ = Smem<HD, SQ>;
+  const long long tiles = (a.S + kTile - 1) / kTile;
+  const long long nkv = tiles * a.Hkv * a.B, nq = tiles * a.H * a.B;
+  if (nkv > 0x7fffffffLL || nq > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const float c2 = (float)(1.0 / sqrt((double)HD) * 1.4426950408889634);
+  CUtensorMap m0, m1, m2, m3;
+  if (!tc::encode(&m0, a.k, a.B, a.S, a.Hkv, HD, kTile) ||
+      !tc::encode(&m1, a.v, a.B, a.S, a.Hkv, HD, kTile) ||
+      !tc::encode(&m2, a.q, a.B, a.S, a.H, HD, SKV) ||
+      !tc::encode(&m3, a.dout, a.B, a.S, a.H, HD, SKV))
+    return (int)cudaErrorInvalidValue;
+  auto dkdv = flash_attention_bwd_dkdv_wgmma<HD>;
+  cudaError_t err = cudaFuncSetAttribute(
+      dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)TKV::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  dkdv<<<(unsigned)nkv, kThreads, TKV::kSmem, st>>>(m0, m1, m2, m3, a, c2);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if (!tc::encode(&m0, a.q, a.B, a.S, a.H, HD, kTile) ||
+      !tc::encode(&m1, a.dout, a.B, a.S, a.H, HD, kTile) ||
+      !tc::encode(&m2, a.k, a.B, a.S, a.Hkv, HD, SQ) ||
+      !tc::encode(&m3, a.v, a.B, a.S, a.Hkv, HD, SQ))
+    return (int)cudaErrorInvalidValue;
+  auto dq = flash_attention_bwd_dq_wgmma<HD>;
+  err = cudaFuncSetAttribute(dq, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)TQ::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  dq<<<(unsigned)nq, kThreads, TQ::kSmem, st>>>(m0, m1, m2, m3, a, c2);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace wg
 
 // ---------------------------------------------------------------------------
 // f32: CUDA cores
@@ -834,14 +1433,10 @@ int launch_kernel(K kern, unsigned grid, int threads, size_t smem,
   return (int)cudaGetLastError();
 }
 
-// bf16: query tiles of 64 rows up to head dim 32 and of 32 above; at head
-// dim 256 two warps to each 16 keys; the dq kernel's key tiles of 64, 32 at
-// head dim 256
-template <int HD>
-int launch_bf16(const BwdArgs& a, cudaStream_t st) {
-  constexpr int BR = HD <= 32 ? 64 : 32;
-  constexpr int NSPLIT = HD > 128 ? 2 : 1;
-  constexpr int BC = HD > 128 ? 32 : 64;
+// bf16 at head dim 256 (mma.sync): query tiles of 32 rows and two warps to
+// each 16 keys in the dk/dv kernel, key tiles of 32 in the dq kernel
+int launch_bf16_256(const BwdArgs& a, cudaStream_t st) {
+  constexpr int HD = 256, BR = 32, NSPLIT = 2, BC = 32;
   using KV = Dkdv<HD, BR, NSPLIT>;
   using Q = Dq<HD, BC>;
   const long long nkv =
@@ -887,7 +1482,7 @@ int launch_dot(const BwdArgs& a, int hd, cudaStream_t st) {
 template <bool TC>
 int launch_hd(const BwdArgs& a, int hd, cudaStream_t st) {
 #define FA_BWD_LAUNCH(HD) \
-  return TC ? launch_bf16<HD>(a, st) : launch_f32<HD>(a, st)
+  return TC ? wg::launch<HD>(a, st) : launch_f32<HD>(a, st)
   switch (hd) {
     case 16:
       FA_BWD_LAUNCH(16);
@@ -900,7 +1495,7 @@ int launch_hd(const BwdArgs& a, int hd, cudaStream_t st) {
     case 128:
       FA_BWD_LAUNCH(128);
     case 256:
-      FA_BWD_LAUNCH(256);
+      return TC ? launch_bf16_256(a, st) : launch_f32<256>(a, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -43,8 +43,8 @@ backward kernel (no ``custom_vjp``): its training differentiates the jnp
 attention with XLA. The port's backward is its own kernel,
 :func:`flash_attention_bshd_bwd` (``csrc/flash_attention_bwd.cu``): dq,
 dk and dv from the log-sum-exp the forward saved, bf16 on the tensor
-cores (``mma.sync``), f32 on the CUDA cores, no atomics (bit for bit from
-run to run). Its plain version, :func:`flash_attention_bshd_bwd_ref`,
+cores (``wgmma`` with TMA-fed rings up to head dim 128, ``mma.sync`` at
+256), f32 on the CUDA cores, no atomics (bit for bit from run to run). Its plain version, :func:`flash_attention_bshd_bwd_ref`,
 computes the same key block by key block in f32 PyTorch operations, as
 XLA's transpose does.
 """

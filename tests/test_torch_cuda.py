@@ -1688,7 +1688,10 @@ def test_flash_attention_grad_on_card_matches_plain(dev, dtype, B, S, H, Hkv,
 
 
 # (B, S, H, Hkv, hd, causal, window, prefix, blk): the four above, a
-# ragged S at head dims 96 and 128, and no causal mask
+# ragged S at head dims 96 and 128, and no causal mask; then the edges of
+# the wgmma kernels' 128-key and 128-row tiles: S past one tile and not a
+# multiple of it, S below 64, hymba's group of 5 with a window that crosses
+# a key tile, a prefix longer than a key tile, head dim 96 causal with GQA
 K6_BWD_LAYOUTS = [
     (1, 128, 4, 2, 16, True, 0, 0, 128),
     (2, 256, 2, 1, 256, True, 0, 256, 128),
@@ -1697,6 +1700,11 @@ K6_BWD_LAYOUTS = [
     (2, 100, 3, 1, 96, True, 0, 0, 128),
     (1, 200, 4, 2, 128, True, 37, 0, 40),
     (1, 192, 2, 1, 32, False, 0, 9, 64),
+    (2, 320, 4, 2, 64, True, 0, 0, 64),
+    (2, 40, 2, 1, 64, False, 0, 0, 40),
+    (1, 512, 25, 5, 64, True, 200, 0, 128),
+    (1, 384, 4, 2, 64, True, 0, 160, 128),
+    (2, 256, 6, 2, 96, True, 0, 0, 128),
 ]
 
 
@@ -1782,14 +1790,20 @@ def test_flash_attention_bwd_refuses_before_a_launch(dev):
 
 def test_flash_attention_bwd_kernels_spill_nothing(dev):
     """ptxas spills none of the registers of the backward's bf16 kernels
-    (dk/dv and dq at head dims 16/32/64/96/128/256) or of its pre-pass."""
+    (the wgmma dk/dv and dq kernels at head dims 16/32/64/96/128, the
+    mma.sync ones at 256) or of its pre-pass."""
     K.library()
     props = re.findall(
-        r"Function properties for (\S*flash_attention_bwd_(?:dkdv|dq|dot)I"
-        r"\S*)\n\s*(\d+) bytes stack frame, (\d+) bytes spill stores, "
-        r"(\d+) bytes spill loads", K.BUILD["log"])
-    assert len(props) == 14, "dk/dv and dq per head dim, two pre-passes"
-    for name, _, stores, loads in props:
+        r"Function properties for (\S*flash_attention_bwd_(dkdv_wgmma|"
+        r"dq_wgmma|dkdv|dq|dot)I\S*)\n\s*(\d+) bytes stack frame, "
+        r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+        K.BUILD["log"])
+    counts = {}
+    for _, kind, _, _, _ in props:
+        counts[kind] = counts.get(kind, 0) + 1
+    assert counts == {"dkdv_wgmma": 5, "dq_wgmma": 5, "dkdv": 1, "dq": 1,
+                      "dot": 2}, counts
+    for name, _, _, stores, loads in props:
         assert (stores, loads) == ("0", "0"), f"{name} spills"
 
 
