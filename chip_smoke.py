@@ -47,10 +47,12 @@ drives the port (never JAX, never ``repro``):
    against its plain version (the reverse token loop) at hymba-1.5b's
    training layout (B 4, S 4096, 25 heads of 64, N 16) and at an odd one
    (head dim 16, N 8, S 1001), from a non-zero h0 and g_hout, two calls
-   bit for bit, timed beside its bound; K7's backward (PyTorch
-   operations) against autograd through K7's plain version at rwkv6-3b's
-   layout (B 1, S 4096, 40 heads of 64), its time and the plain
-   version's;
+   bit for bit, timed beside its bound; K7's backward kernel against its
+   plain version and against autograd through K7's plain version at
+   rwkv6-3b's training layout (B 4, T 4096, 40 heads of 64, chunk 128,
+   u (H, hd)) and at an odd one (head dim 128 at chunk 64, u (B, H, hd)),
+   both with a non-zero gS, two calls bit for bit, timed beside its bound
+   and the plain version's time, and split by its three launches;
 4. the quickstart path through ``examples_torch/quickstart.py``:
    ``run_workload`` of static17, crisp, pcstall and oracle on ``comd``
    for 600 epochs, with the fused epoch kernel's
@@ -161,10 +163,9 @@ drives the port (never JAX, never ``repro``):
     within 1.0 of ln V, finite grad norms, every parameter moved, per
     layer and microbatch K6 and K8 twice and K6's and K8's backwards once
     (hymba)
-    or K7 twice (rwkv), step seconds, tokens/s and peak memory, and one
-    step's device time by class (K6, the attention backward, K7, K7's
-    backward by its ``rwkv_chunk.bwd`` range, K8, K8's backward, GEMMs,
-    the rest);
+    or K7 twice and its backward once (rwkv), step seconds, tokens/s and
+    peak memory, and one step's device time by class (K6, the attention
+    backward, K7, K7's backward, K8, K8's backward, GEMMs, the rest);
 then the kernel summary. Each phase prints the seconds since the start.
 
 Prints a ``{"kernels": [...]}`` line, the card line, and as the last line
@@ -230,12 +231,12 @@ from repro_torch.kernels import pc_table as KPT  # noqa: E402
 from repro_torch.kernels import ref as REF  # noqa: E402
 # each kernel's work and the H100's data-sheet peaks (the roofline bound
 # of each kernel)
-from repro_torch.roofline.work import (HBM_BW, PEAK_FLOPS_BF16,  # noqa: E402
+from repro_torch.roofline.work import (PEAK_FLOPS_BF16,  # noqa: E402
                                        PEAK_FLOPS_F32, attention_bwd_flops,
                                        attention_flops, bound_ms,
                                        epoch_flops, fork_flops, nbytes,
-                                       rwkv_flops, scan_bwd_flops,
-                                       scan_flops)
+                                       rwkv_bwd_flops, rwkv_flops,
+                                       scan_bwd_flops, scan_flops)
 
 # main-path shapes (SimConfig defaults)
 CU, WF, NF, T_TABLES, ENTRIES, P = 64, 40, 10, 64, 128, 1024
@@ -420,12 +421,19 @@ K8_BWD_ROW = "ssm_scan_bwd"
 K8_BWD_LAYOUTS = {"hymba-1.5b train": (4, 4096, 25, 64, 16),
                   "odd": (2, 1001, 3, 16, 8)}
 K8_BWD_TOL = (1e-5, 1e-4)
-# K7's backward (PyTorch operations in f32) at rwkv6-3b's layout, (B, T,
-# H, hd), against autograd through the plain version: each gradient to
-# 1e-4 of its largest magnitude (products over the chunk and sums over the
-# chunks in other orders; TF32 off)
-K7_BWD_LAYOUT = (1, 4096, 40, 64)
+# K7's backward kernel against its plain version and against autograd
+# through K7's plain version, (B, T, H, hd, chunk, u per batch row):
+# rwkv6-3b's training microbatch (4 x 4096, 40 heads of 64, chunk 128, u
+# (H, hd)) and an odd layout (head dim 128 at chunk 64, u (B, H, hd), four
+# chunks), both with a non-zero gS; each gradient to 1e-4 of its largest
+# magnitude (products in three TF32 terms, and sums over the chunk and
+# the chunks in other orders; TF32 off in the plain versions)
+K7_BWD_ROW = "rwkv_chunked_bwd"
+K7_BWD_LAYOUTS = {"rwkv6-3b train": (4, 4096, 40, 64, 128, False),
+                  "odd": (2, 256, 3, 128, 64, True)}
 K7_BWD_TOL = 1e-4
+K7_BWD_KERNELS = ("rwkv_chunk_bwd_increments", "rwkv_chunk_bwd_chains",
+                  "rwkv_chunk_bwd_grads")
 # granite-moe-1b-a400m through make_train_step: 2 steps at 4 x 2048
 MOE_TRAIN_ARCH = "granite-moe-1b-a400m"
 MOE_TRAIN_SHAPE = ShapeConfig("train_moe", 2048, 4, "train")
@@ -759,6 +767,7 @@ def reset_lm_counts():
     FA.flash_attention_bshd.launches = 0
     FA.flash_attention_bshd_bwd.launches = 0
     RC.rwkv_chunked_bthd.launches = 0
+    RC.rwkv_chunked_bthd_bwd.launches = 0
     SS.ssm_scan.launches = 0
     SS.ssm_scan_bwd.launches = 0
     MOE.moe_layer.dropped = 0
@@ -773,7 +782,8 @@ def kernel_split(fn, reps=1):
     inside the ``moe.experts`` or the ``moe.dispatch`` / ``moe.combine``
     profiler ranges), K6's backward (its kernels by name, and what its
     plain version launches inside ``flash_attention.bwd``),
-    K7's backward (inside ``rwkv_chunk.bwd``), the other matrix products,
+    K7's backward (its kernels by name, and what its plain version
+    launches inside ``rwkv_chunk.bwd``), the other matrix products,
     and the rest. None if it reports no device time.
 
     It reads the profiler's raw events (``kineto_results``): building
@@ -797,7 +807,8 @@ def kernel_split(fn, reps=1):
              "moe.combine": "dispatch/combine",
              "flash_attention.bwd": "attn_bwd", "rwkv_chunk.bwd": "K7_bwd"}
     own = {"flash_attention_kernel": "K6", "flash_attention_bwd": "attn_bwd",
-           "rwkv_chunk_kernel": "K7", "ssm_scan_kernel": "K8",
+           "rwkv_chunk_kernel": "K7", "rwkv_chunk_bwd_": "K7_bwd",
+           "ssm_scan_kernel": "K8",
            "ssm_scan_bwd_kernel": "K8_bwd"}
     ops, ranges, kernels = {}, {}, []
     for ev in prof.profiler.kineto_results.events():
@@ -826,7 +837,7 @@ def kernel_split(fn, reps=1):
             return ranges[t][i][2]
         return None
 
-    # the card's work by name; K6-K8 and the K6 and K8 backwards are
+    # the card's work by name; K6-K8 and their backwards are
     # launched through ctypes, so no operator of torch's owns them, and the
     # rest by the operator (and its profiler range) that launched it; what
     # no operator launched besides them (K7's memset) is the rest
@@ -1616,52 +1627,88 @@ def k8_bwd_rows(dev, card, rows) -> None:
         torch.cuda.empty_cache()
 
 
-def k7_bwd_check(dev, card) -> None:
-    """K7's backward (``rwkv_chunked_bthd_bwd``, PyTorch operations in f32)
-    at rwkv6-3b's layout against autograd through the plain version, and
-    its time per call (events)."""
-    B, T, H, hd = K7_BWD_LAYOUT
-    rng = np.random.default_rng(70)
-    r, k, v, gy = (torch.as_tensor(rng.standard_normal((B, T, H, hd)).astype(
-        np.float32) * 0.5).to(dev) for _ in range(4))
-    w = torch.as_tensor(rng.uniform(0.6, 0.999, (B, T, H, hd)).astype(
-        np.float32)).to(dev)
-    u = torch.as_tensor(rng.standard_normal((H, hd)).astype(
-        np.float32) * 0.1).to(dev)
-    got = RC.rwkv_chunked_bthd_bwd(r, k, v, w, u, gy)
-    ins = [t.clone().requires_grad_() for t in (r, k, v, w, u)]
-    # the plain version (its forward and autograd), timed by the events
-    # around its one call
-    want = []
-    plain_ms = time_events(lambda: want.extend(torch.autograd.grad(
-        RC.rwkv_chunked_bthd_ref(*ins), ins, gy)), reps=1, warm=0)
-    torch.cuda.synchronize()
-    for name, g, wt in zip("rkvwu", got, want):
-        err = float((g - wt).abs().max() / wt.abs().max())
-        check(g.shape == wt.shape and err < K7_BWD_TOL,
-              f"K7 backward d{name} at rwkv6-3b's layout (B {B} T {T} H {H}"
-              f" hd {hd}, f32) against autograd through the plain version: "
-              f"{err:.3e} of its largest magnitude (limit {K7_BWD_TOL})")
-    del want, ins
-    ms = time_events(lambda: RC.rwkv_chunked_bthd_bwd(r, k, v, w, u, gy),
-                     reps=10, warm=2)
-    nb = nbytes(r, k, v, w, u, gy, *got)
-    print(f"time K7 backward (rwkv_chunked_bthd_bwd, PyTorch operations in "
-          f"f32) at rwkv6-3b's layout (B {B} T {T} H {H} hd {hd}): {ms:.3f} "
-          f"ms per call (events), autograd through the plain version "
-          f"{plain_ms:.3f} ms; bytes of its operands and gradients "
-          f"{nb / 1e6:.1f} MB, {nb / HBM_BW * 1e3:.4f} ms at "
-          f"3.35 TB/s, on {card}", flush=True)
-    del r, k, v, w, u, gy, got
-    torch.cuda.empty_cache()
+def k7_bwd_rows(dev, card, rows) -> None:
+    """K7's backward kernel (``rwkv_chunked_bthd_bwd``) at
+    ``K7_BWD_LAYOUTS`` against its plain version
+    (``rwkv_chunked_bthd_bwd_ref``) and against autograd through K7's plain
+    version, every gradient; two calls bit for bit; at rwkv6-3b's training
+    microbatch its device time beside its bound and the plain version's,
+    and its split by launch."""
+    row = rows[K7_BWD_ROW] = dict(max_abs_err=0.0)
+    for i, (key, (B, T, H, hd, C, u_b)) in enumerate(
+            K7_BWD_LAYOUTS.items()):
+        rng = np.random.default_rng(70 + i)
+
+        def f32(a):
+            return torch.as_tensor(a.astype(np.float32)).to(dev)
+        r, k, v, gy = (f32(rng.standard_normal((B, T, H, hd)) * 0.5)
+                       for _ in range(4))
+        w = f32(rng.uniform(0.6, 0.999, (B, T, H, hd)))
+        u = f32(rng.standard_normal((B, H, hd) if u_b else (H, hd)) * 0.1)
+        gS = f32(rng.standard_normal((B, H, hd, hd)) * 0.1)
+        args = (r, k, v, w, u, gy, gS)
+        got = RC.rwkv_chunked_bthd_bwd(*args, chunk=C)
+        again = RC.rwkv_chunked_bthd_bwd(*args, chunk=C)
+        tag = (f"{K7_BWD_ROW}[{key}: B {B} T {T} H {H} hd {hd} C {C}, u "
+               f"{tuple(u.shape)}]")
+        # the plain version, timed by the events around its one call
+        want = []
+        plain_ms = time_events(lambda: want.append(
+            RC.rwkv_chunked_bthd_bwd_ref(*args, chunk=C)), reps=1, warm=0)
+        want = want[0]
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"{tag}: two calls bitwise equal")
+        for name, g, wt in zip("rkvwu", got, want):
+            err = float((g - wt).abs().max() / wt.abs().max())
+            row["max_abs_err"] = max(row["max_abs_err"],
+                                     float((g - wt).abs().max()))
+            check(g.shape == wt.shape and err < K7_BWD_TOL,
+                  f"{tag}.d{name} against the plain version: {err:.3e} of "
+                  f"its largest magnitude (limit {K7_BWD_TOL})")
+        del want, again
+        ins = [t.clone().requires_grad_() for t in args[:5]]
+        y, S = RC.rwkv_chunked_bthd_ref(*ins, chunk=C, return_state=True)
+        want = torch.autograd.grad((y, S), ins, (gy, gS))
+        del y, S, ins
+        for name, g, wt in zip("rkvwu", got, want):
+            err = float((g - wt).abs().max() / wt.abs().max())
+            check(g.shape == wt.shape and err < K7_BWD_TOL,
+                  f"{tag}.d{name} against autograd through the plain "
+                  f"version: {err:.3e} of its largest magnitude (limit "
+                  f"{K7_BWD_TOL})")
+        del want
+        if i == 0:
+            row["nbytes"] = nbytes(*args, *got)
+            row["ops"] = rwkv_bwd_flops(B * H, T, hd)
+            row["bound_ms"], row["bound_by"] = bound_ms(row["nbytes"],
+                                                        row["ops"])
+            row["ms"] = device_ms(lambda: RC.rwkv_chunked_bthd_bwd(
+                *args, chunk=C), K7_BWD_ROW, reps=20)
+            row["plain_ms"] = plain_ms
+            split = DT.kernel_means(lambda: RC.rwkv_chunked_bthd_bwd(
+                *args, chunk=C), K7_BWD_KERNELS, reps=20)
+            if row["ms"] is not None:
+                print(f"time {tag}: device {row['ms']:.4f} ms per call, "
+                      f"plain {row['plain_ms']:.3f} ms, bound "
+                      f"{row['bound_ms']:.4f} ms ({row['bound_by']}; "
+                      f"{row['nbytes'] / 1e9:.3f} GB, "
+                      f"{row['ops'] / 1e9:.2f} GFLOP), "
+                      f"{row['ms'] / row['bound_ms']:.2f}x; by launch "
+                      + ", ".join(f"{n} {m:.4f} ms ({c} records)"
+                                  for n, (m, c) in split.items()
+                                  if m is not None)
+                      + f" on {card}", flush=True)
+        del args, got, r, k, v, w, u, gy, gS
+        torch.cuda.empty_cache()
 
 
 def scan_train_phase(dev, card, rows) -> None:
     """hymba-1.5b and rwkv6-3b at full width through ``launch.train.train``
     (8 x 4096 tokens a step in 2 microbatches, 2 steps, DVFS on, no
-    checkpoint): ``run_train``'s checks, every parameter moved, K6 / K7 /
-    K8 / K8-backward launches per layer and microbatch, and one step's
-    device time by class."""
+    checkpoint): ``run_train``'s checks, every parameter moved, K6 / K6
+    backward / K7 / K7 backward / K8 / K8 backward launches per layer and
+    microbatch, and one step's device time by class."""
     for arch in SCAN_TRAIN_ARCHS:
         cfg = get_config(arch)
         mb, steps = SCAN_TRAIN_MB, SCAN_TRAIN_STEPS
@@ -1676,17 +1723,22 @@ def scan_train_phase(dev, card, rows) -> None:
                                      save_final=False)
         got = (FA.flash_attention_bshd.launches,
                FA.flash_attention_bshd_bwd.launches,
-               RC.rwkv_chunked_bthd.launches, SS.ssm_scan.launches,
+               RC.rwkv_chunked_bthd.launches,
+               RC.rwkv_chunked_bthd_bwd.launches, SS.ssm_scan.launches,
                SS.ssm_scan_bwd.launches)
         want = tuple(steps * cfg.n_layers * mb * n for n in (
-            (2, 1, 0, 2, 1) if cfg.family == "hybrid" else (0, 0, 2, 0, 0)))
+            (2, 1, 0, 0, 2, 1) if cfg.family == "hybrid"
+            else (0, 0, 2, 1, 0, 0)))
         check(got == want,
               f"train {arch}: launches K6 {got[0]}, K6 backward {got[1]}, K7 "
-              f"{got[2]}, K8 {got[3]}, K8 backward {got[4]} == {want} "
-              f"({steps} steps x {cfg.n_layers} layers x {mb} microbatches x "
-              f"(forward and recompute; the backwards once))")
+              f"{got[2]}, K7 backward {got[3]}, K8 {got[4]}, K8 backward "
+              f"{got[5]} == {want} ({steps} steps x {cfg.n_layers} layers x "
+              f"{mb} microbatches x (forward and recompute; the backwards "
+              f"once))")
         if cfg.family == "hybrid":
-            rows[K8_BWD_ROW]["launches"] = got[4]
+            rows[K8_BWD_ROW]["launches"] = got[5]
+        else:
+            rows[K7_BWD_ROW]["launches"] = got[3]
         moved_check(cfg, state, LM.init_params(cfg, tc.seed, dev))
         torch.cuda.empty_cache()
         step_split(cfg, tc, state, mean_s, dev, card)
@@ -1718,6 +1770,11 @@ def main() -> int:
                        r"ELi(\d+)E", line)
         if k8:
             print(f"  ssm_scan_kernel<hd {k8.group(1)}, N {k8.group(2)}>")
+            continue
+        k7b = re.search(r"Function properties for .*?(rwkv_chunk_bwd_"
+                        r"(?:increments|chains|grads))ILi(\d+)E", line)
+        if k7b:
+            print(f"  {k7b.group(1)}<hd {k7b.group(2)}>")
             continue
         kb = re.search(r"Function properties for .*?(flash_attention_bwd_"
                        r"(?:dkdv_wgmma|dq_wgmma|dkdv_f32|dq_f32|dkdv|dq|"
@@ -2289,10 +2346,9 @@ def main() -> int:
               f" us (events) on {card}", flush=True)
     del k6_in, k8_in, y1, y2, S1, S2
     torch.cuda.empty_cache()
-    # K8's backward against its plain version and timed; K7's backward
-    # (PyTorch operations) against autograd through K7's plain version
+    # K8's and K7's backward kernels against their plain versions, timed
     k8_bwd_rows(dev, card, rows)
-    k7_bwd_check(dev, card)
+    k7_bwd_rows(dev, card, rows)
 
     # ---- 4. the quickstart path -------------------------------------------
     mark("4")
@@ -2846,6 +2902,10 @@ def main() -> int:
         # its backward, XLA's transpose of that scan
         "ssm_scan": "src/repro/models/ssm.py:16",
         K8_BWD_ROW: "src/repro/models/ssm.py:16",
+        # K7's backward replaces no TPU kernel: the reference's Pallas K7
+        # has no backward, and its gradient is XLA's transpose of the
+        # chunked time mix
+        K7_BWD_ROW: "src/repro/models/rwkv.py:77",
         # K6's backward replaces no TPU kernel: XLA's transpose of the
         # reference's jnp attention
         K6_BWD_ROW: "src/repro/models/layers.py:122",
@@ -2861,6 +2921,7 @@ def main() -> int:
         rwkv_chunked="src/repro_torch/kernels/csrc/rwkv_chunk.cu",
         ssm_scan="src/repro_torch/kernels/csrc/ssm_scan.cu",
         ssm_scan_bwd="src/repro_torch/kernels/csrc/ssm_scan_bwd.cu",
+        rwkv_chunked_bwd="src/repro_torch/kernels/csrc/rwkv_chunk_bwd.cu",
         **{K6_BWD_ROW: "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"},
         **{key: "src/repro_torch/kernels/csrc/flash_attention.cu"
            for key in [k for k, _ in K6_ROWS.values()] + [K6_TRAIN_ROW]})

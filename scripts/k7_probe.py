@@ -29,10 +29,24 @@ the shipped and traced kernels' max abs error against
 ``rwkv_chunked_bthd_ref``, the trace's mean SM cycles per phase, how many
 tiles found their predecessor's state unpublished, how many tiles were
 resident on average and the tail, and the card's name and power limit.
+
+    PYTHONPATH=src python3 scripts/k7_probe.py --ab OTHER_CSRC
+
+builds K7 (``rwkv_chunk.cu``) from this tree's ``csrc`` and from
+``OTHER_CSRC`` (another checkout's ``src/repro_torch/kernels/csrc``, a
+parent unpacked with ``git archive`` under ``build/``), prints the SASS
+digest of each one's ``rwkv_chunk_kernel`` instances (``cuobjdump``; equal
+where the two compile to the same machine code) and times both at the
+rwkv6-3b prefill in turns (this, other, other, this), with each one's max
+abs error against ``rwkv_chunked_bthd_ref``.
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
+import hashlib
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -43,6 +57,9 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
+
+sys.path.insert(0, str(ROOT / "scripts"))
+import devtime as DT  # noqa: E402
 
 from repro_torch import kernels as K  # noqa: E402
 from repro_torch.kernels import rwkv_chunk as RC  # noqa: E402
@@ -146,20 +163,26 @@ VARIANTS["trace"] = [
 ]
 
 
+# the sources a variant is built from: K7 and the headers it includes
+FILES = ("rwkv_chunk.cu", "tf32_mma.cuh", "common.cuh")
+
+
 def build(tmp: Path) -> dict:
-    src = (CSRC / "rwkv_chunk.cu").read_text()
+    srcs = {f: (CSRC / f).read_text() for f in FILES}
     procs = {}
     for name, edits in VARIANTS.items():
-        text = src
+        texts = dict(srcs)
         for old, new in edits:
-            if text.count(old) != 1:
+            # the first source (in FILES order) that holds the anchor once
+            f = next((f for f in FILES if texts[f].count(old) == 1), None)
+            if f is None:
                 raise RuntimeError(f"variant {name}: anchor not found once: "
                                    f"{old!r}")
-            text = text.replace(old, new)
+            texts[f] = texts[f].replace(old, new)
         d = tmp / name
         d.mkdir()
-        (d / "rwkv_chunk.cu").write_text(text)
-        (d / "common.cuh").write_text((CSRC / "common.cuh").read_text())
+        for f, t in texts.items():
+            (d / f).write_text(t)
         procs[name] = subprocess.Popen(
             [K._nvcc(), *K.NVCC_FLAGS, "-shared", "-o", str(d / "lib.so"),
              str(d / "rwkv_chunk.cu")],
@@ -213,7 +236,79 @@ def trace_report(read) -> None:
           f"{(g1 - g0).mean() / 1e3:.1f} us")
 
 
+def sass_digest(lib: Path) -> str | None:
+    """sha256 (16 hex digits) of the SASS of every ``rwkv_chunk_kernel``
+    instance in ``lib``, function by function in name order, or None
+    where cuobjdump is missing."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return None
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=600).stdout
+    funcs = [re.sub(r"_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "anon", f)
+             for f in re.split(r"\n\s*Function : ", text)
+             if f.lstrip().startswith("_Z")
+             and "rwkv_chunk_kernel" in f.split("\n", 1)[0]]
+    h = hashlib.sha256()
+    for f in sorted(funcs):
+        h.update(f.encode())
+    return f"{len(funcs)} kernels, {h.hexdigest()[:16]}"
+
+
+def ab(other: Path, dev, card, ins, want) -> int:
+    """K7 of this tree and of ``other`` (a csrc directory): SASS digests,
+    and times in turns at the rwkv6-3b prefill."""
+    r, k, v, w, u = ins
+    stream = torch.cuda.current_stream().cuda_stream
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        fns, digests = {}, {}
+        procs = {label: subprocess.Popen(
+            [K._nvcc(), *K.NVCC_FLAGS, "-shared", "-o",
+             str(Path(tmp) / f"{label}.so"), str(csrc / "rwkv_chunk.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for label, csrc in (("this", CSRC), ("other", other))}
+        for label, proc in procs.items():
+            out, _ = proc.communicate()
+            if proc.returncode:
+                raise RuntimeError(f"nvcc failed on {label}:\n{out}")
+            lib_path = Path(tmp) / f"{label}.so"
+            fn = ctypes.CDLL(str(lib_path)).rwkv_chunk_launch
+            fn.restype, fn.argtypes = K.SIGNATURES["rwkv_chunk_launch"]
+            fns[label] = fn
+            digests[label] = sass_digest(lib_path)
+        y = torch.empty_like(r)
+        S = torch.empty((B, H, HD, HD), dtype=torch.float32, device=dev)
+        work = torch.empty(1 + B * H, dtype=torch.int32, device=dev)
+
+        def run(label):
+            code = fns[label](r.data_ptr(), k.data_ptr(), v.data_ptr(),
+                              w.data_ptr(), u.data_ptr(), y.data_ptr(),
+                              S.data_ptr(), work.data_ptr(), B, T, H, HD,
+                              CH, 0, HD, stream)
+            if code:
+                raise RuntimeError(f"{label}: cuda error {code}")
+            return y
+        times = {"this": [], "other": []}
+        for label in ("this", "other", "other", "this"):
+            times[label].append(DT.device_ms(lambda: run(label), 50))
+        for label in ("this", "other"):
+            err = float((run(label) - want).abs().max())
+            print(f"k7_probe ab {label} ({CSRC if label == 'this' else other})"
+                  f": " + " / ".join(f"{t:.4f}" for t in times[label])
+                  + f" ms per call, max abs err {err:.3e}, SASS "
+                  f"{digests[label]} on {card}", flush=True)
+        same = digests["this"] == digests["other"]
+        print(f"k7_probe ab: the forward's SASS is "
+              f"{'the same' if same else 'not the same'} in the two trees",
+              flush=True)
+    return 0
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--ab", type=Path, help="another tree's csrc directory")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("k7_probe: needs a CUDA card", file=sys.stderr)
         return 2
@@ -229,6 +324,8 @@ def main() -> int:
     ins.append(rng.standard_normal((H, HD)).astype(np.float32) * 0.1)
     r, k, v, w, u = (torch.as_tensor(a).to(dev) for a in ins)
     want = RC.rwkv_chunked_bthd_ref(r, k, v, w, u, chunk=CH)
+    if args.ab:
+        return ab(args.ab.resolve(), dev, card, (r, k, v, w, u), want)
     stream = torch.cuda.current_stream().cuda_stream
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:

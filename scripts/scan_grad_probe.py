@@ -1,23 +1,36 @@
 """The gradients of K7 and K8 on one CUDA card, at the training layouts.
 
-    PYTHONPATH=src python3 scripts/scan_grad_probe.py [--train ARCH ...]
+    PYTHONPATH=src python3 scripts/scan_grad_probe.py [--train ARCH ...] [--trace]
 
-Prints nvcc's report for the K8 backward kernel (registers, spills,
-shared memory), then holds it against its plain version at hymba-1.5b's
-training layout (B 4, S 4096, 25 heads of 64, N 16, from a non-zero h0
-and g_hout), checks two calls bit for bit, and times it by
-``scripts/devtime.py`` beside its bound (bytes at 3.35e12 B/s); times
-the K7 backward (PyTorch operations) at rwkv6-3b's layout (B 1, S 4096,
-40 heads of 64) and holds it against autograd through the plain
-version. With ``--train`` it trains each named model at full width for
-``--steps`` steps of 8 x 4096 tokens in ``--microbatches`` microbatches
-through ``make_train_step`` and prints step seconds and peak memory.
+Prints nvcc's report for the K8 and K7 backward kernels (registers,
+spills, shared memory), then holds K8's against its plain version at
+hymba-1.5b's training layout (B 4, S 4096, 25 heads of 64, N 16, from a
+non-zero h0 and g_hout), checks two calls bit for bit, and times it by
+``scripts/devtime.py`` beside its bound (bytes at 3.35e12 B/s); holds
+K7's backward kernel against its plain version (PyTorch operations,
+``rwkv_chunked_bthd_bwd_ref``) and against autograd through K7's plain
+version at rwkv6-3b's training microbatch (B 4, T 4096, 40 heads of 64,
+chunk 128, with a gS), checks two calls bit for bit, and times the
+kernel on the card by ``scripts/devtime.py`` (the plain version by
+events over 5 calls) beside the kernel's bound (``roofline.work``), the
+kernel split by its three launches with torch.profiler. With ``--train``
+it trains each named model at full width for ``--steps`` steps of 8 x
+4096 tokens in ``--microbatches`` microbatches through
+``make_train_step`` and prints step seconds and peak memory. With
+``--trace`` it also builds a copy of ``csrc/rwkv_chunk_bwd.cu`` whose
+gradients kernel stamps thread 0's SM clock at each phase of every tile
+(the library's flags, into a temporary directory under ``build/``), runs
+it once at rwkv6-3b's training microbatch, and prints the mean SM cycles
+of each phase, how many tiles were resident at once and the tail.
 """
 from __future__ import annotations
 
 import argparse
+import ctypes
 import re
+import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -31,8 +44,10 @@ from repro_torch import kernels as K  # noqa: E402
 from repro_torch import no_tf32  # noqa: E402
 from repro_torch.kernels import rwkv_chunk as RC  # noqa: E402
 from repro_torch.kernels import ssm_scan as SS  # noqa: E402
+from repro_torch.roofline import work as W  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12
+SRC = Path(__file__).resolve().parents[1] / "src/repro_torch/kernels/csrc"
 
 
 def card() -> str:
@@ -78,7 +93,7 @@ def k8_bwd(dev, name):
 
 
 def k7_bwd(dev, name):
-    B, T, H, hd = 1, 4096, 40, 64
+    B, T, H, hd, C = 4, 4096, 40, 64, 128
     rng = np.random.default_rng(6)
     f = np.float32
     r, k, v, gy = (torch.as_tensor(rng.standard_normal(
@@ -86,16 +101,177 @@ def k7_bwd(dev, name):
     w = torch.as_tensor(rng.uniform(0.6, 0.999, (B, T, H, hd)).astype(
         f)).to(dev)
     u = torch.as_tensor(rng.standard_normal((H, hd)).astype(f) * .1).to(dev)
-    got = RC.rwkv_chunked_bthd_bwd(r, k, v, w, u, gy)
-    ins = [t.clone().requires_grad_() for t in (r, k, v, w, u)]
-    want = torch.autograd.grad(RC.rwkv_chunked_bthd_ref(*ins), ins, gy)
-    for n, g, wt in zip("rkvwu", got, want):
-        print(f"K7 bwd d{n}: {rel(g, wt):.3e} of its largest magnitude",
-              flush=True)
-    ms = DT.events_ms(lambda: RC.rwkv_chunked_bthd_bwd(r, k, v, w, u, gy),
-                      reps=10, warm=2)
-    print(f"K7 bwd at rwkv6-3b's layout (B {B} T {T} H {H} hd {hd}): "
-          f"{ms:.3f} ms per call (events) on {name}", flush=True)
+    gS = torch.as_tensor(rng.standard_normal((B, H, hd, hd)).astype(f)
+                         * .1).to(dev)
+    args = (r, k, v, w, u, gy, gS)
+    got = RC.rwkv_chunked_bthd_bwd(*args, chunk=C)
+    again = RC.rwkv_chunked_bthd_bwd(*args, chunk=C)
+    plain = RC.rwkv_chunked_bthd_bwd_ref(*args, chunk=C)
+    ins = [t.clone().requires_grad_() for t in args[:5]]
+    want = torch.autograd.grad(RC.rwkv_chunked_bthd_ref(
+        *ins, chunk=C, return_state=True), ins, (gy, gS))
+    for n, g, p, wt in zip("rkvwu", got, plain, want):
+        print(f"K7 bwd d{n}: {rel(g, p):.3e} of its largest magnitude "
+              f"against the plain version, {rel(g, wt):.3e} against "
+              f"autograd", flush=True)
+    print(f"K7 bwd two calls bitwise equal: "
+          f"{all(torch.equal(a, b) for a, b in zip(got, again))}")
+    del plain, want, ins, again
+
+    def kernel():
+        RC.rwkv_chunked_bthd_bwd(*args, chunk=C)
+    ms = DT.device_ms(kernel, 20)
+    # the plain version queues ~150 launches a call: events over 5 calls
+    plain_ms = DT.events_ms(
+        lambda: RC.rwkv_chunked_bthd_bwd_ref(*args, chunk=C), 5, 1)
+    nb = W.nbytes(*args, *got)
+    bound, by = W.bound_ms(nb, W.rwkv_bwd_flops(B * H, T, hd))
+    split = DT.kernel_means(kernel, ("rwkv_chunk_bwd_increments",
+                                     "rwkv_chunk_bwd_chains",
+                                     "rwkv_chunk_bwd_grads"), 20)
+    print(f"K7 bwd at rwkv6-3b's training microbatch (B {B} T {T} H {H} hd "
+          f"{hd} C {C}): kernel {ms} ms per call (device), plain version "
+          f"{plain_ms} ms, bound {bound:.4f} ms ({by}; {nb / 1e9:.3f} GB, "
+          f"{W.rwkv_bwd_flops(B * H, T, hd) / 1e9:.2f} GFLOP); by launch "
+          + ", ".join(f"{n} {m} ms ({c} records)"
+                      for n, (m, c) in split.items())
+          + f" on {name}", flush=True)
+
+
+# the gradients kernel's trace: thread 0's SM clock after each phase of a
+# tile (the anchor each stamp follows), then the global timer (ns) at the
+# tile's start and end and the SM id
+TRACE_PHASES = (
+    ("w, r, k, gy and S in",
+     "  cp_wait<2>();\n  __syncthreads();\n"),
+    ("prefix, diag, rP' and kD'",
+     "  __syncthreads();\n  load_rows<kThreads, HD>(s1, ld, v + base"),
+    ("A", "  cp_wait<1>();\n  __syncthreads();\n  float dv_acc"),
+    ("A^T gy (v in)", "  cp_wait<0>();\n  __syncthreads();\n  row_dots"),
+    ("ddiag and dA", "      // dA\n  __syncthreads();\n"),
+    ("gy S^T, dA kD', dA^T rP', staged",
+     "  __syncthreads();\n\n  // the prefix again"),
+    ("w, k and G in",
+     "  cp_wait<1>();\n  __syncthreads();\n  {\n    float lw"),
+    ("prefix again, kT", "  cp_wait<0>();\n  __syncthreads();\n  // dv +="),
+    ("kT G, v G^T, dv out, staged",
+     "back by other threads of this CTA\n  __syncthreads();\n"),
+    ("epilogue: dr, dk, sums", "    segU[seg * HD + col] = sumU;\n"
+     "    __syncthreads();\n"),
+    ("epilogue: dw", None))
+NPT = len(TRACE_PHASES) + 4
+
+
+def _stamp(k):
+    return (f"if (threadIdx.x == 0) k7b_trace[(size_t)blockIdx.x * {NPT} + "
+            f"{k}] = clock64();\n")
+
+
+def traced_source(tiles):
+    """The backward's source with the gradients kernel's stamps."""
+    src = (SRC / "rwkv_chunk_bwd.cu").read_text()
+    g = ("if (threadIdx.x == 0) {{ unsigned long long t; asm volatile("
+         "\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t)); k7b_trace[(size_t)"
+         "blockIdx.x * {n} + {k}] = t; }}\n")
+    edits = [("namespace {\n", "namespace {\n__device__ unsigned long long "
+              f"k7b_trace[{tiles * NPT}];\n"),
+             ("  const int col = tid % HD, seg = tid / HD, SL = Cp / NS, t0 "
+              "= seg * SL;\n",
+              "  const int col = tid % HD, seg = tid / HD, SL = Cp / NS, t0 "
+              "= seg * SL;\n" + _stamp(0) + g.format(n=NPT, k=NPT - 3)
+              + "if (threadIdx.x == 0) { unsigned sm; asm(\"mov.u32 %0, "
+              f"%%smid;\" : \"=r\"(sm)); k7b_trace[(size_t)blockIdx.x * "
+              f"{NPT} + {NPT - 1}] = sm; }}\n")]
+    for k, (_, anchor) in enumerate(TRACE_PHASES[:-1], start=1):
+        i = anchor.rindex("\n") + 1  # the stamp starts a line
+        edits.append((anchor, anchor[:i] + _stamp(k) + anchor[i:]))
+    end = ("        dw[o] = ww > 1e-38f ? dl / ww : 0.f;\n      }\n    }\n"
+           "  }\n")
+    edits.append((end, end + "  __syncthreads();\n" + _stamp(
+        len(TRACE_PHASES)) + g.format(n=NPT, k=NPT - 2)))
+    edits.append(('extern "C" int rwkv_chunk_bwd_launch(',
+                  'extern "C" int k7b_trace_read(void* dst) {\n  return (int)'
+                  'cudaMemcpyFromSymbol(dst, k7b_trace, sizeof(k7b_trace));\n'
+                  '}\n\nextern "C" int rwkv_chunk_bwd_launch('))
+    for old, new in edits:
+        if src.count(old) != 1:
+            raise RuntimeError(f"trace anchor not found once: {old!r}")
+        src = src.replace(old, new)
+    return src
+
+
+def k7_bwd_trace(dev, name):
+    B, T, H, hd, C = 4, 4096, 40, 64, 128
+    nc = T // C
+    tiles = B * H * nc
+    rng = np.random.default_rng(6)
+    f = np.float32
+    r, k, v, w, gy = (torch.as_tensor(a.astype(f)).to(dev) for a in (
+        *(rng.standard_normal((B, T, H, hd)) * 0.5 for _ in range(3)),
+        rng.uniform(0.6, 0.999, (B, T, H, hd)),
+        rng.standard_normal((B, T, H, hd))))
+    u = torch.as_tensor(rng.standard_normal((H, hd)).astype(f) * .1).to(dev)
+    ue = u.expand(B, H, hd)
+    root = Path(__file__).resolve().parents[1] / "build"
+    root.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        d = Path(tmp)
+        for h in SRC.glob("*.cuh"):
+            (d / h.name).write_text(h.read_text())
+        (d / "rwkv_chunk_bwd.cu").write_text(traced_source(tiles))
+        out = subprocess.run([K._nvcc(), *K.NVCC_FLAGS, "-shared", "-o",
+                              str(d / "lib.so"), str(d / "rwkv_chunk_bwd.cu")],
+                             capture_output=True, text=True)
+        if out.returncode:
+            raise RuntimeError(f"nvcc failed on the traced copy:\n"
+                               f"{out.stdout}{out.stderr}")
+        lib = ctypes.CDLL(str(d / "lib.so"))
+        fn = lib.rwkv_chunk_bwd_launch
+        fn.restype, fn.argtypes = K.SIGNATURES["rwkv_chunk_bwd_launch"]
+        lib.k7b_trace_read.restype = ctypes.c_int
+        lib.k7b_trace_read.argtypes = [ctypes.c_void_p]
+        outs = [torch.empty_like(r) for _ in range(4)]
+        du = torch.empty((B, H, nc, hd), device=dev)
+        states = torch.empty((2, B * H * nc, hd, hd), device=dev)
+        vecs = torch.empty((2, B * H * nc, hd), device=dev)
+
+        def run():
+            code = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                      ue.data_ptr(), gy.data_ptr(), None,
+                      *(t.data_ptr() for t in outs), du.data_ptr(),
+                      states[0].data_ptr(), states[1].data_ptr(),
+                      vecs[0].data_ptr(), vecs[1].data_ptr(), B, T, H, hd,
+                      C, ue.stride(0), ue.stride(1),
+                      torch.cuda.current_stream().cuda_stream)
+            if code:
+                raise RuntimeError(f"traced K7 backward: cuda error {code}")
+        run()
+        torch.cuda.synchronize()
+        want = RC.rwkv_chunked_bthd_bwd(r, k, v, w, u, gy)
+        errs = [rel(a, b) for a, b in zip(outs, want[:4])]
+        buf = np.zeros(tiles * NPT, np.uint64)
+        if lib.k7b_trace_read(buf.ctypes.data):
+            raise RuntimeError("k7b_trace_read failed")
+    t = buf.reshape(tiles, NPT).astype(np.float64)
+    n = len(TRACE_PHASES)
+    dt = np.diff(t[:, :n + 1], axis=1)
+    total = t[:, n] - t[:, 0]
+    print(f"K7 bwd trace of the gradients kernel at rwkv6-3b's training "
+          f"microbatch ({tiles} tiles; the traced copy against the "
+          f"shipped kernel, each gradient within "
+          f"{max(errs):.1e} of its largest magnitude): {total.mean():.0f} SM "
+          f"cycles a tile (median {np.median(total):.0f}, max "
+          f"{total.max():.0f}) on {name}", flush=True)
+    for i, (what, _) in enumerate(TRACE_PHASES):
+        print(f"  {what}: {dt[:, i].mean():.0f} cycles "
+              f"({dt[:, i].sum() / total.sum():.1%})", flush=True)
+    g0, g1 = t[:, NPT - 3], t[:, NPT - 2]
+    span = g1.max() - g0.min()
+    print(f"  global span {span / 1e3:.1f} us; mean tiles resident "
+          f"{(g1 - g0).sum() / span:.1f}; SMs used "
+          f"{len(np.unique(t[:, NPT - 1]))}; mean tile "
+          f"{(g1 - g0).mean() / 1e3:.2f} us; tail (last start to end) "
+          f"{(g1.max() - g0.max()) / 1e3:.1f} us", flush=True)
 
 
 def train(arch, steps, mb, dev, name):
@@ -131,6 +307,7 @@ def main():
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--microbatches", type=int, default=2)
     ap.add_argument("--only-train", action="store_true")
+    ap.add_argument("--trace", action="store_true")
     args = ap.parse_args()
     dev = torch.device("cuda", 0)
     name = card()
@@ -138,11 +315,14 @@ def main():
     no_tf32()
     K.library()
     log = K.BUILD["log"]
-    sec = log[log.index("== ssm_scan_bwd.cu"):]
-    print(re.split(r"\n== ", sec)[0], flush=True)
+    for src in ("ssm_scan_bwd.cu", "rwkv_chunk_bwd.cu"):
+        sec = log[log.index(f"== {src}"):]
+        print(re.split(r"\n== ", sec)[0], flush=True)
     if not args.only_train:
         k8_bwd(dev, name)
         k7_bwd(dev, name)
+    if args.trace:
+        k7_bwd_trace(dev, name)
     for arch in args.train:
         train(arch, args.steps, args.microbatches, dev, name)
 

@@ -1,6 +1,6 @@
 """Hand-written CUDA kernels of the port (sm_90a).
 
-Ten kernels, one shared library. The DVFS engine's hot path:
+Eleven kernels, one shared library. The DVFS engine's hot path:
 
 * ``pc_table.pc_table_predict`` / ``pc_table.pc_table_update`` — the PC
   table predict/update pair (``csrc/pc_table.cu``);
@@ -29,6 +29,12 @@ public wrappers):
   (``csrc/rwkv_chunk.cu``): persistent CTAs walk the (batch, head,
   chunk) tiles, the state carried from chunk to chunk through a chain of
   flags;
+* ``rwkv_chunk.rwkv_chunked_bthd_bwd`` — K7's backward
+  (``csrc/rwkv_chunk_bwd.cu``): each chunk's state increments, the state
+  and its gradient chained over the chunks, then each chunk's dr, dk, dv
+  and dw, every product in three TF32 terms on the tensor cores (the
+  helpers shared with K7 in ``csrc/tf32_mma.cuh``), no float atomics. It
+  replaces no TPU kernel (the reference's gradient is XLA's);
 * ``ssm_scan.ssm_scan`` — K8, the selective scan of the hybrid family's
   mamba heads (``csrc/ssm_scan.cu``): one CTA per (batch, head), one
   thread per channel, tiles of tokens staged in shared memory. It
@@ -82,6 +88,7 @@ SIGNATURES = {
     "flash_attention_launch": (_CI, [_VP] * 5 + [_CI] * 10 + [_VP]),
     "flash_attention_bwd_launch": (_CI, [_VP] * 10 + [_CI] * 9 + [_VP]),
     "rwkv_chunk_launch": (_CI, [_VP] * 8 + [_CI] * 7 + [_VP]),
+    "rwkv_chunk_bwd_launch": (_CI, [_VP] * 16 + [_CI] * 7 + [_VP]),
     "ssm_scan_launch": (_CI, [_VP] * 8 + [_CI] * 5 + [_VP]),
     "ssm_scan_bwd_launch": (_CI, [_VP] * 15 + [_CI] * 5 + [_VP]),
     "repro_error_string": (ctypes.c_char_p, [_CI]),

@@ -61,6 +61,7 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "tf32_mma.cuh"
 
 namespace {
 
@@ -97,20 +98,6 @@ struct Layout {
   }
 };
 
-__device__ __forceinline__ void cp16(float* dst, const float* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   (unsigned)__cvta_generic_to_shared(dst)),
-               "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 __device__ __forceinline__ int load_acquire(const int* p) {
   int v;
   asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n"
@@ -123,104 +110,6 @@ __device__ __forceinline__ void add_release(int* p, int v) {
   asm volatile("red.release.gpu.global.add.s32 [%0], %1;\n" ::"l"(p),
                "r"(v)
                : "memory");
-}
-
-// C rows of one (batch, head) chunk into Cp padded rows of ``ld`` floats:
-// cp.async for rows < C, ``pad`` in the rest. Each thread copies one
-// 16-byte column of every (kThreads / (HD / 4))-th row.
-template <int HD>
-__device__ __forceinline__ void load_rows(float* dst, int ld,
-                                          const float* src, size_t st, int C,
-                                          int Cp, float pad) {
-  constexpr int Q = HD / 4, STEP = kThreads / Q;
-  const int q = threadIdx.x % Q;
-  int t = threadIdx.x / Q;
-  dst += t * ld + 4 * q;
-  src += t * st + 4 * q;
-  for (; t < Cp; t += STEP, dst += STEP * ld, src += STEP * st) {
-    if (t < C)
-      cp16(dst, src);
-    else
-      *reinterpret_cast<float4*>(dst) = make_float4(pad, pad, pad, pad);
-  }
-}
-
-__device__ __forceinline__ float2 ld2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-
-// x = hi + lo, each a TF32 value: hi rounded to nearest (ties away), lo
-// the exact rest cut to TF32. A product in three TF32 terms keeps about 21
-// bits. Integer and float operations: cvt.rna.tf32.f32 does the same
-// rounding at a fraction of their rate.
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// acc[n] += A (16 x K) B (K x 8 NT columns) on the tensor cores, each
-// product as a_lo b_hi + a_hi b_lo + a_hi b_hi (the lo x lo term dropped).
-// A_ROWS: A row-major at P (16 rows, k along a row), else P holds A^T (K
-// rows of 16). B_ROWS: B^T row-major at Q (8 NT rows), else Q holds B (K
-// rows of 8 NT). Only the first nt column tiles are computed. The m16n8k8
-// fragments' k index t / t + 4 (t = lane % 4) reads k0 + 2t / k0 + 2t + 1
-// of both operands: the same sum, and a float2 load along a row, or four
-// rows 8 banks apart down a column.
-template <int NT, bool A_ROWS, bool B_ROWS>
-__device__ __forceinline__ void warp_mma(float (&acc)[NT][4], const float* P,
-                                         int ldp, const float* Q, int ldq,
-                                         int K, int nt = NT) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t2 = 2 * (lane & 3);
-#pragma unroll 1
-  for (int k0 = 0; k0 < K; k0 += 8) {
-    float a[4];
-    if (A_ROWS) {
-      const float2 x = ld2(P + g * ldp + k0 + t2),
-                   z = ld2(P + (g + 8) * ldp + k0 + t2);
-      a[0] = x.x, a[1] = z.x, a[2] = x.y, a[3] = z.y;
-    } else {
-      const float* p = P + (k0 + t2) * ldp + g;
-      a[0] = p[0], a[1] = p[8], a[2] = p[ldp], a[3] = p[ldp + 8];
-    }
-    uint32_t ah[4], al[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) split(a[i], ah[i], al[i]);
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      if (n >= nt) break;
-      float b0, b1;
-      if (B_ROWS) {
-        const float2 x = ld2(Q + (8 * n + g) * ldq + k0 + t2);
-        b0 = x.x, b1 = x.y;
-      } else {
-        const float* q = Q + (k0 + t2) * ldq + 8 * n + g;
-        b0 = q[0], b1 = q[ldq];
-      }
-      uint32_t bh0, bl0, bh1, bl1;
-      split(b0, bh0, bl0);
-      split(b1, bh1, bl1);
-      mma_tf32(acc[n], al, bh0, bh1);
-      mma_tf32(acc[n], ah, bl0, bl1);
-      mma_tf32(acc[n], ah, bh0, bh1);
-    }
-  }
-}
-
-template <int NT>
-__device__ __forceinline__ void zero(float (&acc)[NT][4]) {
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
 }
 
 // S_{c-1} (hd x hd, in L2) into shared memory, by cp.async
@@ -274,17 +163,17 @@ __global__ void __launch_bounds__(kThreads, 1) rwkv_chunk_kernel(
   int ticket = sFlag[0];
   // w and k of a tile are copied in while the tile before it computes y
   if (ticket < tiles) {
-    load_rows<HD>(sW, l4, w + offset(ticket), st, C, Cp, 1.f);
-    load_rows<HD>(sK, l8, k + offset(ticket), st, C, Cp, 0.f);
+    load_rows<kThreads, HD>(sW, l4, w + offset(ticket), st, C, Cp, 1.f);
+    load_rows<kThreads, HD>(sK, l8, k + offset(ticket), st, C, Cp, 0.f);
   }
   cp_commit();
   while (ticket < tiles) {
     const int c = ticket / BH, bh = ticket % BH, b = bh / H, h = bh % H;
     const size_t base = offset(ticket);
     const float ud = tid < HD ? u[(size_t)b * uB + (size_t)h * uH + tid] : 0.f;
-    load_rows<HD>(sR, l8, r + base, st, C, Cp, 0.f);
+    load_rows<kThreads, HD>(sR, l8, r + base, st, C, Cp, 0.f);
     cp_commit();
-    load_rows<HD>(sV, l4, v + base, st, C, Cp, 0.f);
+    load_rows<kThreads, HD>(sV, l4, v + base, st, C, Cp, 0.f);
     cp_commit();
     if (tid < HD) sU[tid] = ud;
     cp_wait<2>();
@@ -429,8 +318,8 @@ __global__ void __launch_bounds__(kThreads, 1) rwkv_chunk_kernel(
     }
     next = sFlag[0];
     if (next < tiles) {  // sW and sK are free: A and kT^T v are done
-      load_rows<HD>(sW, l4, w + offset(next), st, C, Cp, 1.f);
-      load_rows<HD>(sK, l8, k + offset(next), st, C, Cp, 0.f);
+      load_rows<kThreads, HD>(sW, l4, w + offset(next), st, C, Cp, 1.f);
+      load_rows<kThreads, HD>(sK, l8, k + offset(next), st, C, Cp, 0.f);
     }
     cp_commit();
 

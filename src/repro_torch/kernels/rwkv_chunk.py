@@ -23,8 +23,11 @@ final state of that chain. On a CPU tensor it runs the plain version.
 
 The gradient: :class:`RwkvChunk` is K7 as an autograd Function (from the
 zero state; y and the final state), its backward
-:func:`rwkv_chunked_bthd_bwd`, PyTorch operations in f32 on any device
-(no kernel of its own yet).
+:func:`rwkv_chunked_bthd_bwd`: on a CUDA tensor the K7 backward kernel
+(``csrc/rwkv_chunk_bwd.cu``: the chunks' state increments, the two chains
+over the chunks, then the gradients of each chunk; counted once per call
+in ``rwkv_chunked_bthd_bwd.launches``), on a CPU tensor its plain version
+:func:`rwkv_chunked_bthd_bwd_ref`, PyTorch operations in f32.
 """
 from __future__ import annotations
 
@@ -170,12 +173,14 @@ def rwkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              w[:, :, None], u[:, None], chunk=chunk)[:, :, 0]
 
 
-def rwkv_chunked_bthd_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          w: torch.Tensor, u: torch.Tensor, gy: torch.Tensor,
-                          gS: Optional[torch.Tensor] = None, *,
-                          chunk: int = 128):
-    """dr, dk, dv, dw and du of ``(y, S_T) = rwkv_chunked_bthd(r, k, v, w,
-    u, return_state=True)`` (from the zero state) for the output gradients
+def rwkv_chunked_bthd_bwd_ref(r: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, w: torch.Tensor,
+                              u: torch.Tensor, gy: torch.Tensor,
+                              gS: Optional[torch.Tensor] = None, *,
+                              chunk: int = 128):
+    """Plain version of K7's backward: dr, dk, dv, dw and du of ``(y,
+    S_T) = rwkv_chunked_bthd(r, k, v, w, u, return_state=True)`` (from the
+    zero state) for the output gradients
     gy (B,T,H,hd) and gS (B,H,hd,hd) or None, in PyTorch operations in f32
     (TF32 off) on any device; du in ``u``'s shape ((H,hd): summed over the
     batch), the others (B,T,H,hd).
@@ -268,6 +273,96 @@ def rwkv_chunked_bthd_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return back(dr), back(dk), back(dv), back(dw), du
 
 
+def _bwd_operands(r, k, v, w, u, gy, gS):
+    """The checks of the backward's operands on the card (and on ``meta``):
+    r, k, v, w, gy f32 contiguous (B,T,H,hd), u f32 (H,hd) or (B,H,hd)
+    with unit stride on the head dim, gS None or f32 contiguous
+    (B,H,hd,hd)."""
+    B, T, H, hd = r.shape
+    dev = r.device
+    for name, t in (("r", r), ("k", k), ("v", v), ("w", w), ("gy", gy)):
+        require(t, name, _F32, (B, T, H, hd), dev)
+    if u.dtype != _F32 or u.device != dev or u.dim() not in (2, 3) \
+            or tuple(u.shape[-2:]) != (H, hd) \
+            or (u.dim() == 3 and u.shape[0] != B) or u.stride(-1) != 1:
+        raise ValueError(f"u: {tuple(u.shape)} {u.dtype} on {u.device}, "
+                         f"expected f32 ({H}, {hd}) or ({B}, {H}, {hd}) "
+                         f"with unit stride on the head dim")
+    if gS is not None:
+        require(gS, "gS", _F32, (B, H, hd, hd), dev)
+
+
+def _bwd_launch(r, k, v, w, u, gy, gS, C):
+    """One call of the K7 backward kernel (three launches on the current
+    stream) on checked operands; u is (H,hd) or (B,H,hd). Returns dr, dk,
+    dv, dw (B,T,H,hd) and du in u's shape (each chunk's part summed by
+    torch in a fixed order)."""
+    B, T, H, hd = r.shape
+    nc = T // C
+    ue = u.expand(B, H, hd)
+    dev = r.device
+    dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
+    du = torch.empty((B, H, nc, hd), dtype=_F32, device=dev)
+    # S_{c-1} over the chunks' increments and G_c over rP^T gy; exp(total)
+    # and d_total's state term of every chunk
+    states = torch.empty((2, B * H * nc, hd, hd), dtype=_F32, device=dev)
+    vecs = torch.empty((2, B * H * nc, hd), dtype=_F32, device=dev)
+    code = library().rwkv_chunk_bwd_launch(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+        ue.data_ptr(), gy.data_ptr(),
+        None if gS is None else gS.data_ptr(), dr.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), du.data_ptr(),
+        states[0].data_ptr(), states[1].data_ptr(), vecs[0].data_ptr(),
+        vecs[1].data_ptr(), B, T, H, hd, C, ue.stride(0), ue.stride(1),
+        stream_ptr(r))
+    if code == _TOO_LARGE:
+        raise ValueError(f"a chunk of {C} tokens x head dim {hd} needs more "
+                         "shared memory than one CTA has (K7 and its "
+                         "backward hold 128 tokens, 64 at head dim 128): use "
+                         "a smaller chunk")
+    if code == _BAD_HEAD_DIM:
+        raise ValueError(f"K7's backward has kernels for head dims 16, 32, "
+                         f"64 and 128, not {hd}")
+    check(code, "rwkv_chunked_bwd")
+    rwkv_chunked_bthd_bwd.launches += 1
+    du = du.sum(2)
+    return dr, dk, dv, dw, du.sum(0) if u.dim() == 2 else du
+
+
+def rwkv_chunked_bthd_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          w: torch.Tensor, u: torch.Tensor, gy: torch.Tensor,
+                          gS: Optional[torch.Tensor] = None, *,
+                          chunk: int = 128):
+    """dr, dk, dv, dw and du of ``(y, S_T) = rwkv_chunked_bthd(r, k, v, w,
+    u, return_state=True)`` (from the zero state) for the output gradients
+    gy (B,T,H,hd) and gS (B,H,hd,hd) or None (zero); du in ``u``'s shape,
+    the others (B,T,H,hd), f32. On a CUDA tensor the K7 backward kernel
+    (``csrc/rwkv_chunk_bwd.cu``; r, k, v, w, gy f32 contiguous, gS None or
+    f32 contiguous), the same layouts as K7's forward (head dims 16, 32, 64
+    and 128; chunks up to 128 tokens, 64 at head dim 128; any other
+    raises before a launch). On a CPU tensor
+    :func:`rwkv_chunked_bthd_bwd_ref`. On the ``meta`` device the same
+    checks, then empty gradients, and the backward's work
+    (``roofline.work.rwkv_bwd_flops``) goes to the open work counter in
+    place of a launch (not counted in ``launches``)."""
+    if not r.is_cuda and not r.is_meta:
+        return rwkv_chunked_bthd_bwd_ref(r, k, v, w, u, gy, gS, chunk=chunk)
+    B, T, H, hd = r.shape
+    C = _chunk(T, chunk)
+    _bwd_operands(r, k, v, w, u, gy, gS)
+    if r.is_meta:
+        grads = (*(torch.empty_like(r) for _ in range(4)),
+                 torch.empty_like(u))
+        W.record("rwkv_chunked_bwd", W.rwkv_bwd_flops(B * H, T, hd),
+                 W.nbytes(r, k, v, w, u, gy, gS, *grads))
+        return grads
+    with record_function("rwkv_chunk.bwd"):
+        return _bwd_launch(r, k, v, w, u, gy, gS, C)
+
+
+rwkv_chunked_bthd_bwd.launches = 0
+
+
 class RwkvChunk(torch.autograd.Function):
     """K7 with a gradient, from the zero state: the forward is
     :func:`rwkv_chunked_bthd` with ``return_state`` (the kernel on a CUDA
@@ -288,7 +383,8 @@ class RwkvChunk(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gy, gS):
-        grads = rwkv_chunked_bthd_bwd(*ctx.saved_tensors, gy, gS,
-                                      chunk=ctx.chunk)
+        grads = rwkv_chunked_bthd_bwd(
+            *ctx.saved_tensors, gy.contiguous(),
+            None if gS is None else gS.contiguous(), chunk=ctx.chunk)
         return (*(g if need else None for g, need in
                   zip(grads, ctx.needs_input_grad)), None)

@@ -2,8 +2,8 @@
 
 One definition of a kernel's work, whatever runs it: ``chip_smoke.py``
 divides it by the peaks for each kernel's bound (``PERF.md`` §6), and on
-the ``meta`` device the K6, K7 and K8 wrappers and K8's backward add it
-to the open :class:`WorkCounter` in place of a launch, so that
+the ``meta`` device the K6, K7 and K8 wrappers and their backwards add
+it to the open :class:`WorkCounter` in place of a launch, so that
 ``roofline.analysis.analyze`` counts a whole step.
 
 Operations are floating-point operations of the function (a multiply and
@@ -117,6 +117,17 @@ def rwkv_flops(BH, T, hd):
     computes does more (the (C, C) intra-chunk weights, the logs and
     exps)."""
     return BH * T * (5 * hd * hd + 5 * hd)
+
+
+def rwkv_bwd_flops(BH, T, hd):
+    """Operations of K7's gradient, counted as :func:`rwkv_flops` counts,
+    from the token recurrence's gradient without recomputing its states:
+    per (batch, head) and token, dr = S gy (2 hd^2), the carried gradient
+    G <- w G + r gy^T (3 hd^2), dk = G v and dv = G^T k (4 hd^2), dw's
+    rowsum(G S) (2 hd^2), and the u bonus's terms (10 hd). The chunked form
+    the kernel computes does more (ten products per chunk, the states
+    again, the logs and exps)."""
+    return BH * T * (11 * hd * hd + 10 * hd)
 
 
 class WorkCounter:

@@ -1224,6 +1224,151 @@ def test_rwkv_chunk_kernel_refuses_state_and_large_chunks(dev):
     assert RC.rwkv_chunked_bthd.launches == n0
 
 
+def _rwkv_bwd_case(B, T, H, hd, dev, *, gS=True, u_batch=False, seed=0,
+                   lo=0.6, hi=0.999):
+    """K7's operands (u of shape (B, H, hd) where ``u_batch``), gy and gS
+    (None where not ``gS``), from a numpy seed."""
+    rng = np.random.default_rng(seed)
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32)).to(dev)
+    r, k, v, gy = (f32(rng.standard_normal((B, T, H, hd)) * 0.5)
+                   for _ in range(4))
+    w = f32(rng.uniform(lo, hi, (B, T, H, hd)))
+    u = f32(rng.standard_normal((B, H, hd) if u_batch else (H, hd)) * 0.1)
+    g = f32(rng.standard_normal((B, H, hd, hd)) * 0.1) if gS else None
+    return r, k, v, w, u, gy, g
+
+
+# K7's backward kernel against its plain version: every gradient to 1e-4 of
+# its largest magnitude (products in three TF32 terms, ~21 bits, and sums
+# over the chunk and the chunks in other orders than the plain version's)
+def _rwkv_bwd_close(got, want, what):
+    for name, g, w in zip(("dr", "dk", "dv", "dw", "du"), got, want):
+        assert g.shape == w.shape, (what, name)
+        err = float((g - w).abs().max() / w.abs().max())
+        assert err < K7_TOL, (what, name, err)
+
+
+@pytest.mark.parametrize("B,T,H,hd,chunk,gS,u_batch", [
+    (2, 256, 3, 16, 16, True, False),
+    (1, 256, 2, 16, 128, False, True),
+    (2, 256, 2, 32, 64, True, True),
+    (1, 128, 3, 32, 128, False, False),    # T == chunk: one chunk
+    (2, 512, 3, 64, 128, True, False),
+    (1, 256, 2, 64, 64, False, True),
+    (2, 1024, 4, 64, 16, True, False),     # 64 chunks of 16
+    (1, 96, 2, 64, 128, True, False),      # T < chunk: one chunk of 96
+    (2, 256, 3, 128, 64, True, True),      # the largest chunk at hd 128
+    (1, 64, 2, 128, 64, False, False),     # T == chunk at hd 128
+])
+def test_rwkv_chunk_bwd_kernel_matches_plain(dev, B, T, H, hd, chunk, gS,
+                                             u_batch):
+    """Every head dim K7 has, chunks from 16 to 128 (64 at head dim 128),
+    gS None and not, u per head and per batch row, decays over (0.6,
+    0.999): one launch, each gradient against the plain version."""
+    from repro_torch.kernels import rwkv_chunk as RC
+    args = _rwkv_bwd_case(B, T, H, hd, dev, gS=gS, u_batch=u_batch,
+                          seed=T + hd)
+    n0 = RC.rwkv_chunked_bthd_bwd.launches
+    got = RC.rwkv_chunked_bthd_bwd(*args, chunk=chunk)
+    assert RC.rwkv_chunked_bthd_bwd.launches == n0 + 1
+    want = RC.rwkv_chunked_bthd_bwd_ref(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    _rwkv_bwd_close(got, want, (B, T, H, hd, chunk, gS, u_batch))
+
+
+def test_rwkv_chunk_bwd_kernel_two_calls_bitwise_equal(dev):
+    """rwkv6-3b's training microbatch (4 x 4096, 40 heads of 64, chunk
+    128) with a gS: against the plain version, and two calls give the same
+    bits (fixed-order sums, no float atomics)."""
+    from repro_torch.kernels import rwkv_chunk as RC
+    args = _rwkv_bwd_case(4, 4096, 40, 64, dev, seed=30)
+    a = RC.rwkv_chunked_bthd_bwd(*args)
+    b = RC.rwkv_chunked_bthd_bwd(*args)
+    want = RC.rwkv_chunked_bthd_bwd_ref(*args)
+    torch.cuda.synchronize()
+    _rwkv_bwd_close(a, want, "rwkv6-3b train")
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_rwkv_chunk_bwd_kernel_under_the_clamp(dev):
+    """Decays under the 1e-38 clamp (w = 0 and 1e-40, at a chunk's last
+    token and inside one, the rest in (0.999, 1) so that the forward stays
+    finite): finite gradients that match the plain version, and dw exactly
+    0 where the clamp stops the gradient."""
+    from repro_torch.kernels import rwkv_chunk as RC
+    r, k, v, w, u, gy, gS = _rwkv_bwd_case(2, 64, 2, 16, "cpu", seed=3,
+                                           lo=0.999, hi=1.0)
+    under = [(0, 15, 0, 3), (1, 47, 1, 0), (0, 40, 1, 7), (1, 20, 0, 5)]
+    for i, idx in enumerate(under):
+        w[idx] = 0.0 if i % 2 == 0 else 1e-40
+    args = [t.to(dev) for t in (r, k, v, w, u, gy, gS)]
+    got = RC.rwkv_chunked_bthd_bwd(*args, chunk=16)
+    want = RC.rwkv_chunked_bthd_bwd_ref(*args, chunk=16)
+    torch.cuda.synchronize()
+    for g in got:
+        assert torch.isfinite(g).all()
+    _rwkv_bwd_close(got, want, "under the clamp")
+    for idx in under:
+        assert float(got[3][idx]) == 0.0
+
+
+def test_rwkv_chunk_bwd_kernel_refuses_other_layouts(dev):
+    """A head dim K7 has no kernel for, a chunk past 128 tokens and a chunk
+    of 128 at head dim 128 raise before any launch, as K7's forward
+    refuses them; so does an operand that is not f32."""
+    from repro_torch.kernels import rwkv_chunk as RC
+    n0 = RC.rwkv_chunked_bthd_bwd.launches
+    with pytest.raises(ValueError, match="head dims"):
+        RC.rwkv_chunked_bthd_bwd(*_rwkv_bwd_case(1, 256, 2, 48, dev))
+    with pytest.raises(ValueError, match="shared memory"):
+        RC.rwkv_chunked_bthd_bwd(*_rwkv_bwd_case(1, 256, 2, 128, dev))
+    with pytest.raises(ValueError, match="shared memory"):
+        RC.rwkv_chunked_bthd_bwd(*_rwkv_bwd_case(1, 256, 2, 64, dev),
+                                 chunk=256)
+    r, k, v, w, u, gy, gS = _rwkv_bwd_case(1, 256, 2, 64, dev)
+    with pytest.raises(ValueError, match="gy: dtype"):
+        RC.rwkv_chunked_bthd_bwd(r, k, v, w, u, gy.double(), gS)
+    assert RC.rwkv_chunked_bthd_bwd.launches == n0
+
+
+def test_rwkv_chunk_function_grad_on_card_matches_plain(dev):
+    """K7's Function on the card (K7, then its backward kernel, one launch
+    each) for gradients of y and the final state against autograd through
+    the plain version, f32, TF32 off: each to 1e-4 of its largest
+    magnitude."""
+    from repro_torch import no_tf32
+    from repro_torch.kernels import rwkv_chunk as RC
+    no_tf32()
+    r, k, v, w, u, gy, gS = _rwkv_bwd_case(2, 512, 3, 64, dev, seed=9)
+    n = (RC.rwkv_chunked_bthd.launches, RC.rwkv_chunked_bthd_bwd.launches)
+    ins = [t.clone().requires_grad_() for t in (r, k, v, w, u)]
+    got = torch.autograd.grad(RC.RwkvChunk.apply(*ins, 128), ins, (gy, gS))
+    assert (RC.rwkv_chunked_bthd.launches,
+            RC.rwkv_chunked_bthd_bwd.launches) == (n[0] + 1, n[1] + 1)
+    ins = [t.clone().requires_grad_() for t in (r, k, v, w, u)]
+    want = torch.autograd.grad(
+        RC.rwkv_chunked_bthd_ref(*ins, return_state=True), ins, (gy, gS))
+    _rwkv_bwd_close(got, want, "RwkvChunk")
+
+
+def test_rwkv_chunk_bwd_kernels_spill_nothing(dev):
+    """ptxas spills none of the registers of K7's backward kernels (the
+    increments, the chains and the gradients at head dims 16/32/64/128)."""
+    K.library()
+    props = re.findall(
+        r"Function properties for (\S*rwkv_chunk_bwd_(increments|chains|"
+        r"grads)I\S*)\n\s*(\d+) bytes stack frame, (\d+) bytes spill "
+        r"stores, (\d+) bytes spill loads", K.BUILD["log"])
+    counts = {}
+    for _, kind, _, _, _ in props:
+        counts[kind] = counts.get(kind, 0) + 1
+    assert counts == {"increments": 4, "chains": 4, "grads": 4}, counts
+    for name, _, _, stores, loads in props:
+        assert (stores, loads) == ("0", "0"), f"{name} spills"
+
+
 @pytest.mark.parametrize("arch", ["glm4-9b", "rwkv6-3b"])
 def test_prefill_runs_one_kernel_per_layer_and_decode_agrees(dev, arch):
     """A smoke config in f32 on the card: the prefill of 256 tokens

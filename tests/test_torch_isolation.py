@@ -9,7 +9,8 @@
   build; it would hand the kernel garbage pointers on the card.
 * A program too long for a CTA's shared memory: the code the C entry
   point returns for it is the one the wrapper turns into an error naming
-  ``pallas_block_cu`` and the remedy.
+  ``pallas_block_cu`` and the remedy; K7's backward refuses with the
+  forward's codes, and checks its operands before the library.
 """
 import ast
 import ctypes
@@ -148,6 +149,74 @@ def test_rwkv_too_large_code_matches_c_source():
     src = (CSRC / "rwkv_chunk.cu").read_text()
     assert RC._TOO_LARGE == int(
         re.search(r"kTooLarge = (-?\d+);", src).group(1))
+
+
+def test_rwkv_bwd_codes_match_c_sources():
+    """K7's backward entry point refuses a chunk one CTA cannot hold and a
+    head dim it has no kernel for with the forward's codes, the ones the
+    wrapper turns into its errors."""
+    from repro_torch.kernels import rwkv_chunk as RC
+    for name in ("rwkv_chunk.cu", "rwkv_chunk_bwd.cu"):
+        src = (CSRC / name).read_text()
+        assert RC._TOO_LARGE == int(
+            re.search(r"kTooLarge = (-?\d+);", src).group(1)), name
+        assert RC._BAD_HEAD_DIM == int(
+            re.search(r"kBadHeadDim = (-?\d+);", src).group(1)), name
+
+
+@pytest.mark.parametrize("code,match", [("_TOO_LARGE", "shared memory"),
+                                        ("_BAD_HEAD_DIM", "head dims 16")])
+def test_rwkv_bwd_refusal_raises_and_counts_no_launch(monkeypatch, code,
+                                                      match):
+    """The backward entry point's refusal (nothing launched) becomes a
+    ValueError and counts no launch; the entry point gets its 24
+    arguments."""
+    import torch
+
+    from repro_torch.kernels import rwkv_chunk as RC
+    seen = []
+
+    class Lib:
+        def rwkv_chunk_bwd_launch(self, *a):
+            seen.append(len(a))
+            return getattr(RC, code)
+    monkeypatch.setattr(RC, "library", Lib)
+    monkeypatch.setattr(RC, "stream_ptr", lambda t: 0)
+    r = torch.zeros((1, 32, 2, 16))
+    n = RC.rwkv_chunked_bthd_bwd.launches
+    with pytest.raises(ValueError, match=match):
+        RC._bwd_launch(r, r, r, r, torch.zeros((2, 16)), r, None, 16)
+    assert seen == [len(K.SIGNATURES["rwkv_chunk_bwd_launch"][1])] == [24]
+    assert RC.rwkv_chunked_bthd_bwd.launches == n
+
+
+def test_rwkv_bwd_checks_operands_before_the_library(monkeypatch):
+    """Operands the kernel does not take raise in the wrapper before the
+    library is asked for anything (``meta`` tensors take the card's
+    checks)."""
+    import torch
+
+    from repro_torch.kernels import rwkv_chunk as RC
+
+    def library():
+        raise AssertionError("the library was reached")
+    monkeypatch.setattr(RC, "library", library)
+
+    def m(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+    r, u, gy = m(2, 32, 2, 16), m(2, 16), m(2, 32, 2, 16)
+    n = RC.rwkv_chunked_bthd_bwd.launches
+    for args, match in (
+            ((r, r, r, r, u, m(2, 32, 2, 16, dtype=torch.float64)),
+             "gy: dtype"),
+            ((r, r, r, r, u, gy, m(2, 2, 16, 8)), "gS: shape"),
+            ((r, r, r, r, m(3, 16), gy), "u: "),
+            ((r, r, m(2, 32, 2, 8), r, u, gy), "v: shape"),
+            ((r.transpose(1, 2).contiguous().transpose(1, 2), r, r, r, u,
+              gy), "r: must be contiguous")):
+        with pytest.raises(ValueError, match=match):
+            RC.rwkv_chunked_bthd_bwd(*args)
+    assert RC.rwkv_chunked_bthd_bwd.launches == n
 
 
 def test_flash_attention_limits_match_c_source():

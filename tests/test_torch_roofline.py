@@ -258,6 +258,69 @@ def test_k6_gradient_on_meta_counts_forward_and_backward():
     assert [g.shape for g in grads] == [q.shape, k.shape, v.shape]
 
 
+def test_rwkv_bwd_flops_is_the_token_recurrences_gradient():
+    """``rwkv_bwd_flops`` against a hand count of the token recurrence's
+    gradient, per (batch, head) and token: dr = S gy (2 hd^2), the carried
+    gradient w G + r gy^T (3 hd^2), dk = G v and dv = G^T k (4 hd^2), dw's
+    rowsum of G S (2 hd^2), the u bonus's terms (10 hd); at rwkv6-3b's
+    training microbatch (4 x 40 heads of 64, 4096 tokens) 29.9 GFLOP."""
+    for BH, T, hd in ((160, 4096, 64), (3, 100, 16), (2, 64, 128)):
+        per_token = (2 + 3 + 4 + 2) * hd * hd + 10 * hd
+        assert W.rwkv_bwd_flops(BH, T, hd) == BH * T * per_token
+    assert W.rwkv_bwd_flops(160, 4096, 64) == 29_947_330_560
+
+
+def test_k7_backward_on_meta_records_one_call():
+    """K7's backward on ``meta`` tensors: one ``rwkv_chunked_bwd`` call in
+    the counter with ``rwkv_bwd_flops`` and the bytes of its operands and
+    gradients, gradients of the inputs' shapes (du in u's, per head or per
+    batch row), no launch; K7's Function on meta counts one forward and one
+    backward; a bad operand raises as on the card."""
+    r, k7, v7, w, u = _rwkv_args("meta", T=256, hd=64)
+    gy, gS = _meta(2, 256, 2, 64), _meta(2, 2, 64, 64)
+    n = (RC.rwkv_chunked_bthd.launches, RC.rwkv_chunked_bthd_bwd.launches)
+    with W.WorkCounter() as c:
+        grads = RC.rwkv_chunked_bthd_bwd(r, k7, v7, w, u, gy, gS)
+        grads_b = RC.rwkv_chunked_bthd_bwd(r, k7, v7, w, _meta(2, 2, 64),
+                                           gy)
+    assert [g.shape for g in grads] == [r.shape] * 4 + [u.shape]
+    assert grads_b[4].shape == (2, 2, 64)
+    assert all(g.is_meta and g.dtype == torch.float32
+               for g in (*grads, *grads_b))
+    flops = 2 * 2 * 256 * (11 * 64 * 64 + 10 * 64)
+    assert c.kernels == {"rwkv_chunked_bwd": {
+        "calls": 2, "flops": 2 * flops,
+        "bytes": W.nbytes(r, k7, v7, w, u, gy, gS, *grads)
+        + W.nbytes(r, k7, v7, w, grads_b[4], gy, *grads_b)}}
+    ins = [t.requires_grad_() for t in (r, k7, v7, w, u)]
+    with W.WorkCounter() as c:
+        y, S = RC.RwkvChunk.apply(*ins, 128)
+        got = torch.autograd.grad((y, S), ins, (gy, gS))
+    assert {k_: v_["calls"] for k_, v_ in c.kernels.items()} == \
+        {"rwkv_chunked": 1, "rwkv_chunked_bwd": 1}
+    assert [g.shape for g in got] == [t.shape for t in ins]
+    assert n == (RC.rwkv_chunked_bthd.launches,
+                 RC.rwkv_chunked_bthd_bwd.launches)
+    with pytest.raises(ValueError, match="gy: dtype"):
+        RC.rwkv_chunked_bthd_bwd(r, k7, v7, w, u, gy.double())
+    with pytest.raises(ValueError, match="gS: shape"):
+        RC.rwkv_chunked_bthd_bwd(r, k7, v7, w, u, gy, _meta(2, 2, 64, 32))
+    with pytest.raises(ValueError, match="u: "):
+        RC.rwkv_chunked_bthd_bwd(r, k7, v7, w, _meta(3, 64), gy)
+
+
+def test_k7_backward_on_cpu_is_the_plain_version_bit_for_bit():
+    r, k7, v7, w, u = _rwkv_args()
+    g = torch.Generator().manual_seed(3)
+    gy = torch.randn(r.shape, generator=g)
+    gS = torch.randn((2, 2, 16, 16), generator=g)
+    for a, b in zip(RC.rwkv_chunked_bthd_bwd(r, k7, v7, w, u, gy, gS,
+                                             chunk=8),
+                    RC.rwkv_chunked_bthd_bwd_ref(r, k7, v7, w, u, gy, gS,
+                                                 chunk=8)):
+        assert torch.equal(a, b)
+
+
 def test_roofline_terms_against_h100_peaks():
     t = AN.roofline_terms({"flops": 989e12, "hbm_bytes": 6.7e12,
                            "collective_bytes": 0.0})
