@@ -413,14 +413,24 @@ K6_BWD_ROW = "flash_attention_bwd[musicgen-medium train]"
 SCAN_TRAIN_ARCHS = ("hymba-1.5b", "rwkv6-3b")
 SCAN_TRAIN_STEPS, SCAN_TRAIN_MB = 2, 2
 # K8's backward against its plain version, (B, S, H, hd, N): hymba-1.5b's
-# training layout (a microbatch of 4 x 4096) and an odd one (head dim 16,
-# state 8, S not a multiple of the kernel's 8-token tile); each output
-# within 1e-4 of its largest magnitude + 1e-5 |ref| (the kernel sums over
-# channels, heads and tokens in other orders than the plain version)
+# training layout (a microbatch of 4 x 4096), an odd one (head dim 16,
+# state 8, S not a multiple of the kernel's 32-token chunk), S one chunk,
+# one chunk and a token, and under one chunk, and a chunk whose decay
+# product underflows to 0 (K8_BWD_UNDERFLOW: dt in (2, 3) at A = -2 over
+# the second chunk); each output within 1e-4 of its largest magnitude +
+# 1e-5 |ref| (the kernel sums over channels, heads and tokens in other
+# orders than the plain version)
 K8_BWD_ROW = "ssm_scan_bwd"
 K8_BWD_LAYOUTS = {"hymba-1.5b train": (4, 4096, 25, 64, 16),
-                  "odd": (2, 1001, 3, 16, 8)}
+                  "odd": (2, 1001, 3, 16, 8),
+                  "S = chunk": (2, 32, 25, 64, 16),
+                  "S = chunk + 1": (2, 33, 5, 32, 8),
+                  "S < chunk": (3, 20, 4, 128, 16),
+                  "underflow": (2, 101, 25, 64, 16)}
+K8_BWD_UNDERFLOW = "underflow"
 K8_BWD_TOL = (1e-5, 1e-4)
+K8_BWD_KERNELS = ("ssm_scan_bwd_increments", "ssm_scan_bwd_chains",
+                  "ssm_scan_bwd_grads")
 # K7's backward kernel against its plain version and against autograd
 # through K7's plain version, (B, T, H, hd, chunk, u per batch row):
 # rwkv6-3b's training microbatch (4 x 4096, 40 heads of 64, chunk 128, u
@@ -809,7 +819,7 @@ def kernel_split(fn, reps=1):
     own = {"flash_attention_kernel": "K6", "flash_attention_bwd": "attn_bwd",
            "rwkv_chunk_kernel": "K7", "rwkv_chunk_bwd_": "K7_bwd",
            "ssm_scan_kernel": "K8",
-           "ssm_scan_bwd_kernel": "K8_bwd"}
+           "ssm_scan_bwd_": "K8_bwd"}
     ops, ranges, kernels = {}, {}, []
     for ev in prof.profiler.kineto_results.events():
         name = ev.name()
@@ -1425,9 +1435,10 @@ def moved_check(cfg, state, fresh_params) -> None:
                      f"({len(still)} did not: {still[:4]})")
 
 
-def step_split(cfg, tc, state, mean_s, dev, card) -> None:
+def step_split(cfg, tc, state, mean_s, dev, card):
     """One more training step of ``state`` under torch.profiler: its
-    device time by class (``kernel_split``)."""
+    device time by class (``kernel_split``), printed and returned (None
+    where the profiler reported none)."""
     step = make_train_step(cfg, tc)
     batch = make_batch(cfg, TRAIN_SHAPE, tc.total_steps,
                        microbatches=tc.microbatches, device=dev)
@@ -1442,6 +1453,36 @@ def step_split(cfg, tc, state, mean_s, dev, card) -> None:
           f"{tot:.1f} ms (a step {mean_s * 1e3:.1f} ms of wall above): "
           + ", ".join(f"{k} {v:.1f} ms ({v / tot:.1%})"
                       for k, v in split.items() if v > 0)
+          + f" on {card}", flush=True)
+    return split
+
+
+def train_forward_bound(cfg, split, calls, card) -> None:
+    """K8's (hybrid) or K7's (rwkv) forward at its training layout (a
+    microbatch of 4 x 4096): its bound from ``roofline.work`` (inputs read
+    and outputs written once, f32; ``scan_flops`` / ``rwkv_flops``)
+    beside its mean device time per call in the profiled step (``calls``
+    launches a step)."""
+    def e(*shape):
+        return torch.empty(shape, dtype=torch.float32, device="meta")
+    if cfg.family == "hybrid":
+        B, S, H, hd, N = K8_BWD_LAYOUTS["hymba-1.5b train"]
+        cls, tag = "K8", f"ssm_scan[B {B} S {S} H {H} hd {hd} N {N}]"
+        nb = nbytes(e(B, S, H, hd), e(B, S, H), e(B, S, N), e(B, S, N),
+                    e(H), e(B, H, hd, N), e(B, S, H, hd), e(B, H, hd, N))
+        ops = scan_flops(B, S, H, hd, N)
+    else:
+        B, S, H, hd, C, _ = K7_BWD_LAYOUTS["rwkv6-3b train"]
+        cls, tag = "K7", f"rwkv_chunked[B {B} T {S} H {H} hd {hd} C {C}]"
+        nb = nbytes(*(e(B, S, H, hd) for _ in range(4)), e(H, hd),
+                    e(B, S, H, hd), e(B, H, hd, hd))
+        ops = rwkv_flops(B * H, S, hd)
+    bound, by = bound_ms(nb, ops)
+    ms = split[cls] / calls if split else None
+    print(f"time {tag} at the training layout: bound {bound:.4f} ms ({by}; "
+          f"{nb / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP), device "
+          + (f"{ms:.4f} ms per call ({ms / bound:.2f}x; {calls} calls a "
+             f"step)" if ms is not None else "not measured")
           + f" on {card}", flush=True)
 
 
@@ -1564,33 +1605,43 @@ def train_phase(dev, card, rows, roof) -> None:
     torch.cuda.empty_cache()
 
 
-def scan_bwd_case(B, S, H, hd, N, seed, dev):
+def scan_bwd_case(B, S, H, hd, N, seed, dev, underflow=False):
     """K8's operands as ``scan_cases`` makes them (a non-zero h0) and the
-    output gradients gy and g_hout, from a numpy seed."""
+    output gradients gy and g_hout, from a numpy seed; with ``underflow``
+    dt in (2, 3) over the second chunk of the backward and A = -2, so
+    that the chunk's decay product underflows to 0."""
     rng = np.random.default_rng(seed)
-    arrs = (rng.standard_normal((B, S, H, hd)),
+    arrs = [rng.standard_normal((B, S, H, hd)),
             rng.uniform(0.01, 1.5, (B, S, H)),
             rng.standard_normal((B, S, N)),
             rng.standard_normal((B, S, N)),
             -rng.uniform(0.2, 2.0, H),
             rng.standard_normal((B, H, hd, N)) * 0.5,
             rng.standard_normal((B, S, H, hd)),
-            rng.standard_normal((B, H, hd, N)))
+            rng.standard_normal((B, H, hd, N))]
+    if underflow:
+        L = SS.BWD_CHUNK
+        arrs[1][:, L:2 * L] = rng.uniform(2.0, 3.0, arrs[1][:, L:2 * L].shape)
+        arrs[4][:] = -2.0
     return [torch.as_tensor(a.astype(np.float32)).to(dev) for a in arrs]
 
 
 def k8_bwd_rows(dev, card, rows) -> None:
     """K8's backward kernel against its plain version (``ssm_scan_bwd_ref``,
-    the reverse token loop) at ``K8_BWD_LAYOUTS``, every output; two calls
-    bit for bit; at hymba-1.5b's training layout its device time beside
-    its bound and the plain version's."""
+    the reverse token loop) at ``K8_BWD_LAYOUTS``, every output, each
+    finite; two calls bit for bit; at hymba-1.5b's training layout its
+    device time beside its bound and the plain version's, and its split
+    by launch."""
     row = rows[K8_BWD_ROW] = dict(max_abs_err=0.0)
     names = ("dxh", "ddt", "dB_", "dC_", "dA", "dh0")
     rtol, atol = K8_BWD_TOL
     for i, (key, (B, S, H, hd, N)) in enumerate(K8_BWD_LAYOUTS.items()):
-        args = scan_bwd_case(B, S, H, hd, N, 60 + i, dev)
+        args = scan_bwd_case(B, S, H, hd, N, 60 + i, dev,
+                             underflow=key == K8_BWD_UNDERFLOW)
         got = SS.ssm_scan_bwd(*args)
         again = SS.ssm_scan_bwd(*args)
+        check(all(bool(torch.isfinite(g).all()) for g in got),
+              f"{K8_BWD_ROW}[{key}]: every output finite")
         # the plain version (a Python loop over the tokens), timed by the
         # events around its one call
         want = []
@@ -1614,6 +1665,8 @@ def k8_bwd_rows(dev, card, rows) -> None:
             row["ms"] = device_ms(lambda: SS.ssm_scan_bwd(*args),
                                   K8_BWD_ROW, reps=20)
             row["plain_ms"] = plain_ms
+            split = DT.kernel_means(lambda: SS.ssm_scan_bwd(*args),
+                                    K8_BWD_KERNELS, reps=20)
             if row["ms"] is not None:
                 print(f"time {K8_BWD_ROW} at {tag}: device "
                       f"{row['ms'] * 1e3:.2f} us per call, plain "
@@ -1621,8 +1674,11 @@ def k8_bwd_rows(dev, card, rows) -> None:
                       f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}; "
                       f"{row['nbytes'] / 1e6:.1f} MB, "
                       f"{row['ops'] / 1e9:.2f} GFLOP), "
-                      f"{row['ms'] / row['bound_ms']:.2f}x on {card}",
-                      flush=True)
+                      f"{row['ms'] / row['bound_ms']:.2f}x; by launch "
+                      + ", ".join(f"{n} {m:.4f} ms ({c} records)"
+                                  for n, (m, c) in split.items()
+                                  if m is not None)
+                      + f" on {card}", flush=True)
         del args, got
         torch.cuda.empty_cache()
 
@@ -1741,7 +1797,8 @@ def scan_train_phase(dev, card, rows) -> None:
             rows[K7_BWD_ROW]["launches"] = got[3]
         moved_check(cfg, state, LM.init_params(cfg, tc.seed, dev))
         torch.cuda.empty_cache()
-        step_split(cfg, tc, state, mean_s, dev, card)
+        split = step_split(cfg, tc, state, mean_s, dev, card)
+        train_forward_bound(cfg, split, 2 * cfg.n_layers * mb, card)
         del state
         torch.cuda.empty_cache()
 

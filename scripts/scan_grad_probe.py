@@ -1,12 +1,20 @@
 """The gradients of K7 and K8 on one CUDA card, at the training layouts.
 
     PYTHONPATH=src python3 scripts/scan_grad_probe.py [--train ARCH ...] [--trace]
+        [--ab OTHER_CSRC]
 
 Prints nvcc's report for the K8 and K7 backward kernels (registers,
 spills, shared memory), then holds K8's against its plain version at
 hymba-1.5b's training layout (B 4, S 4096, 25 heads of 64, N 16, from a
-non-zero h0 and g_hout), checks two calls bit for bit, and times it by
-``scripts/devtime.py`` beside its bound (bytes at 3.35e12 B/s); holds
+non-zero h0 and g_hout), checks two calls bit for bit, times it by
+``scripts/devtime.py`` beside its bound (bytes at 3.35e12 B/s), splits
+it by its three launches with torch.profiler and prints the CTAs of
+each launch resident on one SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
+on a copy of the source built with the library's flags). With ``--ab``
+it also builds another checkout's ``ssm_scan_bwd.cu`` (a directory of
+csrc, e.g. a parent unpacked with ``git archive`` under ``build/``),
+checks its outputs against this tree's and times the two in turns
+(other, this, this, other) at the same layout; holds
 K7's backward kernel against its plain version (PyTorch operations,
 ``rwkv_chunked_bthd_bwd_ref``) and against autograd through K7's plain
 version at rwkv6-3b's training microbatch (B 4, T 4096, 40 heads of 64,
@@ -62,7 +70,130 @@ def rel(a, b) -> float:
     return float((a.double() - b.double()).abs().max() / b.abs().max())
 
 
-def k8_bwd(dev, name):
+K8_BWD_KERNELS = ("ssm_scan_bwd_increments", "ssm_scan_bwd_chains",
+                  "ssm_scan_bwd_grads")
+# appended to a copy of csrc/ssm_scan_bwd.cu: the CTAs of each launch
+# resident on one SM at (hd, N), as the launcher sizes them
+OCCUPANCY = """
+extern "C" int k8b_occupancy(int* out) {
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, ssm_scan_bwd_increments<64, 16>, 128,
+      sizeof(float) * Chunk<64, 16>::kEnd);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out + 1, ssm_scan_bwd_chains, kChainThreads, 0);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(ssm_scan_bwd_grads<64, 16>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)(sizeof(float) * Grads<64, 16>::kEnd));
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out + 2, ssm_scan_bwd_grads<64, 16>, 128,
+        sizeof(float) * Grads<64, 16>::kEnd);
+  return (int)e;
+}
+"""
+
+
+def build_copy(csrc: Path, tmp: Path, extra: str = "") -> ctypes.CDLL:
+    """``csrc``'s ``ssm_scan_bwd.cu`` (with ``extra`` appended) and its
+    headers built alone, with the library's flags, into ``tmp``."""
+    for h in csrc.glob("*.cuh"):
+        (tmp / h.name).write_text(h.read_text())
+    (tmp / "ssm_scan_bwd.cu").write_text(
+        (csrc / "ssm_scan_bwd.cu").read_text() + extra)
+    out = subprocess.run([K._nvcc(), *K.NVCC_FLAGS, "-shared", "-o",
+                          str(tmp / "lib.so"), str(tmp / "ssm_scan_bwd.cu")],
+                         capture_output=True, text=True)
+    if out.returncode:
+        raise RuntimeError(f"nvcc failed on {csrc / 'ssm_scan_bwd.cu'}:\n"
+                           f"{out.stdout}{out.stderr}")
+    return ctypes.CDLL(str(tmp / "lib.so"))
+
+
+def k8_occupancy(name):
+    root = Path(__file__).resolve().parents[1] / "build"
+    root.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        lib = build_copy(SRC, Path(tmp), OCCUPANCY)
+        out = (ctypes.c_int * 3)()
+        code = lib.k8b_occupancy(out)
+        if code:
+            raise RuntimeError(f"k8b_occupancy: cuda error {code}")
+    print("K8 bwd CTAs resident per SM at hd 64, N 16: " + ", ".join(
+        f"{n} {v}" for n, v in zip(K8_BWD_KERNELS, out)) + f" on {name}",
+        flush=True)
+
+
+def other_k8_bwd(lib, src: str):
+    """A call of another checkout's K8 backward entry point: its buffers
+    by the names of its C prototype's parameters (the chunk or tile from
+    the source's ``kChunk`` or ``kTile``)."""
+    proto = re.search(r'extern "C" int ssm_scan_bwd_launch\((.*?)\)', src,
+                      re.S).group(1)
+    params = [p.split()[-1].lstrip("*") for p in proto.split(",")]
+    span = int((re.search(r"kChunk = (\d+);", src)
+                or re.search(r"kTile = (\d+);", src)).group(1))
+    fn = lib.ssm_scan_bwd_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int if p in ("B", "S", "H", "hd", "N")
+                   else ctypes.c_void_p for p in params]
+
+    def call(xh, dt, B_, C_, A, h0, gy, g_hout):
+        B, S, H, hd = xh.shape
+        N = B_.shape[-1]
+        n = -(-S // span)
+        f32 = dict(dtype=torch.float32, device=xh.device)
+        bufs = dict(xh=xh, dt=dt, Bm=B_, Cm=C_, A=A, h0=h0, gy=gy,
+                    g_hout=g_hout, dx=torch.empty_like(xh),
+                    ddt=torch.empty_like(dt), dh0=torch.empty_like(h0),
+                    dB_part=torch.empty((B, S, H, N), **f32),
+                    dC_part=torch.empty((B, S, H, N), **f32),
+                    dA_part=torch.empty((B, H, n), **f32),
+                    ck=torch.empty((B * H, n, N, hd), **f32),
+                    hs=torch.empty((B * H, n, hd, N), **f32),
+                    gs=torch.empty((B * H, n, hd, N), **f32),
+                    dprod=torch.empty((B * H, n), **f32))
+        ints = dict(B=B, S=S, H=H, hd=hd, N=N)
+        args = [ints[p] if p in ints else
+                torch.cuda.current_stream().cuda_stream if p == "stream"
+                else bufs[p].data_ptr() for p in params]
+        code = fn(*args)
+        if code:
+            raise RuntimeError(f"other K8 backward: cuda error {code}")
+        # dA per (batch, head) in the checkpointing form, per (batch,
+        # head, chunk) in the chunked one
+        dA = (bufs["dA_part"].flatten()[:B * H].view(B, H).sum(0)
+              if "ck" in params else bufs["dA_part"].sum((0, 2)))
+        return (bufs["dx"], bufs["ddt"], bufs["dB_part"].sum(2),
+                bufs["dC_part"].sum(2), dA, bufs["dh0"])
+    return call
+
+
+def k8_ab(dev, name, other: Path, args):
+    root = Path(__file__).resolve().parents[1] / "build"
+    root.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        lib = build_copy(other, Path(tmp))
+        call = other_k8_bwd(lib, (other / "ssm_scan_bwd.cu").read_text())
+        theirs, ours = call(*args), SS.ssm_scan_bwd(*args)
+        torch.cuda.synchronize()
+        print("K8 bwd against the other tree's: " + ", ".join(
+            f"{n} {rel(a, b):.3e}" for n, a, b in zip(
+                ("dxh", "ddt", "dB_", "dC_", "dA", "dh0"), ours, theirs))
+            + " of its largest magnitude", flush=True)
+        del theirs, ours
+        times = []
+        for who in ("other", "this", "this", "other"):
+            fn = (lambda: call(*args)) if who == "other" else (
+                lambda: SS.ssm_scan_bwd(*args))
+            times.append((who, DT.device_ms(fn, 20)))
+    print("K8 bwd in turns at hymba's training layout (ms per call, "
+          "device): " + " / ".join(f"{w} {t}" for w, t in times)
+          + f" on {name}", flush=True)
+
+
+def k8_bwd(dev, name, other=None):
     B, S, H, hd, N = 4, 4096, 25, 64, 16
     rng = np.random.default_rng(5)
     f = np.float32
@@ -86,10 +217,19 @@ def k8_bwd(dev, name):
           f"{all(torch.equal(a, b) for a, b in zip(got, again))}")
     ms = DT.device_ms(lambda: SS.ssm_scan_bwd(*args), 20)
     nb = sum(t.numel() * 4 for t in args) + sum(t.numel() * 4 for t in got)
+    split = DT.kernel_means(lambda: SS.ssm_scan_bwd(*args), K8_BWD_KERNELS,
+                            20)
     print(f"K8 bwd at hymba's training layout (B {B} S {S} H {H} hd {hd} N "
           f"{N}): device {ms} ms per call, bound "
           f"{nb / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes {nb / 1e6:.1f} MB), "
-          f"plain {plain_s * 1e3:.1f} ms, on {name}", flush=True)
+          f"plain {plain_s * 1e3:.1f} ms; by launch "
+          + ", ".join(f"{n} {m} ms ({c} records)"
+                      for n, (m, c) in split.items())
+          + f" on {name}", flush=True)
+    del got, again, want
+    k8_occupancy(name)
+    if other is not None:
+        k8_ab(dev, name, other, args)
 
 
 def k7_bwd(dev, name):
@@ -308,6 +448,7 @@ def main():
     ap.add_argument("--microbatches", type=int, default=2)
     ap.add_argument("--only-train", action="store_true")
     ap.add_argument("--trace", action="store_true")
+    ap.add_argument("--ab", type=Path, default=None)
     args = ap.parse_args()
     dev = torch.device("cuda", 0)
     name = card()
@@ -319,7 +460,7 @@ def main():
         sec = log[log.index(f"== {src}"):]
         print(re.split(r"\n== ", sec)[0], flush=True)
     if not args.only_train:
-        k8_bwd(dev, name)
+        k8_bwd(dev, name, args.ab)
         k7_bwd(dev, name)
     if args.trace:
         k7_bwd_trace(dev, name)

@@ -40,8 +40,10 @@ public wrappers):
   thread per channel, tiles of tokens staged in shared memory. It
   replaces no TPU kernel (the reference's scan is a ``lax.scan``);
 * ``ssm_scan.ssm_scan_bwd`` — K8's backward (``csrc/ssm_scan_bwd.cu``):
-  the same grid, the state checkpointed every few tokens and each tile
-  recomputed in reverse, the sums over channels in a fixed order.
+  each chunk's decay product and its state and carried-gradient
+  increments, the two chained over the chunks, then one CTA per (batch,
+  head, chunk) walks the chunk's tokens in reverse; the sums over
+  channels are fixed-order shuffle trees, no atomics.
 
 Every wrapper launches its kernel on a CUDA tensor and runs the kernel's
 plain PyTorch version on a CPU tensor; there is no fallback between the
@@ -90,7 +92,7 @@ SIGNATURES = {
     "rwkv_chunk_launch": (_CI, [_VP] * 8 + [_CI] * 7 + [_VP]),
     "rwkv_chunk_bwd_launch": (_CI, [_VP] * 16 + [_CI] * 7 + [_VP]),
     "ssm_scan_launch": (_CI, [_VP] * 8 + [_CI] * 5 + [_VP]),
-    "ssm_scan_bwd_launch": (_CI, [_VP] * 15 + [_CI] * 5 + [_VP]),
+    "ssm_scan_bwd_launch": (_CI, [_VP] * 17 + [_CI] * 5 + [_VP]),
     "repro_error_string": (ctypes.c_char_p, [_CI]),
 }
 

@@ -1,6 +1,7 @@
 // f32 products on the tensor cores in three TF32 terms, and the cp.async
 // row copies that feed them: the building blocks of K7 (rwkv_chunk.cu) and
-// of its backward (rwkv_chunk_bwd.cu).
+// of its backward (rwkv_chunk_bwd.cu). K8's backward (ssm_scan_bwd.cu)
+// uses the copies alone.
 //
 // A product runs as m16n8k8 TF32 mma.sync, each operand split into two
 // TF32 values (hi rounded to nearest, lo the exact rest cut to TF32) and

@@ -19,11 +19,13 @@ On a CPU tensor it runs the plain version.
 
 The gradient: :class:`SsmScan` is K8 as an autograd Function, its
 backward :func:`ssm_scan_bwd`, the K8 backward kernel
-(``csrc/ssm_scan_bwd.cu``: a forward pass that checkpoints the state
-every ``BWD_TILE`` tokens, then the tiles in reverse, each recomputed
-from its checkpoint; counted in ``ssm_scan_bwd.launches``) on a CUDA
-tensor and :func:`ssm_scan_bwd_ref`, the reverse scan in PyTorch
-operations, on a CPU tensor.
+(``csrc/ssm_scan_bwd.cu``: three launches over chunks of ``BWD_CHUNK``
+tokens, parallel over (batch, head, chunk): each chunk's decay product
+and its state and carried-gradient increments, the two chains over the
+chunks, then each chunk's gradients walked in reverse; counted once per
+call in ``ssm_scan_bwd.launches``) on a CUDA tensor and
+:func:`ssm_scan_bwd_ref`, the reverse scan in PyTorch operations, on a
+CPU tensor.
 """
 from __future__ import annotations
 
@@ -38,9 +40,9 @@ _F32 = torch.float32
 # head dims and state sizes K8 is instantiated for
 HEAD_DIMS = (16, 32, 64, 128)
 STATE_SIZES = (8, 16)
-# tokens per tile of the backward kernel (its kTile): a state checkpoint
-# is kept at each tile's start
-BWD_TILE = 8
+# tokens per chunk of the backward kernel (its kChunk): the chain arrays
+# hold one state and one carried gradient per chunk
+BWD_CHUNK = 32
 
 
 def ssm_scan_ref(xh: torch.Tensor, dt: torch.Tensor, B_: torch.Tensor,
@@ -153,14 +155,15 @@ def ssm_scan_bwd(xh: torch.Tensor, dt: torch.Tensor, B_: torch.Tensor,
                  gy: torch.Tensor, g_hout: torch.Tensor
                  ) -> Tuple[torch.Tensor, ...]:
     """(dxh, ddt, dB_, dC_, dA, dh0), f32, as :func:`ssm_scan_bwd_ref`.
-    On a CUDA tensor one launch of the K8 backward kernel: every operand
-    f32 and contiguous, hd in ``HEAD_DIMS``, N in ``STATE_SIZES``; it
-    writes dB_ and dC_ per head and dA per batch row, which are then
-    summed (torch's reductions, in a fixed order). On a CPU tensor the
-    plain version. On the ``meta`` device the same checks, then empty
-    gradients, and the backward's work (``roofline.work.scan_bwd_flops``)
-    goes to the open work counter in place of a launch (not counted in
-    ``launches``)."""
+    On a CUDA tensor one call of the K8 backward kernel (its three
+    launches, counted once): every operand f32 and contiguous, hd in
+    ``HEAD_DIMS``, N in ``STATE_SIZES``, xh, gy, B_ and C_ 16-byte
+    aligned; it writes dB_ and dC_ per head and dA per (batch row,
+    chunk), which are then summed (torch's reductions, in a fixed
+    order). On a CPU tensor the plain version. On the ``meta`` device
+    the same checks, then empty gradients, and the backward's work
+    (``roofline.work.scan_bwd_flops``) goes to the open work counter in
+    place of a launch (not counted in ``launches``)."""
     if not xh.is_cuda and not xh.is_meta:
         return ssm_scan_bwd_ref(xh, dt, B_, C_, A, h0, gy, g_hout)
     B, S, H, hd = xh.shape
@@ -180,25 +183,29 @@ def ssm_scan_bwd(xh: torch.Tensor, dt: torch.Tensor, B_: torch.Tensor,
         W.record("ssm_scan_bwd", W.scan_bwd_flops(B, S, H, hd, N),
                  W.nbytes(xh, dt, B_, C_, A, h0, gy, g_hout, *grads))
         return grads
-    for name, t in (("B_", B_), ("C_", C_)):
+    for name, t in (("xh", xh), ("gy", gy), ("B_", B_), ("C_", C_)):
         if t.data_ptr() % 16:
-            raise ValueError(f"{name}: K8 reads it in 16-byte vectors; its "
-                             f"storage must start 16-byte aligned")
-    n_tiles = -(-S // BWD_TILE)
-    ck = torch.empty((B * H, n_tiles, N, hd), dtype=_F32, device=dev)
+            raise ValueError(f"{name}: K8's backward copies it in 16-byte "
+                             f"pieces; its storage must start 16-byte "
+                             f"aligned")
+    nc = -(-S // BWD_CHUNK)
+    hs = torch.empty((B * H, nc, hd, N), dtype=_F32, device=dev)
+    gs = torch.empty_like(hs)
+    dprod = torch.empty((B * H, nc), dtype=_F32, device=dev)
     dx, ddt, dh0 = (torch.empty_like(t) for t in (xh, dt, h0))
     dB_part = torch.empty((B, S, H, N), dtype=_F32, device=dev)
     dC_part = torch.empty_like(dB_part)
-    dA_part = torch.empty((B, H), dtype=_F32, device=dev)
+    dA_part = torch.empty((B, H, nc), dtype=_F32, device=dev)
     code = library().ssm_scan_bwd_launch(
         xh.data_ptr(), dt.data_ptr(), B_.data_ptr(), C_.data_ptr(),
         A.data_ptr(), h0.data_ptr(), gy.data_ptr(), g_hout.data_ptr(),
-        ck.data_ptr(), dx.data_ptr(), ddt.data_ptr(), dB_part.data_ptr(),
-        dC_part.data_ptr(), dA_part.data_ptr(), dh0.data_ptr(), B, S, H, hd,
-        N, stream_ptr(xh))
+        hs.data_ptr(), gs.data_ptr(), dprod.data_ptr(), dx.data_ptr(),
+        ddt.data_ptr(), dB_part.data_ptr(), dC_part.data_ptr(),
+        dA_part.data_ptr(), dh0.data_ptr(), B, S, H, hd, N, stream_ptr(xh))
     check(code, "ssm_scan_bwd")
     ssm_scan_bwd.launches += 1
-    return dx, ddt, dB_part.sum(2), dC_part.sum(2), dA_part.sum(0), dh0
+    return (dx, ddt, dB_part.sum(2), dC_part.sum(2), dA_part.sum((0, 2)),
+            dh0)
 
 
 ssm_scan_bwd.launches = 0

@@ -11,7 +11,7 @@ dtypes, no memory, nothing computed) and counts what it dispatches:
   FlopCounterMode`` (the forward, the remat recompute and the backward),
   plus each hand-written kernel's operations by its formula
   (``roofline.work``): on the ``meta`` device the K6, K7 and K8 wrappers
-  and K8's backward report their work to the open
+  and their backwards report their work to the open
   :class:`~repro_torch.roofline.work.WorkCounter` in place of a launch;
 * ``hbm_bytes``: the bytes of every aten op's outputs (in the eager port
   each op writes its output to HBM; its reads are earlier ops' writes),

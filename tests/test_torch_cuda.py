@@ -1643,10 +1643,13 @@ def _bwd_close(got, want, what):
 @pytest.mark.parametrize("N", [8, 16])
 def test_ssm_scan_bwd_kernel_matches_plain(dev, hd, N):
     """Every (hd, N) the backward kernel is built for, from a non-zero h0
-    and with a g_hout, S not a multiple of its 8-token tile (and one
-    tile, and S = 1)."""
+    and with a g_hout: S past its 32-token chunk and not a multiple of
+    it, S under one chunk, S = 1, S one chunk and one chunk and a token;
+    each call one count in ``launches``."""
     from repro_torch.kernels import ssm_scan as SS
-    for B, S, H in ((2, 37, 3), (1, 8, 2), (2, 1, 2)):
+    L = SS.BWD_CHUNK
+    for B, S, H in ((2, 37, 3), (1, 8, 2), (2, 1, 2), (2, L, 3),
+                    (1, L + 1, 2)):
         args = _scan_case(B, S, H, hd, N, dev, seed=S + hd + N)
         rng = np.random.default_rng(S)
         gy = torch.as_tensor(rng.standard_normal((B, S, H, hd)).astype(
@@ -1677,6 +1680,33 @@ def test_ssm_scan_bwd_kernel_at_hymba_layout_bitwise_twice(dev):
     want = SS.ssm_scan_bwd_ref(*args, gy, gh)
     torch.cuda.synchronize()
     _bwd_close(a, want, "hymba")
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_ssm_scan_bwd_kernel_underflowing_decay(dev):
+    """A chunk whose decay product underflows to 0 (dt in (2, 3) at A = -2
+    over the second 32-token chunk): every output finite and within the
+    tolerance of the plain version, two calls bit for bit equal."""
+    from repro_torch.kernels import ssm_scan as SS
+    L = SS.BWD_CHUNK
+    B, S, H, hd, N = 2, 3 * L + 5, 3, 64, 16
+    args = _scan_case(B, S, H, hd, N, dev, seed=9)
+    rng = np.random.default_rng(9)
+    args[1][:, L:2 * L] = torch.as_tensor(rng.uniform(2.0, 3.0, (
+        B, L, H)).astype(np.float32)).to(dev)
+    args[4].fill_(-2.0)
+    gy = torch.as_tensor(rng.standard_normal((B, S, H, hd)).astype(
+        np.float32)).to(dev)
+    gh = torch.as_tensor(rng.standard_normal((B, H, hd, N)).astype(
+        np.float32)).to(dev)
+    a = SS.ssm_scan_bwd(*args, gy, gh)
+    b = SS.ssm_scan_bwd(*args, gy, gh)
+    want = SS.ssm_scan_bwd_ref(*args, gy, gh)
+    torch.cuda.synchronize()
+    assert float(torch.exp(args[1][:, L:2 * L] * -2.0).double().prod(
+        1).max()) < 1e-45
+    assert all(bool(torch.isfinite(x).all()) for x in a)
+    _bwd_close(a, want, "underflow")
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 

@@ -253,10 +253,10 @@ def test_ssm_scan_limits_match_c_source():
 
 
 def test_ssm_scan_bwd_limits_match_c_source():
-    """The K8 backward's head dims, state sizes and token tile, as the
+    """The K8 backward's head dims, state sizes and token chunk, as the
     wrapper checks and sizes them before a launch: the state sizes are
-    the entry point's switch, the head dims ``launch_hd``'s, the tile its
-    ``kTile`` (the checkpoints' spacing)."""
+    the entry point's switch, the head dims ``launch_hd``'s, the chunk
+    its ``kChunk`` (the chain arrays' spacing)."""
     from repro_torch.kernels import ssm_scan as SS
     src = (CSRC / "ssm_scan_bwd.cu").read_text()
     entry = src[src.index('extern "C" int ssm_scan_bwd_launch'):]
@@ -265,4 +265,4 @@ def test_ssm_scan_bwd_limits_match_c_source():
                                    re.findall(r"case (\d+):", entry))
     assert SS.HEAD_DIMS == tuple(int(x) for x in
                                  re.findall(r"case (\d+):", hd_switch))
-    assert SS.BWD_TILE == int(re.search(r"kTile = (\d+);", src).group(1))
+    assert SS.BWD_CHUNK == int(re.search(r"kChunk = (\d+);", src).group(1))

@@ -59,9 +59,9 @@ def _scan_case(B, S, H, hd, N, seed):
             rng.standard_normal((B, H, hd, N)).astype(f)]
 
 
-SCAN_SHAPES = [(2, 13, 3, 16, 8),    # S past one backward tile of 8
-               (1, 40, 2, 32, 16),
-               (3, 8, 4, 16, 16)]    # S one tile
+SCAN_SHAPES = [(2, 13, 3, 16, 8),
+               (1, 40, 2, 32, 16),    # S past one backward chunk of 32
+               (3, 8, 4, 16, 16)]
 
 
 @pytest.mark.parametrize("B,S,H,hd,N", SCAN_SHAPES)
@@ -94,6 +94,114 @@ def test_ssm_scan_bwd_ref_matches_autograd(B, S, H, hd, N):
     got = SS.ssm_scan_bwd_ref(*arrs)
     for g, w in zip(got, want):
         assert g.shape == w.shape and _rel(g, w) < TOL
+
+
+def _chunked_bwd_mirror(xh, dt, B_, C_, A, h0, gy, g_hout, L):
+    """A mirror, in PyTorch operations (f32), of the three launches of
+    K8's backward kernel over chunks of L tokens: (1) each chunk's decay
+    product D (in token order), its state increment Delta (the state
+    walked from zero, in the forward's operation order) and its
+    carried-gradient increment Gamma (walked in reverse from zero); (2)
+    the chains h_start[c] (from h0) and g_end[c] (in reverse from g_hout),
+    dh0 = D_0 g_end[0] + Gamma_0; (3) each chunk's states recomputed from
+    h_start[c] and its tokens walked backwards from g_end[c]. Returns
+    (dxh, ddt, dB_, dC_, dA, dh0) and D (B, H, nc)."""
+    Bn, S, H, hd = xh.shape
+    decay = torch.exp(dt * A)                               # (B,S,H)
+    nc = -(-S // L)
+    chunks = [range(c * L, min(S, (c + 1) * L)) for c in range(nc)]
+
+    def dbx(t):
+        return (dt[:, t, :, None] * xh[:, t])[..., None] \
+            * B_[:, t, None, None, :]
+
+    def a(t):
+        return decay[:, t, :, None, None]
+    # 1. increments
+    D, Delta, Gamma = [], [], []
+    for ts in chunks:
+        st, p = torch.zeros_like(h0), torch.ones_like(decay[:, 0])
+        for t in ts:
+            st = st * a(t) + dbx(t)
+            p = p * decay[:, t]
+        g = torch.zeros_like(h0)
+        for t in reversed(ts):
+            g = a(t) * (g + C_[:, t, None, None, :] * gy[:, t, ..., None])
+        D.append(p)
+        Delta.append(st)
+        Gamma.append(g)
+    # 2. chains
+    h_start, h = [], h0
+    for c in range(nc):
+        h_start.append(h)
+        h = D[c][..., None, None] * h + Delta[c]
+    g_end, g = [None] * nc, g_hout
+    for c in reversed(range(nc)):
+        g_end[c] = g
+        g = D[c][..., None, None] * g + Gamma[c]
+    dh0 = g
+    # 3. each chunk's gradients
+    dx, ddt = torch.zeros_like(xh), torch.zeros_like(dt)
+    dB, dC = torch.zeros_like(B_), torch.zeros_like(C_)
+    dA_part = torch.zeros((Bn, H, nc))
+    for c, ts in enumerate(chunks):
+        hs = [h_start[c]]
+        for t in ts:
+            hs.append(hs[-1] * a(t) + dbx(t))
+        g = g_end[c]
+        for i in reversed(range(len(ts))):
+            t = ts[i]
+            gh = g + C_[:, t, None, None, :] * gy[:, t, ..., None]
+            dC[:, t] = torch.einsum("bhdn,bhd->bn", hs[i + 1], gy[:, t])
+            sB = torch.einsum("bhdn,bn->bhd", gh, B_[:, t])
+            sH = (gh * hs[i]).sum(-1).sum(-1)
+            dx[:, t] = dt[:, t, :, None] * sB
+            dB[:, t] = torch.einsum("bhdn,bhd->bn", gh,
+                                    dt[:, t, :, None] * xh[:, t])
+            ddt[:, t] = (xh[:, t] * sB).sum(-1) + A * decay[:, t] * sH
+            dA_part[:, :, c] += decay[:, t] * dt[:, t] * sH
+            g = gh * a(t)
+    return (dx, ddt, dB, dC, dA_part.sum((0, 2)), dh0), torch.stack(D, -1)
+
+
+# (B, S, H, hd, N, what): S past a chunk and not a multiple of it, S under
+# one chunk, S = 1, a chunk whose decay product underflows to 0 (dt in
+# (2, 3) at A = -2: the product of 32 decays is under f32's least
+# denormal), and A near 0 (every decay ~1)
+CHUNK_CASES = [(2, 75, 3, 16, 8, "ragged"), (1, 20, 2, 16, 16, "short"),
+               (2, 1, 2, 16, 8, "one"), (2, 70, 2, 16, 8, "underflow"),
+               (1, 40, 2, 32, 16, "no decay")]
+
+
+@pytest.mark.parametrize("B,S,H,hd,N,what", CHUNK_CASES,
+                         ids=[c[-1] for c in CHUNK_CASES])
+def test_ssm_scan_bwd_chunk_algebra(B, S, H, hd, N, what):
+    """The chunked form of K8's backward kernel (``_chunked_bwd_mirror`` at
+    the kernel's ``BWD_CHUNK``) against ``ssm_scan_bwd_ref`` and against
+    ``jax.vjp`` of the reference's ``ssm_scan``, every output, from a
+    non-zero h0 and with a g_hout; an underflowing chunk's D is 0 and
+    every output stays finite."""
+    L = SS.BWD_CHUNK
+    arrs = _scan_case(B, S, H, hd, N, seed=S + hd + N)
+    rng = np.random.default_rng(S)
+    if what == "underflow":
+        arrs[1][:, L:2 * L] = rng.uniform(2.0, 3.0, (B, L, H))
+        arrs[4][:] = -2.0
+    elif what == "no decay":
+        arrs[4][:] = -1e-7
+    ts = [torch.from_numpy(x) for x in arrs]
+    got, D = _chunked_bwd_mirror(*ts, L)
+    assert D.shape == (B, H, -(-S // L))
+    if what == "underflow":
+        assert bool((D[..., 1] == 0).all()) and bool((D[..., 0] > 0).all())
+    want = SS.ssm_scan_bwd_ref(*ts)
+    (_, _), vjp = jax.vjp(JS.ssm_scan, *map(jnp.asarray, arrs[:6]))
+    jwant = vjp((jnp.asarray(arrs[6]), jnp.asarray(arrs[7])))
+    for name, g, w, jw in zip(("xh", "dt", "B_", "C_", "A", "h0"), got, want,
+                              jwant):
+        assert g.shape == w.shape and bool(torch.isfinite(g).all()), name
+        assert _rel(g, w) < TOL, (name, _rel(g, w))
+        assert _rel(g, jw) < TOL, (name, _rel(g, jw))
 
 
 def test_ssm_scan_saves_nothing_without_grad():
