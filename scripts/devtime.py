@@ -18,7 +18,11 @@ the time per call with the host, where the host is the slower side.
 
 ``kernel_counts(fn, reps)`` is what ``reps`` calls run on the card
 (kernels, memsets, copies), by name and count, from one torch.profiler
-session: the launches a call makes.
+session: the launches a call makes. CUPTI now and then loses a device
+record, also in a process's first session (``scripts/timing_probe.py
+--sessions``); a session that kept fewer device records than the
+runtime calls that launched work (``LAUNCH_CALLS``) it recorded lost
+some, and is traced again.
 
 ``kernel_means(fn, names)`` splits a call by kernel with torch.profiler:
 each named kernel's mean duration over the records the trace kept, and
@@ -29,6 +33,7 @@ records, never a call's time.
 """
 from __future__ import annotations
 
+import sys
 import time
 
 import torch
@@ -39,6 +44,10 @@ SPIN_HZ = 1.98e9
 # the spin: this many times the warm-up pass's queueing time, and no less
 # than SPIN_MIN_S
 SPIN_MARGIN, SPIN_MIN_S = 10.0, 0.05
+# the runtime and driver calls that put one record each on the card (a
+# kernel, a copy or a memset), as the profiler names them
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaMemcpyAsync", "cudaMemsetAsync")
 
 
 def device_ms(fn, reps: int = 100, tries: int = 4):
@@ -86,10 +95,10 @@ def events_ms(fn, reps: int = 200, warm: int = 20) -> float:
     return a.elapsed_time(b) / reps
 
 
-def kernel_counts(fn, reps: int = 5):
-    """{name: records} of everything ``reps`` calls of ``fn`` run on the
-    card (not the runtime calls that launch it), from one torch.profiler
-    session after one untraced call."""
+def session_counts(fn, reps: int = 5):
+    """({name: records} of everything ``reps`` calls of ``fn`` ran on
+    the card, the runtime calls among ``LAUNCH_CALLS`` that the session
+    recorded), from one torch.profiler session after one untraced call."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -97,9 +106,33 @@ def kernel_counts(fn, reps: int = 5):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return {ev.key: ev.count for ev in prof.key_averages()
-            if ev.count and ev.device_type is not None
-            and "cuda" in str(ev.device_type).lower()}
+    ran, launched = {}, 0
+    for ev in prof.key_averages():
+        if not ev.count:
+            continue
+        if ev.device_type is not None and "cuda" in str(
+                ev.device_type).lower():
+            ran[ev.key] = ev.count
+        elif ev.key in LAUNCH_CALLS:
+            launched += ev.count
+    return ran, launched
+
+
+def kernel_counts(fn, reps: int = 5, tries: int = 3):
+    """{name: records} of everything ``reps`` calls of ``fn`` run on the
+    card (not the runtime calls that launch it): ``session_counts``,
+    traced again while a session kept fewer device records than the
+    launching runtime calls it recorded, up to ``tries`` sessions (the
+    last one is returned as it is)."""
+    for k in range(tries):
+        ran, launched = session_counts(fn, reps)
+        kept = sum(ran.values())
+        if kept >= launched:
+            break
+        print(f"devtime.kernel_counts: session {k + 1} kept {kept} device "
+              f"records of {launched} launching runtime calls", file=sys.stderr,
+              flush=True)
+    return ran
 
 
 def kernel_means(fn, names, reps: int = 100):

@@ -18,6 +18,14 @@ launches made, and how many ``cudaLaunchKernel`` runtime records. With
 ``--stress N`` one session first traces N small kernels, as a profile of a
 whole prefill does; the readings after it show what that does to the
 records of every later session.
+
+With ``--sessions N`` it does only this, from the process's first
+session on: N torch.profiler sessions of four K1 calls each at the main
+path's layout (``devtime.session_counts``), each session's device
+records beside the launching runtime calls it recorded, then what
+``devtime.kernel_counts`` returns for four calls:
+
+    PYTHONPATH=src python3 scripts/timing_probe.py --sessions 200
 """
 from __future__ import annotations
 
@@ -61,6 +69,32 @@ def profiled(fn, name, reps, cpu=True):
     return total / max(count, 1) / 1e3, count, launches
 
 
+def sessions(dev, n: int) -> int:
+    """``--sessions N`` (see the module docstring)."""
+    tbl, tid, idx, fb = CS.table_case(7, dev)
+    idx = idx.long()
+    F = PWR.freqs_ghz(PWR.DEFAULT, CS.NF, device=dev)
+
+    def k1():
+        return KPT.pc_table_predict(*tbl, tid, idx, *fb, F,
+                                    epoch_us=1.0, cap_per_ghz=5500.0,
+                                    return_hit=True)
+
+    short = []
+    for i in range(n):
+        ran, launched = DT.session_counts(k1, 4)
+        kept = sum(ran.values())
+        if kept != 4 or launched != 4 or len(ran) != 1:
+            short.append(i)
+        print(f"session {i}: {kept} device records, {launched} launching "
+              f"runtime calls, {len(ran)} names", flush=True)
+    print(f"{len(short)} of {n} sessions kept other than 4 records of one "
+          f"kernel and 4 launching calls: {short}", flush=True)
+    print(f"kernel_counts over four calls: {DT.kernel_counts(k1, 4)}",
+          flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("timing_probe: CUDA is not available", file=sys.stderr)
@@ -68,6 +102,8 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     no_tf32()
     print("card:", CS.card_line(), flush=True)
+    if "--sessions" in sys.argv:
+        return sessions(dev, int(sys.argv[sys.argv.index("--sessions") + 1]))
     k6, _ = CS.lm_cases(dev)
     qf, kf, vf = k6[torch.float32]
     qb, kb, vb = k6[torch.bfloat16]
