@@ -10,26 +10,29 @@ non-zero h0 and g_hout), checks two calls bit for bit, times it by
 ``scripts/devtime.py`` beside its bound (bytes at 3.35e12 B/s), splits
 it by its three launches with torch.profiler and prints the CTAs of
 each launch resident on one SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
-on a copy of the source built with the library's flags). With ``--ab``
-it also builds another checkout's ``ssm_scan_bwd.cu`` (a directory of
-csrc, e.g. a parent unpacked with ``git archive`` under ``build/``),
-checks its outputs against this tree's and times the two in turns
-(other, this, this, other) at the same layout; holds
-K7's backward kernel against its plain version (PyTorch operations,
+on a copy of the source built with the library's flags); holds K7's
+backward kernel against its plain version (PyTorch operations,
 ``rwkv_chunked_bthd_bwd_ref``) and against autograd through K7's plain
 version at rwkv6-3b's training microbatch (B 4, T 4096, 40 heads of 64,
-chunk 128, with a gS), checks two calls bit for bit, and times the
-kernel on the card by ``scripts/devtime.py`` (the plain version by
-events over 5 calls) beside the kernel's bound (``roofline.work``), the
-kernel split by its three launches with torch.profiler. With ``--train``
-it trains each named model at full width for ``--steps`` steps of 8 x
-4096 tokens in ``--microbatches`` microbatches through
-``make_train_step`` and prints step seconds and peak memory. With
-``--trace`` it also builds a copy of ``csrc/rwkv_chunk_bwd.cu`` whose
-gradients kernel stamps thread 0's SM clock at each phase of every tile
-(the library's flags, into a temporary directory under ``build/``), runs
-it once at rwkv6-3b's training microbatch, and prints the mean SM cycles
-of each phase, how many tiles were resident at once and the tail.
+chunk 128, with a gS), checks two calls bit for bit, times the kernel on
+the card by ``scripts/devtime.py`` (the plain version by events over 5
+calls) beside the kernel's bound (``roofline.work``), splits it by its
+three launches with torch.profiler and prints the CTAs of each launch
+resident on one SM. With ``--ab`` it also builds another checkout's
+``ssm_scan_bwd.cu`` and ``rwkv_chunk_bwd.cu`` (a directory of csrc, e.g.
+a parent unpacked with ``git archive`` under ``build/``), checks their
+outputs against this tree's and times each pair in turns (other, this,
+this, other) at the same layouts. With ``--train`` it trains each named
+model at full width for ``--steps`` steps of 8 x 4096 tokens in
+``--microbatches`` microbatches through ``make_train_step`` and prints
+step seconds and peak memory. With ``--trace`` it also builds a copy of
+``csrc/rwkv_chunk_bwd.cu`` whose gradients kernel stamps thread 0's SM
+clock at each phase of every tile (the library's flags, into a temporary
+directory under ``build/``), runs it once at rwkv6-3b's training
+microbatch, and prints the mean SM cycles of each phase, how many tiles
+were in flight at once and the tail, for thread 0 (warp 0: the query
+side and dv of rows 0-15, the longest key side) and for the last thread
+(a dk warp, and the thread that issues the tile's copies).
 """
 from __future__ import annotations
 
@@ -95,18 +98,18 @@ extern "C" int k8b_occupancy(int* out) {
 """
 
 
-def build_copy(csrc: Path, tmp: Path, extra: str = "") -> ctypes.CDLL:
-    """``csrc``'s ``ssm_scan_bwd.cu`` (with ``extra`` appended) and its
-    headers built alone, with the library's flags, into ``tmp``."""
+def build_copy(csrc: Path, tmp: Path, extra: str = "",
+               name: str = "ssm_scan_bwd.cu") -> ctypes.CDLL:
+    """``csrc``'s ``name`` (with ``extra`` appended) and its headers built
+    alone, with the library's flags, into ``tmp``."""
     for h in csrc.glob("*.cuh"):
         (tmp / h.name).write_text(h.read_text())
-    (tmp / "ssm_scan_bwd.cu").write_text(
-        (csrc / "ssm_scan_bwd.cu").read_text() + extra)
+    (tmp / name).write_text((csrc / name).read_text() + extra)
     out = subprocess.run([K._nvcc(), *K.NVCC_FLAGS, "-shared", "-o",
-                          str(tmp / "lib.so"), str(tmp / "ssm_scan_bwd.cu")],
+                          str(tmp / "lib.so"), str(tmp / name)],
                          capture_output=True, text=True)
     if out.returncode:
-        raise RuntimeError(f"nvcc failed on {csrc / 'ssm_scan_bwd.cu'}:\n"
+        raise RuntimeError(f"nvcc failed on {csrc / name}:\n"
                            f"{out.stdout}{out.stderr}")
     return ctypes.CDLL(str(tmp / "lib.so"))
 
@@ -232,7 +235,103 @@ def k8_bwd(dev, name, other=None):
         k8_ab(dev, name, other, args)
 
 
-def k7_bwd(dev, name):
+K7_BWD_KERNELS = ("rwkv_chunk_bwd_increments", "rwkv_chunk_bwd_chains",
+                  "rwkv_chunk_bwd_grads")
+# appended to a copy of csrc/rwkv_chunk_bwd.cu: the CTAs of each launch
+# resident on one SM at head dim 64, chunk 128, as the launcher sizes them
+K7_OCCUPANCY = """
+extern "C" int k7b_occupancy(int* out) {
+  const int ib = (int)(sizeof(float) * inc_floats(128, 64));
+  const int gb = (int)(sizeof(float) * GradLayout(128, 64).floats);
+  cudaError_t e = cudaFuncSetAttribute(
+      rwkv_chunk_bwd_increments<64>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, ib);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out, rwkv_chunk_bwd_increments<64>, kIncThreads, ib);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out + 1, rwkv_chunk_bwd_chains<64>, kChainThreads, 0);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(rwkv_chunk_bwd_grads<64>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, gb);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out + 2, rwkv_chunk_bwd_grads<64>, kThreads, gb);
+  out[3] = gb;
+  return (int)e;
+}
+"""
+
+
+def k7_entry(lib):
+    """``rwkv_chunk_bwd_launch`` of a built copy, as a call on the
+    wrapper's operands (the buffers ``_bwd_launch`` allocates; du summed
+    over the chunks and, for u (H, hd), the batch)."""
+    fn = lib.rwkv_chunk_bwd_launch
+    fn.restype, fn.argtypes = K.SIGNATURES["rwkv_chunk_bwd_launch"]
+
+    def call(r, k, v, w, u, gy, gS, C):
+        B, T, H, hd = r.shape
+        nc = T // C
+        ue = u.expand(B, H, hd)
+        outs = [torch.empty_like(r) for _ in range(4)]
+        du = torch.empty((B, H, nc, hd), device=r.device)
+        states = torch.empty((2, B * H * nc, hd, hd), device=r.device)
+        vecs = torch.empty((2, B * H * nc, hd), device=r.device)
+        code = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                  ue.data_ptr(), gy.data_ptr(),
+                  None if gS is None else gS.data_ptr(),
+                  *(t.data_ptr() for t in outs), du.data_ptr(),
+                  states[0].data_ptr(), states[1].data_ptr(),
+                  vecs[0].data_ptr(), vecs[1].data_ptr(), B, T, H, hd, C,
+                  ue.stride(0), ue.stride(1),
+                  torch.cuda.current_stream().cuda_stream)
+        if code:
+            raise RuntimeError(f"K7 backward copy: cuda error {code}")
+        du = du.sum(2)
+        return (*outs, du.sum(0) if u.dim() == 2 else du)
+    return call
+
+
+def k7_occupancy(lib, who, name):
+    out = (ctypes.c_int * 4)()
+    code = lib.k7b_occupancy(out)
+    if code:
+        raise RuntimeError(f"k7b_occupancy: cuda error {code}")
+    print(f"K7 bwd CTAs resident per SM at hd 64, chunk 128 ({who}): "
+          + ", ".join(f"{n} {v}" for n, v in zip(K7_BWD_KERNELS, out))
+          + f"; the gradients' shared memory {out[3]} B on {name}",
+          flush=True)
+
+
+def k7_ab(name, other: Path, args, C):
+    """Another checkout's K7 backward against this tree's: outputs, both
+    trees' CTAs per SM, and the two timed in turns."""
+    root = Path(__file__).resolve().parents[1] / "build"
+    root.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        lib = build_copy(other, Path(tmp), K7_OCCUPANCY, "rwkv_chunk_bwd.cu")
+        k7_occupancy(lib, "the other tree", name)
+        call = k7_entry(lib)
+        theirs = call(*args, C)
+        ours = RC.rwkv_chunked_bthd_bwd(*args, chunk=C)
+        torch.cuda.synchronize()
+        print("K7 bwd against the other tree's: " + ", ".join(
+            f"d{n} {rel(a, b):.3e}" for n, a, b in zip("rkvwu", ours, theirs))
+            + " of its largest magnitude", flush=True)
+        del theirs, ours
+        times = []
+        for who in ("other", "this", "this", "other"):
+            fn = (lambda: call(*args, C)) if who == "other" else (
+                lambda: RC.rwkv_chunked_bthd_bwd(*args, chunk=C))
+            times.append((who, DT.device_ms(fn, 20)))
+    print("K7 bwd in turns at rwkv6-3b's training microbatch (ms per call, "
+          "device): " + " / ".join(f"{w} {t}" for w, t in times)
+          + f" on {name}", flush=True)
+
+
+def k7_bwd(dev, name, other=None):
     B, T, H, hd, C = 4, 4096, 40, 64, 128
     rng = np.random.default_rng(6)
     f = np.float32
@@ -266,9 +365,7 @@ def k7_bwd(dev, name):
         lambda: RC.rwkv_chunked_bthd_bwd_ref(*args, chunk=C), 5, 1)
     nb = W.nbytes(*args, *got)
     bound, by = W.bound_ms(nb, W.rwkv_bwd_flops(B * H, T, hd))
-    split = DT.kernel_means(kernel, ("rwkv_chunk_bwd_increments",
-                                     "rwkv_chunk_bwd_chains",
-                                     "rwkv_chunk_bwd_grads"), 20)
+    split = DT.kernel_means(kernel, K7_BWD_KERNELS, 20)
     print(f"K7 bwd at rwkv6-3b's training microbatch (B {B} T {T} H {H} hd "
           f"{hd} C {C}): kernel {ms} ms per call (device), plain version "
           f"{plain_ms} ms, bound {bound:.4f} ms ({by}; {nb / 1e9:.3f} GB, "
@@ -276,35 +373,59 @@ def k7_bwd(dev, name):
           + ", ".join(f"{n} {m} ms ({c} records)"
                       for n, (m, c) in split.items())
           + f" on {name}", flush=True)
+    root = Path(__file__).resolve().parents[1] / "build"
+    root.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        k7_occupancy(build_copy(SRC, Path(tmp), K7_OCCUPANCY,
+                                "rwkv_chunk_bwd.cu"), "this tree", name)
+    if other is not None:
+        k7_ab(name, other, args, C)
 
 
-# the gradients kernel's trace: thread 0's SM clock after each phase of a
-# tile (the anchor each stamp follows), then the global timer (ns) at the
-# tile's start and end and the SM id
+# the gradients kernel's trace: the SM clock of thread 0 and of the last
+# thread at the end of each phase of a tile (the stamp goes just before the
+# line each anchor starts), then the global timer (ns) at the tile's start
+# and end and the SM id. Thread 0 is in warp 0 (the query side and dv of
+# rows 0-15); the last thread in warp 15 (dk of rows 64-79, and the thread
+# that issues the copies).
+TRACE_START = "    if (tid < HD) {\n      sU[tid]"
 TRACE_PHASES = (
-    ("w, r, k, gy and S in",
-     "  cp_wait<2>();\n  __syncthreads();\n"),
-    ("prefix, diag, rP' and kD'",
-     "  __syncthreads();\n  load_rows<kThreads, HD>(s1, ld, v + base"),
-    ("A", "  cp_wait<1>();\n  __syncthreads();\n  float dv_acc"),
-    ("A^T gy (v in)", "  cp_wait<0>();\n  __syncthreads();\n  row_dots"),
-    ("ddiag and dA", "      // dA\n  __syncthreads();\n"),
-    ("gy S^T, dA kD', dA^T rP', staged",
-     "  __syncthreads();\n\n  // the prefix again"),
-    ("w, k and G in",
-     "  cp_wait<1>();\n  __syncthreads();\n  {\n    float lw"),
-    ("prefix again, kT", "  cp_wait<0>();\n  __syncthreads();\n  // dv +="),
-    ("kT G, v G^T, dv out, staged",
-     "back by other threads of this CTA\n  __syncthreads();\n"),
-    ("epilogue: dr, dk, sums", "    segU[seg * HD + col] = sumU;\n"
-     "    __syncthreads();\n"),
-    ("epilogue: dw", None))
-NPT = len(TRACE_PHASES) + 4
+    ("w, r, k and the states in", "    // the prefix of logw down each"),
+    ("logw's local prefix; gy and v in",
+     "    row_dots<HD>(sDdiag, sGy, sV, ld, Cp);"),
+    ("offsets, ddiag", "    for (int pu = warp; pu < PU; pu += kWarps) {\n"
+     "      const int pb = pu / CQ, pe0 = (pu % CQ) * WP, p0 = pb * 16;\n"
+     "      if (pb >= RB) continue;\n      float dg[2]"),
+    ("cum, rP', kD', diag", "    // the products, a unit at a time"),
+    ("key side by blocks: dv = A^T gy (warp 0), d_kD (the last)",
+     "      // dv += kT G; d_kT = v G^T"),
+    ("kT G (warp 0), v G^T (the last)",
+     "      if (act && query) {  // dv + diag gy, written"),
+    ("dv out (warp 0)", "      if (act && !query) {"),
+    ("dk's fold (the last)", "      // the query side of rows t: d_rP 2^j"),
+    ("gy S^T (warp 0)",
+     "      if (qact) {\n#pragma unroll 1\n        for (int sb"),
+    ("query side: dA kD' by blocks (warp 0)",
+     "        // dr = d_rP P + ddiag u k; gP"),
+    ("dr and gP (warp 0)", "    __syncthreads();  // every product done"),
+    ("every warp's products",
+     "    if (issuer) {\n      tc::mbar_expect_tx(barW"),
+    ("copies issued; gP, -gE - gF out", "    // dw: dlogw = the suffix sum"),
+    ("dcum's local suffix",
+     "    if (tid < HD) {\n      // du's part of this tile"),
+    ("du, d_total and the later blocks' sums",
+     "    tc::mbar_wait(barW, it & 1);  // w again"),
+    ("w in; dw out (warp 0)",
+     "    __syncthreads();\n    if (issuer && next < tiles)\n      issue_gvs"),
+    ("every warp's dw", "    if (issuer && next < tiles)\n      issue_gvs"))
+NPT = 2 * (len(TRACE_PHASES) + 1) + 3
+LAST = len(TRACE_PHASES) + 1  # where the last thread's stamps start
 
 
 def _stamp(k):
-    return (f"if (threadIdx.x == 0) k7b_trace[(size_t)blockIdx.x * {NPT} + "
-            f"{k}] = clock64();\n")
+    return (f"if (threadIdx.x == 0) k7b_trace[(size_t)tile * {NPT} + {k}] = "
+            f"clock64();\nif (threadIdx.x == blockDim.x - 1) k7b_trace[("
+            f"size_t)tile * {NPT} + {LAST + k}] = clock64();\n")
 
 
 def traced_source(tiles):
@@ -312,23 +433,18 @@ def traced_source(tiles):
     src = (SRC / "rwkv_chunk_bwd.cu").read_text()
     g = ("if (threadIdx.x == 0) {{ unsigned long long t; asm volatile("
          "\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t)); k7b_trace[(size_t)"
-         "blockIdx.x * {n} + {k}] = t; }}\n")
+         "tile * {n} + {k}] = t; }}\n")
     edits = [("namespace {\n", "namespace {\n__device__ unsigned long long "
               f"k7b_trace[{tiles * NPT}];\n"),
-             ("  const int col = tid % HD, seg = tid / HD, SL = Cp / NS, t0 "
-              "= seg * SL;\n",
-              "  const int col = tid % HD, seg = tid / HD, SL = Cp / NS, t0 "
-              "= seg * SL;\n" + _stamp(0) + g.format(n=NPT, k=NPT - 3)
+             (TRACE_START, _stamp(0) + g.format(n=NPT, k=NPT - 3)
               + "if (threadIdx.x == 0) { unsigned sm; asm(\"mov.u32 %0, "
-              f"%%smid;\" : \"=r\"(sm)); k7b_trace[(size_t)blockIdx.x * "
-              f"{NPT} + {NPT - 1}] = sm; }}\n")]
-    for k, (_, anchor) in enumerate(TRACE_PHASES[:-1], start=1):
-        i = anchor.rindex("\n") + 1  # the stamp starts a line
-        edits.append((anchor, anchor[:i] + _stamp(k) + anchor[i:]))
-    end = ("        dw[o] = ww > 1e-38f ? dl / ww : 0.f;\n      }\n    }\n"
-           "  }\n")
-    edits.append((end, end + "  __syncthreads();\n" + _stamp(
-        len(TRACE_PHASES)) + g.format(n=NPT, k=NPT - 2)))
+              f"%%smid;\" : \"=r\"(sm)); k7b_trace[(size_t)tile * "
+              f"{NPT} + {NPT - 1}] = sm; }}\n" + TRACE_START)]
+    for k, (_, anchor) in enumerate(TRACE_PHASES, start=1):
+        stamp = _stamp(k)
+        if k == len(TRACE_PHASES):
+            stamp += g.format(n=NPT, k=NPT - 2)
+        edits.append((anchor, stamp + anchor))
     edits.append(('extern "C" int rwkv_chunk_bwd_launch(',
                   'extern "C" int k7b_trace_read(void* dst) {\n  return (int)'
                   'cudaMemcpyFromSymbol(dst, k7b_trace, sizeof(k7b_trace));\n'
@@ -351,7 +467,6 @@ def k7_bwd_trace(dev, name):
         rng.uniform(0.6, 0.999, (B, T, H, hd)),
         rng.standard_normal((B, T, H, hd))))
     u = torch.as_tensor(rng.standard_normal((H, hd)).astype(f) * .1).to(dev)
-    ue = u.expand(B, H, hd)
     root = Path(__file__).resolve().parents[1] / "build"
     root.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=root) as tmp:
@@ -366,35 +481,19 @@ def k7_bwd_trace(dev, name):
             raise RuntimeError(f"nvcc failed on the traced copy:\n"
                                f"{out.stdout}{out.stderr}")
         lib = ctypes.CDLL(str(d / "lib.so"))
-        fn = lib.rwkv_chunk_bwd_launch
-        fn.restype, fn.argtypes = K.SIGNATURES["rwkv_chunk_bwd_launch"]
         lib.k7b_trace_read.restype = ctypes.c_int
         lib.k7b_trace_read.argtypes = [ctypes.c_void_p]
-        outs = [torch.empty_like(r) for _ in range(4)]
-        du = torch.empty((B, H, nc, hd), device=dev)
-        states = torch.empty((2, B * H * nc, hd, hd), device=dev)
-        vecs = torch.empty((2, B * H * nc, hd), device=dev)
-
-        def run():
-            code = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-                      ue.data_ptr(), gy.data_ptr(), None,
-                      *(t.data_ptr() for t in outs), du.data_ptr(),
-                      states[0].data_ptr(), states[1].data_ptr(),
-                      vecs[0].data_ptr(), vecs[1].data_ptr(), B, T, H, hd,
-                      C, ue.stride(0), ue.stride(1),
-                      torch.cuda.current_stream().cuda_stream)
-            if code:
-                raise RuntimeError(f"traced K7 backward: cuda error {code}")
-        run()
+        outs = k7_entry(lib)(r, k, v, w, u, gy, None, C)
         torch.cuda.synchronize()
         want = RC.rwkv_chunked_bthd_bwd(r, k, v, w, u, gy)
-        errs = [rel(a, b) for a, b in zip(outs, want[:4])]
+        errs = [rel(a, b) for a, b in zip(outs, want)]
         buf = np.zeros(tiles * NPT, np.uint64)
         if lib.k7b_trace_read(buf.ctypes.data):
             raise RuntimeError("k7b_trace_read failed")
     t = buf.reshape(tiles, NPT).astype(np.float64)
     n = len(TRACE_PHASES)
     dt = np.diff(t[:, :n + 1], axis=1)
+    dl = np.diff(t[:, LAST:LAST + n + 1], axis=1)
     total = t[:, n] - t[:, 0]
     print(f"K7 bwd trace of the gradients kernel at rwkv6-3b's training "
           f"microbatch ({tiles} tiles; the traced copy against the "
@@ -402,12 +501,14 @@ def k7_bwd_trace(dev, name):
           f"{max(errs):.1e} of its largest magnitude): {total.mean():.0f} SM "
           f"cycles a tile (median {np.median(total):.0f}, max "
           f"{total.max():.0f}) on {name}", flush=True)
+    print("  phase: thread 0's cycles (share), the last thread's", flush=True)
     for i, (what, _) in enumerate(TRACE_PHASES):
-        print(f"  {what}: {dt[:, i].mean():.0f} cycles "
-              f"({dt[:, i].sum() / total.sum():.1%})", flush=True)
+        print(f"  {what}: {dt[:, i].mean():.0f} "
+              f"({dt[:, i].sum() / total.sum():.1%}), {dl[:, i].mean():.0f}",
+              flush=True)
     g0, g1 = t[:, NPT - 3], t[:, NPT - 2]
     span = g1.max() - g0.min()
-    print(f"  global span {span / 1e3:.1f} us; mean tiles resident "
+    print(f"  global span {span / 1e3:.1f} us; mean tiles in flight "
           f"{(g1 - g0).sum() / span:.1f}; SMs used "
           f"{len(np.unique(t[:, NPT - 1]))}; mean tile "
           f"{(g1 - g0).mean() / 1e3:.2f} us; tail (last start to end) "
@@ -461,7 +562,7 @@ def main():
         print(re.split(r"\n== ", sec)[0], flush=True)
     if not args.only_train:
         k8_bwd(dev, name, args.ab)
-        k7_bwd(dev, name)
+        k7_bwd(dev, name, args.ab)
     if args.trace:
         k7_bwd_trace(dev, name)
     for arch in args.train:

@@ -32,9 +32,11 @@ public wrappers):
 * ``rwkv_chunk.rwkv_chunked_bthd_bwd`` — K7's backward
   (``csrc/rwkv_chunk_bwd.cu``): each chunk's state increments, the state
   and its gradient chained over the chunks, then each chunk's dr, dk, dv
-  and dw, every product in three TF32 terms on the tensor cores (the
-  helpers shared with K7 in ``csrc/tf32_mma.cuh``), no float atomics. It
-  replaces no TPU kernel (the reference's gradient is XLA's);
+  and dw (a persistent CTA per SM over the chunks, its operands copied by
+  TMA, nothing staged in device memory), every product in three TF32
+  terms on the tensor cores (the helpers shared with K7 in
+  ``csrc/tf32_mma.cuh``), no float atomics. It replaces no TPU kernel (the
+  reference's gradient is XLA's);
 * ``ssm_scan.ssm_scan`` — K8, the selective scan of the hybrid family's
   mamba heads (``csrc/ssm_scan.cu``): one CTA per (batch, head), one
   thread per channel, tiles of tokens staged in shared memory. It

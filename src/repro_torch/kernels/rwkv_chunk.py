@@ -25,8 +25,10 @@ The gradient: :class:`RwkvChunk` is K7 as an autograd Function (from the
 zero state; y and the final state), its backward
 :func:`rwkv_chunked_bthd_bwd`: on a CUDA tensor the K7 backward kernel
 (``csrc/rwkv_chunk_bwd.cu``: the chunks' state increments, the two chains
-over the chunks, then the gradients of each chunk; counted once per call
-in ``rwkv_chunked_bthd_bwd.launches``), on a CPU tensor its plain version
+over the chunks, then the gradients of each chunk, a persistent CTA per
+SM walking the chunks with dr, dk and dv finished in registers and
+nothing staged in device memory; counted once per call in
+``rwkv_chunked_bthd_bwd.launches``), on a CPU tensor its plain version
 :func:`rwkv_chunked_bthd_bwd_ref`, PyTorch operations in f32.
 """
 from __future__ import annotations

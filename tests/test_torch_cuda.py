@@ -1261,12 +1261,16 @@ def _rwkv_bwd_close(got, want, what):
     (1, 96, 2, 64, 128, True, False),      # T < chunk: one chunk of 96
     (2, 256, 3, 128, 64, True, True),      # the largest chunk at hd 128
     (1, 64, 2, 128, 64, False, False),     # T == chunk at hd 128
+    (4, 4096, 40, 64, 128, True, False),   # rwkv6-3b: ~39 tiles a CTA
 ])
 def test_rwkv_chunk_bwd_kernel_matches_plain(dev, B, T, H, hd, chunk, gS,
                                              u_batch):
     """Every head dim K7 has, chunks from 16 to 128 (64 at head dim 128),
     gS None and not, u per head and per batch row, decays over (0.6,
-    0.999): one launch, each gradient against the plain version."""
+    0.999), and rwkv6-3b's training microbatch, where each CTA of the
+    gradients' persistent grid takes many tiles in turn (a race between a
+    tile and the next one's copies would show): one launch, each gradient
+    against the plain version."""
     from repro_torch.kernels import rwkv_chunk as RC
     args = _rwkv_bwd_case(B, T, H, hd, dev, gS=gS, u_batch=u_batch,
                           seed=T + hd)

@@ -6,7 +6,11 @@ reference's ``models.ssm.ssm_scan``, and ``kernels.rwkv_chunk.RwkvChunk``
 the port's ``time_mix_chunked`` against ``jax.vjp`` of the reference's,
 both from numpy-seeded inputs; each backward also against autograd
 through its own plain forward, and K7's under the 1e-38 clamp against
-the same chunk math in f64.
+the same chunk math in f64. ``_k7_bwd_mirror`` is K7's backward kernel
+as it orders its work, in PyTorch (its blocks of 16 tokens, the 2^j
+scaling, the per-element folds, the suffix walk), held against the plain
+version, f64 autograd under the clamp and ``jax.vjp`` through the
+time-mix: only the card runs the kernel itself.
 
 Bounds: every gradient to 1e-5 of its largest magnitude (f32 on both
 sides, the same function summed in other orders; measured <= 5e-7 for
@@ -355,6 +359,156 @@ def test_rwkv_chunked_bwd_matches_autograd(B, T, H, hd, C):
     for name, g, wt in zip("rkvwu", got, want):
         assert g.shape == wt.shape, name
         assert _rel(g, wt) < TOL, (name, _rel(g, wt))
+
+
+def _k7_bwd_mirror(r, k, v, w, u, gy, gS, C):
+    """K7's backward kernel (``csrc/rwkv_chunk_bwd.cu``) as it orders its
+    work, in PyTorch f32 (test-only): the chunks' state increments and the
+    two chains (launches 1 and 2), then each chunk's gradients (launch 3)
+    over Cp = C rounded up to 32 rows: the 2^j column scaling of rP and kD
+    (P the exp of the previous token's cum), the blocks of A^T, dA^T and dA
+    over 16 tokens formed and consumed at once, each product's result
+    folded element by element (dcum = gP - gE - gF and gP kept per tile),
+    the suffix walk for dw and du per tile. Returns dr, dk, dv, dw and du
+    in ``rwkv_chunked_bthd_bwd``'s shapes."""
+    B, T, H, hd = r.shape
+    nc, Cp = T // C, -(-C // 32) * 32
+
+    def tiles(x, pad):   # (B,T,H,hd) -> (B,H,nc,Cp,hd), rows past C padded
+        x = x.float().permute(0, 2, 1, 3).reshape(B, H, nc, C, hd)
+        return torch.nn.functional.pad(x, (0, 0, 0, Cp - C), value=pad)
+    R, K, V, W, GY = (tiles(x, p) for x, p in ((r, 0.), (k, 0.), (v, 0.),
+                                                (w, 1.), (gy, 0.)))
+    ue = u.float().expand(B, H, hd)[:, :, None, None, :]
+    lw = torch.log(torch.clamp(W, min=1e-38))
+    cum = torch.cumsum(lw, 3)
+    tot = cum[..., Cp - 1:, :]           # the pad rows add log 1 = 0
+    # 1 and 2: dS_c = kT^T v and Ry_c = rP^T gy, chained over the chunks
+    dS = (K * torch.exp(tot - cum)).transpose(-1, -2) @ V
+    Ry = (R * torch.exp(cum - lw)).transpose(-1, -2) @ GY
+    decay = torch.exp(tot).transpose(-1, -2)            # (B,H,nc,hd,1)
+    S, G = torch.empty_like(dS), torch.empty_like(dS)
+    s = torch.zeros((B, H, hd, hd))
+    for c in range(nc):
+        S[:, :, c], s = s, decay[:, :, c] * s + dS[:, :, c]
+    g = torch.zeros((B, H, hd, hd)) if gS is None else gS.float()
+    for c in reversed(range(nc)):
+        G[:, :, c], g = g, Ry[:, :, c] + decay[:, :, c] * g
+    dts = decay[..., 0] * (S * G).sum(-1)               # (B,H,nc,hd)
+    # 3: each chunk's gradients
+    j = torch.clamp(torch.round(0.5 * tot * 1.44269504), -126, 0)
+    sc, inv = torch.exp2(j), torch.exp2(-j)
+    prev = torch.nn.functional.pad(cum, (0, 0, 1, 0))[..., :Cp, :]
+    P, E, F = torch.exp(prev) * inv, torch.exp(-cum) * sc, torch.exp(tot - cum)
+    E[..., C - 1, :] = 0.0
+    rPs, kDs = R * P, K * E
+    ddiag = (GY * V).sum(-1, keepdim=True)
+    diag = (R * ue * K).sum(-1, keepdim=True)
+    upper = torch.triu(torch.ones((16, 16), dtype=torch.bool), 1)
+    dv, dkd, drp = (torch.zeros_like(R) for _ in range(3))
+    for s0 in range(0, Cp, 16):
+        rs = slice(s0, s0 + 16)
+        for t0 in range(s0, Cp, 16):   # the key side of rows s
+            ts = slice(t0, t0 + 16)
+            At = kDs[..., rs, :] @ rPs[..., ts, :].transpose(-1, -2)
+            dAt = V[..., rs, :] @ GY[..., ts, :].transpose(-1, -2)
+            if t0 == s0:
+                At, dAt = At * upper, dAt * upper
+            dv[..., rs, :] += At @ GY[..., ts, :]
+            dkd[..., rs, :] += dAt @ rPs[..., ts, :]
+        for b0 in range(0, s0 + 1, 16):   # the query side of rows t
+            bs = slice(b0, b0 + 16)
+            dA = GY[..., rs, :] @ V[..., bs, :].transpose(-1, -2)
+            if b0 == s0:
+                dA = dA * upper.T
+            drp[..., rs, :] += dA @ kDs[..., bs, :]
+    kT = K * F
+    dv = dv + kT @ G + diag * GY
+    dkT = V @ G.transpose(-1, -2)
+    dk = dkd * E + dkT * F + ddiag * ue * R
+    q = -(dkd * kDs) - dkT * kT
+    drp = (GY @ S.transpose(-1, -2)) * sc + drp
+    dr = drp * P + ddiag * ue * K
+    gP = drp * rPs
+    dcum = gP + q
+    later = dts + (dkT * kT).sum(3)                     # d_total
+    dl = torch.flip(torch.cumsum(torch.flip(dcum, (3,)), 3), (3,)) \
+        + later[..., None, :] - gP
+    dw = torch.where(W > 1e-38, dl / W, 0.0)
+    du = (ddiag * R * K).sum((2, 3))
+
+    def back(x):   # (B,H,nc,Cp,hd) -> (B,T,H,hd)
+        return x[..., :C, :].reshape(B, H, T, hd).permute(0, 2, 1, 3)
+    return (back(dr), back(dk), back(dv), back(dw),
+            du.sum(0) if u.dim() == 2 else du)
+
+
+@pytest.mark.parametrize("B,T,H,hd,C,use_gS,u_batch", [
+    (2, 64, 2, 16, 16, True, False),
+    (1, 256, 1, 16, 128, False, True),
+    (1, 128, 2, 16, 64, True, False),
+    (2, 24, 1, 16, 128, True, True),      # T < 32: one chunk of 24
+    (1, 128, 1, 128, 64, True, False),    # head dim 128, two chunks
+    (1, 64, 2, 128, 64, False, True),     # T == chunk at head dim 128
+])
+def test_k7_bwd_mirror_matches_plain(B, T, H, hd, C, use_gS, u_batch):
+    """The mirror of K7's backward kernel (``_k7_bwd_mirror``) against its
+    plain version, every gradient to 1e-5 of its largest magnitude (f32 on
+    both sides, the same function summed in other orders), decays over
+    (0.6, 0.999)."""
+    rng = np.random.default_rng(T + hd + C)
+    f = np.float32
+    r, k, v, gy = (torch.from_numpy(rng.standard_normal(
+        (B, T, H, hd)).astype(f) * 0.5) for _ in range(4))
+    w = torch.from_numpy(rng.uniform(0.6, 0.999, (B, T, H, hd)).astype(f))
+    u = torch.from_numpy((rng.standard_normal(
+        (B, H, hd) if u_batch else (H, hd)) * 0.1).astype(f))
+    gS = (torch.from_numpy(rng.standard_normal((B, H, hd, hd)).astype(f)
+                           * 0.1) if use_gS else None)
+    got = _k7_bwd_mirror(r, k, v, w, u, gy, gS, min(C, T))
+    want = RC.rwkv_chunked_bthd_bwd_ref(r, k, v, w, u, gy, gS, chunk=C)
+    for name, g, wt in zip("rkvwu", got, want):
+        assert g.shape == wt.shape, name
+        assert _rel(g, wt) < TOL, (name, _rel(g, wt))
+
+
+def test_k7_bwd_mirror_under_the_clamp():
+    """The mirror under the 1e-38 clamp (the cases of
+    ``test_rwkv_chunked_bwd_under_the_clamp``): finite, dw exactly 0 where
+    the clamp stops the gradient, every gradient within 1e-5 of autograd
+    through the chunk math in f64."""
+    B, T, H, hd, C = 2, 64, 2, 16, 16
+    rng = np.random.default_rng(3)
+    f = np.float32
+    r, k, v, gy = (rng.standard_normal((B, T, H, hd)).astype(f) * 0.5
+                   for _ in range(4))
+    w = rng.uniform(0.999, 1.0, (B, T, H, hd)).astype(f)
+    under = [(0, 15, 0, 3), (1, 47, 1, 0), (0, 40, 1, 7), (1, 20, 0, 5)]
+    for i, idx in enumerate(under):
+        w[idx] = 0.0 if i % 2 == 0 else 1e-40
+    u = rng.standard_normal((H, hd)).astype(f) * 0.1
+    gS = rng.standard_normal((B, H, hd, hd)).astype(f)
+    ts = [torch.from_numpy(a) for a in (r, k, v, w, u, gy, gS)]
+    got = _k7_bwd_mirror(*ts, C)
+    ins = [t.double().requires_grad_() for t in ts[:5]]
+    want = torch.autograd.grad(_chunk_f64(*ins, C), ins,
+                               (ts[5].double(), ts[6].double()))
+    for name, g, wt in zip("rkvwu", got, want):
+        assert torch.isfinite(g).all(), name
+        assert _rel(g, wt) < TOL, (name, _rel(g, wt))
+    for idx in under:
+        assert float(got[3][idx]) == 0.0
+
+
+def test_k7_bwd_mirror_through_time_mix_matches_jax_vjp(monkeypatch):
+    """The mirror as K7's Function's backward: the chunked time-mix's
+    gradients against ``jax.vjp`` of the reference's (the setting of
+    ``test_time_mix_chunked_grad_matches_jax_vjp``)."""
+    monkeypatch.setattr(
+        RC, "rwkv_chunked_bthd_bwd",
+        lambda r, k, v, w, u, gy, gS=None, *, chunk=128: _k7_bwd_mirror(
+            r, k, v, w, u, gy, gS, min(chunk, r.shape[1])))
+    test_time_mix_chunked_grad_matches_jax_vjp(4)
 
 
 def test_rwkv_chunk_saves_nothing_without_grad():
