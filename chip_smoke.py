@@ -7,9 +7,10 @@ drives the port (never JAX, never ``repro``):
 
 1. the card's name and power limit; TF32 off; the kernel library build
    (registers and spills from nvcc's report); K6, K7 and K8 each run only
-   their own kernels, and a paligemma-3b prefill runs K6 once per layer
-   and no other attention kernel (torch.profiler, in a fresh process of
-   this script: ``--lm-ran``);
+   their own kernels (K8 its three launches, once each a call), and a
+   paligemma-3b prefill runs K6 once per layer and no other attention
+   kernel (torch.profiler, in a fresh process of this script:
+   ``--lm-ran``);
 2. every kernel against its plain PyTorch version on the card, at the
    main path's shapes (64 CUs x 40 WFs, 64 tables x 128 slots, 10 V/f
    states, 1024-block Table II programs), from numpy-seeded inputs: the
@@ -32,7 +33,10 @@ drives the port (never JAX, never ``repro``):
    the paligemma-3b prefill (bf16 and f32: head dim 256, 8 over 1 heads,
    prefix-LM over its 256 patch embeddings), K7 at
    the rwkv6-3b prefill, and K8 (the selective scan) at the hymba-1.5b
-   prefill and at a decode step (S = 1), each from a non-zero state;
+   prefill, at a decode step (S = 1), at hymba-1.5b's training layout
+   (B 4, S 4096; two calls bit for bit, timed beside its bound and split
+   by its three launches) and with a chunk whose decay product
+   underflows to 0, each from a non-zero state;
 3. times of every kernel (the one method: ``scripts/devtime.py``):
    device time per call against its bound, the per-call time with the
    host, the plain version's and, for K6, ``scaled_dot_product_attention``
@@ -431,6 +435,15 @@ K8_BWD_UNDERFLOW = "underflow"
 K8_BWD_TOL = (1e-5, 1e-4)
 K8_BWD_KERNELS = ("ssm_scan_bwd_increments", "ssm_scan_bwd_chains",
                   "ssm_scan_bwd_grads")
+# K8's three launches, and its layouts past the serve path's against its
+# plain version, (B, S, H, hd, N, underflow): hymba-1.5b's training
+# layout (a microbatch of 4 x 4096) and a chunk whose decay product
+# underflows to 0 (dt in (2, 3) at A = -2 over the second FWD_CHUNK-token
+# chunk)
+K8_KERNELS = ("ssm_scan_fwd_increments", "ssm_scan_fwd_chains",
+              "ssm_scan_fwd_outputs")
+K8_FWD_LAYOUTS = {"train": (4, 4096, 25, 64, 16, False),
+                  "underflow": (2, 3 * SS.FWD_CHUNK + 5, 25, 64, 16, True)}
 # K7's backward kernel against its plain version and against autograd
 # through K7's plain version, (B, T, H, hd, chunk, u per batch row):
 # rwkv6-3b's training microbatch (4 x 4096, 40 heads of 64, chunk 128, u
@@ -818,7 +831,7 @@ def kernel_split(fn, reps=1):
              "flash_attention.bwd": "attn_bwd", "rwkv_chunk.bwd": "K7_bwd"}
     own = {"flash_attention_kernel": "K6", "flash_attention_bwd": "attn_bwd",
            "rwkv_chunk_kernel": "K7", "rwkv_chunk_bwd_": "K7_bwd",
-           "ssm_scan_kernel": "K8",
+           "ssm_scan_fwd_": "K8",
            "ssm_scan_bwd_": "K8_bwd"}
     ops, ranges, kernels = {}, {}, []
     for ev in prof.profiler.kineto_results.events():
@@ -1605,11 +1618,13 @@ def train_phase(dev, card, rows, roof) -> None:
     torch.cuda.empty_cache()
 
 
-def scan_bwd_case(B, S, H, hd, N, seed, dev, underflow=False):
+def scan_bwd_case(B, S, H, hd, N, seed, dev, underflow=False,
+                  chunk=SS.BWD_CHUNK):
     """K8's operands as ``scan_cases`` makes them (a non-zero h0) and the
     output gradients gy and g_hout, from a numpy seed; with ``underflow``
-    dt in (2, 3) over the second chunk of the backward and A = -2, so
-    that the chunk's decay product underflows to 0."""
+    dt in (2, 3) over the second ``chunk`` tokens (the backward's chunk
+    by default) and A = -2, so that the chunk's decay product underflows
+    to 0."""
     rng = np.random.default_rng(seed)
     arrs = [rng.standard_normal((B, S, H, hd)),
             rng.uniform(0.01, 1.5, (B, S, H)),
@@ -1620,10 +1635,58 @@ def scan_bwd_case(B, S, H, hd, N, seed, dev, underflow=False):
             rng.standard_normal((B, S, H, hd)),
             rng.standard_normal((B, H, hd, N))]
     if underflow:
-        L = SS.BWD_CHUNK
+        L = chunk
         arrs[1][:, L:2 * L] = rng.uniform(2.0, 3.0, arrs[1][:, L:2 * L].shape)
         arrs[4][:] = -2.0
     return [torch.as_tensor(a.astype(np.float32)).to(dev) for a in arrs]
+
+
+def k8_fwd_rows(dev, card, rows) -> None:
+    """K8 against its plain version (``ssm_scan_ref``, the token loop) at
+    ``K8_FWD_LAYOUTS``: y and h_out within RTOL / ATOL, finite, two calls
+    bit for bit (where a chunk's decay product underflows, that it is 0 in
+    f32); at hymba-1.5b's training layout its device time beside its
+    bound, split by its three launches."""
+    row = rows["ssm_scan"]
+    for i, (key, (B, S, H, hd, N, under)) in enumerate(
+            K8_FWD_LAYOUTS.items()):
+        args = scan_bwd_case(B, S, H, hd, N, 80 + i, dev, underflow=under,
+                             chunk=SS.FWD_CHUNK)[:6]
+        got = SS.ssm_scan(*args)
+        again = SS.ssm_scan(*args)
+        want = SS.ssm_scan_ref(*args)
+        torch.cuda.synchronize()
+        tag = f"ssm_scan[{key}: B {B} S {S} H {H} hd {hd} N {N}]"
+        check(all(bool(torch.isfinite(g).all()) for g in got),
+              f"{tag}: y and h_out finite")
+        row["max_abs_err"] = max(row["max_abs_err"],
+                                 compare(f"{tag}.y", got[0], want[0]),
+                                 compare(f"{tag}.h_out", got[1], want[1]))
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"{tag}: two calls bitwise equal")
+        if under:
+            L = SS.FWD_CHUNK
+            prod = torch.exp(args[1][:, L:2 * L] * args[4]).prod(1)
+            check(float(prod.max()) == 0.0,
+                  f"{tag}: the second chunk's decay product underflows to "
+                  f"0 in f32")
+        nb = nbytes(*args, *got)
+        del got, again, want
+        if key != "train":
+            continue
+        ops = scan_flops(B, S, H, hd, N)
+        bound, by = bound_ms(nb, ops)
+        ms = device_ms(lambda: SS.ssm_scan(*args), tag, reps=20)
+        split = DT.kernel_means(lambda: SS.ssm_scan(*args), K8_KERNELS,
+                                reps=20)
+        if ms is not None:
+            print(f"time {tag}: device {ms * 1e3:.2f} us per call, bound "
+                  f"{bound * 1e3:.2f} us ({by}; {nb / 1e6:.1f} MB, "
+                  f"{ops / 1e9:.2f} GFLOP), {ms / bound:.2f}x; by launch "
+                  + ", ".join(f"{n} {m:.4f} ms ({c} records)"
+                              for n, (m, c) in split.items()
+                              if m is not None)
+                  + f" on {card}", flush=True)
 
 
 def k8_bwd_rows(dev, card, rows) -> None:
@@ -1823,10 +1886,10 @@ def main() -> int:
     print(f"kernel library ready in {time.perf_counter() - t0:.1f} s "
           f"(nvcc build {K.BUILD['seconds']:.1f} s)", flush=True)
     for line in K.BUILD["log"].splitlines():
-        k8 = re.search(r"Function properties for .*?ssm_scan_kernelILi(\d+)"
-                       r"ELi(\d+)E", line)
+        k8 = re.search(r"Function properties for .*?(ssm_scan_fwd_"
+                       r"(?:increments|outputs))ILi(\d+)ELi(\d+)E", line)
         if k8:
-            print(f"  ssm_scan_kernel<hd {k8.group(1)}, N {k8.group(2)}>")
+            print(f"  {k8.group(1)}<hd {k8.group(2)}, N {k8.group(3)}>")
             continue
         k7b = re.search(r"Function properties for .*?(rwkv_chunk_bwd_"
                         r"(?:increments|chains|grads))ILi(\d+)E", line)
@@ -1851,7 +1914,8 @@ def main() -> int:
                        r"epoch_pass_b|"
                        r"epoch_epilogue|pc_table_\w+?_kernel|"
                        r"flash_attention_kernel_wgmma|"
-                       r"flash_attention_kernel|rwkv_chunk_kernel)"
+                       r"flash_attention_kernel|rwkv_chunk_kernel|"
+                       r"ssm_scan_fwd_chains)"
                        r"(ILi(\d+)E|I(13__nv_bfloat16|f)Li(\d+)|I([ix])E)?",
                        line)
         if fn:
@@ -1875,9 +1939,13 @@ def main() -> int:
     check(len(k7_names) == 1 and set(ran) <= set(k7_names)
           | {"Memset (Device)"},
           f"rwkv_chunked ran only K7's kernel and its memset: {ran}")
-    ran = sorted(lm_ran.get("ssm_scan", {}))
-    check(len(ran) == 1 and "ssm_scan_kernel" in ran[0],
-          f"ssm_scan ran only K8's kernel: {ran}")
+    # K8: its three launches, one record each per call of the five, and
+    # nothing else
+    ran = lm_ran.get("ssm_scan", {})
+    check(len(ran) == len(K8_KERNELS) and all(
+        sum(c for n, c in ran.items() if k in n) == 5 for k in K8_KERNELS),
+          f"ssm_scan ran K8's three kernels, one record each per call, and "
+          f"nothing else: {ran}")
     # a whole paligemma prefill: K6 (its bf16 kernel) once per layer, and
     # no attention kernel of the library in its place
     ran = lm_ran.get(f"{VLM_ARCH} prefill", {})
@@ -2305,10 +2373,10 @@ def main() -> int:
         lambda: RC.rwkv_chunked_bthd(*k7_in),
         lambda: RC.rwkv_chunked_bthd_ref(*k7_in),
         ("rwkv_chunk_kernel", "Memset (Device)"))
-    # K8: one kernel; its plain version is a loop over the 2048 tokens
+    # K8: three launches; its plain version is a loop over the 2048 tokens
     times["ssm_scan"] = (
         lambda: SS.ssm_scan(*k8_in["prefill"]),
-        lambda: SS.ssm_scan_ref(*k8_in["prefill"]), ("ssm_scan_kernel",))
+        lambda: SS.ssm_scan_ref(*k8_in["prefill"]), K8_KERNELS)
     rates = dict.fromkeys(k6_in, PEAK_FLOPS_BF16)
     # the least device time a call of one launch can take
     floor_ms = device_ms(lambda: torch.cuda._sleep(1), "launch floor")
@@ -2385,7 +2453,8 @@ def main() -> int:
     check(torch.equal(y1, y2) and torch.equal(S1, S2),
           "rwkv_chunked: two calls bitwise equal")
     # two K8 calls agree bit for bit (no atomics; each channel's state in
-    # one thread's registers), and its time per prefill
+    # one thread's registers, the chunks chained in order), and its time
+    # per prefill
     y1, S1 = SS.ssm_scan(*k8_in["prefill"])
     y2, S2 = SS.ssm_scan(*k8_in["prefill"])
     torch.cuda.synchronize()
@@ -2403,7 +2472,9 @@ def main() -> int:
               f" us (events) on {card}", flush=True)
     del k6_in, k8_in, y1, y2, S1, S2
     torch.cuda.empty_cache()
-    # K8's and K7's backward kernels against their plain versions, timed
+    # K8 at its training layout and with an underflowing chunk, then K8's
+    # and K7's backward kernels against their plain versions, timed
+    k8_fwd_rows(dev, card, rows)
     k8_bwd_rows(dev, card, rows)
     k7_bwd_rows(dev, card, rows)
 

@@ -38,9 +38,11 @@ public wrappers):
   ``csrc/tf32_mma.cuh``), no float atomics. It replaces no TPU kernel (the
   reference's gradient is XLA's);
 * ``ssm_scan.ssm_scan`` — K8, the selective scan of the hybrid family's
-  mamba heads (``csrc/ssm_scan.cu``): one CTA per (batch, head), one
-  thread per channel, tiles of tokens staged in shared memory. It
-  replaces no TPU kernel (the reference's scan is a ``lax.scan``);
+  mamba heads (``csrc/ssm_scan.cu``): each chunk's decay product and its
+  state walked from zero, those chained over the chunks, then one CTA
+  per (batch, head, chunk), one thread per channel, walks the chunk's
+  tokens from the state entering it. It replaces no TPU kernel (the
+  reference's scan is a ``lax.scan``);
 * ``ssm_scan.ssm_scan_bwd`` — K8's backward (``csrc/ssm_scan_bwd.cu``):
   each chunk's decay product and its state and carried-gradient
   increments, the two chained over the chunks, then one CTA per (batch,
@@ -93,7 +95,7 @@ SIGNATURES = {
     "flash_attention_bwd_launch": (_CI, [_VP] * 10 + [_CI] * 9 + [_VP]),
     "rwkv_chunk_launch": (_CI, [_VP] * 8 + [_CI] * 7 + [_VP]),
     "rwkv_chunk_bwd_launch": (_CI, [_VP] * 16 + [_CI] * 7 + [_VP]),
-    "ssm_scan_launch": (_CI, [_VP] * 8 + [_CI] * 5 + [_VP]),
+    "ssm_scan_launch": (_CI, [_VP] * 10 + [_CI] * 5 + [_VP]),
     "ssm_scan_bwd_launch": (_CI, [_VP] * 17 + [_CI] * 5 + [_VP]),
     "repro_error_string": (ctypes.c_char_p, [_CI]),
 }

@@ -11,11 +11,15 @@ head, head-dim channel) and token, with the state h (B,H,hd,N)::
 
 :func:`ssm_scan_ref` is the plain PyTorch version (the reference's step,
 a Python loop over the tokens) on any device. On a CUDA tensor
-:func:`ssm_scan` launches K8 on the current stream (one kernel, counted
-in ``ssm_scan.launches``): one CTA per (batch, head), one thread per
-channel holding its N states (two at head dim 16), tiles of tokens staged
-in shared memory.
-On a CPU tensor it runs the plain version.
+:func:`ssm_scan` launches K8 on the current stream (counted once per call
+in ``ssm_scan.launches``): three launches over chunks of ``FWD_CHUNK``
+tokens, parallel over (batch, head, chunk): each chunk's decay product
+and its state walked from zero, those chained over the chunks from h0,
+then each chunk's tokens walked from the state entering it, y written
+and, by the last chunk, h_out. One thread per channel holds its N states
+(two at head dim 16); the chunk's operands are staged in shared memory.
+At S <= ``FWD_CHUNK`` only the last launch runs, from h0. On a CPU tensor
+it runs the plain version.
 
 The gradient: :class:`SsmScan` is K8 as an autograd Function, its
 backward :func:`ssm_scan_bwd`, the K8 backward kernel
@@ -40,6 +44,9 @@ _F32 = torch.float32
 # head dims and state sizes K8 is instantiated for
 HEAD_DIMS = (16, 32, 64, 128)
 STATE_SIZES = (8, 16)
+# tokens per chunk of the forward kernel (its kChunk): the scratch holds
+# one state per chunk but the last
+FWD_CHUNK = 64
 # tokens per chunk of the backward kernel (its kChunk): the chain arrays
 # hold one state and one carried gradient per chunk
 BWD_CHUNK = 32
@@ -95,10 +102,18 @@ def ssm_scan(xh: torch.Tensor, dt: torch.Tensor, B_: torch.Tensor,
                              f"storage must start 16-byte aligned")
     y = torch.empty_like(xh)
     h_out = torch.empty_like(h0)
+    # each chunk's increments, then the state entering it (none at S <=
+    # FWD_CHUNK)
+    nk = -(-S // FWD_CHUNK) - 1
+    hs = dprod = None
+    if nk:
+        hs = torch.empty((B * H, nk, hd, N), dtype=_F32, device=dev)
+        dprod = torch.empty((B * H, nk), dtype=_F32, device=dev)
     code = library().ssm_scan_launch(
         xh.data_ptr(), dt.data_ptr(), B_.data_ptr(), C_.data_ptr(),
-        A.data_ptr(), h0.data_ptr(), y.data_ptr(), h_out.data_ptr(), B, S,
-        H, hd, N, stream_ptr(xh))
+        A.data_ptr(), h0.data_ptr(), None if hs is None else hs.data_ptr(),
+        None if dprod is None else dprod.data_ptr(), y.data_ptr(),
+        h_out.data_ptr(), B, S, H, hd, N, stream_ptr(xh))
     check(code, "ssm_scan")
     ssm_scan.launches += 1
     return y, h_out

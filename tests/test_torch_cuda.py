@@ -32,6 +32,7 @@ from repro_torch.core.workloads import make_program  # noqa: E402
 from repro_torch.kernels import epoch_fused as KEF  # noqa: E402
 from repro_torch.kernels import pc_table as KPT  # noqa: E402
 from repro_torch.kernels import ref as REF  # noqa: E402
+from repro_torch.kernels import ssm_scan as SS  # noqa: E402
 
 _spec = importlib.util.spec_from_file_location(
     "devtime", Path(__file__).resolve().parents[1] / "scripts/devtime.py")
@@ -245,6 +246,29 @@ def _pc_table_launches(scalars):
             lambda: KPT.pc_table_update(*d["tbl"], *upd, **ke), 4)}
 
 
+def _in_fresh_process(helper, *argv):
+    """``helper(*argv)`` (a function of this file, returning JSON) run in
+    a fresh Python process on the card; its result."""
+    import json
+    import os
+    import sys
+    root = Path(__file__).resolve().parents[1]
+    code = ("import importlib.util, json, sys\n"
+            "spec = importlib.util.spec_from_file_location('cuda_tests', "
+            "sys.argv[1])\n"
+            "mod = importlib.util.module_from_spec(spec)\n"
+            "spec.loader.exec_module(mod)\n"
+            f"print(json.dumps(mod.{helper}(*sys.argv[2:])))\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(root / "src"), str(root / "tests"),
+         os.environ.get("PYTHONPATH", "")]))
+    out = subprocess.run([sys.executable, "-c", code, __file__, *argv],
+                         env=env, capture_output=True, text=True,
+                         timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
 @pytest.mark.parametrize("scalars", ["float", "tensor"])
 def test_pc_table_wrappers_launch_one_kernel_each(dev, scalars):
     """A wrapper call on the card is one kernel launch and nothing else
@@ -255,24 +279,7 @@ def test_pc_table_wrappers_launch_one_kernel_each(dev, scalars):
     kernels, as this file's does by here, CUPTI drops records from a
     profiler session (``scripts/devtime.py``), and the count read 3 of
     4 in some runs of the whole file."""
-    import json
-    import os
-    import sys
-    root = Path(__file__).resolve().parents[1]
-    code = ("import importlib.util, json, sys\n"
-            "spec = importlib.util.spec_from_file_location('cuda_tests', "
-            "sys.argv[1])\n"
-            "mod = importlib.util.module_from_spec(spec)\n"
-            "spec.loader.exec_module(mod)\n"
-            "print(json.dumps(mod._pc_table_launches(sys.argv[2])))\n")
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [str(root / "src"), str(root / "tests"),
-         os.environ.get("PYTHONPATH", "")]))
-    out = subprocess.run([sys.executable, "-c", code, __file__, scalars],
-                         env=env, capture_output=True, text=True,
-                         timeout=600)
-    assert out.returncode == 0, out.stderr[-3000:]
-    ran = json.loads(out.stdout.strip().splitlines()[-1])
+    ran = _in_fresh_process("_pc_table_launches", scalars)
     for which in ("predict", "update"):
         got = ran[which]
         assert len(got) == 1 and f"pc_table_{which}_kernel" in next(
@@ -1585,15 +1592,24 @@ def _scan_case(B, S, H, hd, N, dev, seed=0):
     return [torch.as_tensor(a).to(dev) for a in arrs]
 
 
+_L8 = SS.FWD_CHUNK
+
+
 @pytest.mark.parametrize("B,S,H,hd,N", [
     (1, 1, 2, 64, 16),        # a decode step
     (2, 33, 3, 16, 8),        # S past one 32-token tile, not a multiple
     (3, 100, 4, 32, 16),
     (2, 64, 2, 128, 8),
     (4, 257, 25, 64, 16),     # hymba's heads and state
+    # the forward's chunk edges: a token under, at and past one chunk,
+    # and a ragged S over ~2.3 chunks
+    (2, _L8 - 1, 3, 64, 16),
+    (3, _L8, 2, 16, 8),
+    (2, _L8 + 1, 3, 32, 16),
+    (2, 2 * _L8 + _L8 * 3 // 10, 5, 128, 16),
+    (1, 2 * _L8 + _L8 * 3 // 10, 4, 16, 16),
 ])
 def test_ssm_scan_kernel_matches_plain(dev, B, S, H, hd, N):
-    from repro_torch.kernels import ssm_scan as SS
     args = _scan_case(B, S, H, hd, N, dev, seed=S)
     n0 = SS.ssm_scan.launches
     y, h = SS.ssm_scan(*args)
@@ -1606,7 +1622,6 @@ def test_ssm_scan_kernel_matches_plain(dev, B, S, H, hd, N):
 
 
 def test_ssm_scan_kernel_two_calls_bitwise_equal(dev):
-    from repro_torch.kernels import ssm_scan as SS
     args = _scan_case(2, 300, 5, 64, 16, dev, seed=1)
     y1, h1 = SS.ssm_scan(*args)
     y2, h2 = SS.ssm_scan(*args)
@@ -1614,11 +1629,77 @@ def test_ssm_scan_kernel_two_calls_bitwise_equal(dev):
     assert torch.equal(y1, y2) and torch.equal(h1, h2)
 
 
+def test_ssm_scan_kernel_at_hymba_training_layout_bitwise_twice(dev):
+    """hymba-1.5b's training microbatch (4 x 4096, 25 heads of 64, state
+    16): against the plain version, and two calls bit for bit equal (the
+    chunks chained in order; no atomics)."""
+    args = _scan_case(4, 4096, 25, 64, 16, dev, seed=2)
+    y1, h1 = SS.ssm_scan(*args)
+    y2, h2 = SS.ssm_scan(*args)
+    y_ref, h_ref = SS.ssm_scan_ref(*args)
+    torch.cuda.synchronize()
+    _close(y1, y_ref, "y")
+    _close(h1, h_ref, "h_out")
+    assert torch.equal(y1, y2) and torch.equal(h1, h2)
+
+
+def test_ssm_scan_kernel_underflowing_decay(dev):
+    """A chunk whose decay product underflows to 0 (dt in (2, 3) at A = -2
+    over the second chunk): y and h_out finite and within the tolerance
+    of the plain version, two calls bit for bit equal."""
+    L = SS.FWD_CHUNK
+    B, S, H, hd, N = 2, 3 * L + 5, 3, 64, 16
+    args = _scan_case(B, S, H, hd, N, dev, seed=9)
+    rng = np.random.default_rng(9)
+    args[1][:, L:2 * L] = torch.as_tensor(rng.uniform(2.0, 3.0, (
+        B, L, H)).astype(np.float32)).to(dev)
+    args[4].fill_(-2.0)
+    y1, h1 = SS.ssm_scan(*args)
+    y2, h2 = SS.ssm_scan(*args)
+    y_ref, h_ref = SS.ssm_scan_ref(*args)
+    torch.cuda.synchronize()
+    assert float(torch.exp(args[1][:, L:2 * L] * -2.0).double().prod(
+        1).max()) < 1e-45
+    assert bool(torch.isfinite(y1).all()) and bool(torch.isfinite(h1).all())
+    _close(y1, y_ref, "y")
+    _close(h1, h_ref, "h_out")
+    assert torch.equal(y1, y2) and torch.equal(h1, h2)
+
+
+def _ssm_scan_launches():
+    """What 4 calls of K8 run on the card at S = FWD_CHUNK (one chunk) and
+    at S = 2 FWD_CHUNK + 3 (three chunks), hymba's heads and state:
+    {"one chunk": {name: records}, "three chunks": {...}}, each from one
+    torch.profiler session."""
+    dev = torch.device("cuda", 0)
+    L = SS.FWD_CHUNK
+    out = {}
+    for key, S in (("one chunk", L), ("three chunks", 2 * L + 3)):
+        args = _scan_case(2, S, 25, 64, 16, dev, seed=S)
+        out[key] = DT.kernel_counts(lambda: SS.ssm_scan(*args), 4)
+    return out
+
+
+def test_ssm_scan_kernel_launches(dev):
+    """A K8 call at S <= FWD_CHUNK runs its outputs launch alone (one
+    record a call), past it its three launches, one record each a call,
+    and nothing else. Counted in a fresh process, as
+    ``test_pc_table_wrappers_launch_one_kernel_each`` counts."""
+    ran = _in_fresh_process("_ssm_scan_launches")
+    one = ran["one chunk"]
+    assert len(one) == 1 and "ssm_scan_fwd_outputs" in next(iter(one)) \
+        and set(one.values()) == {4}, one
+    names = ("ssm_scan_fwd_increments", "ssm_scan_fwd_chains",
+             "ssm_scan_fwd_outputs")
+    got = ran["three chunks"]
+    assert len(got) == 3 and set(got.values()) == {4} and all(
+        sum(1 for n in got if k in n) == 1 for k in names), got
+
+
 @pytest.mark.parametrize("hd,N", [(48, 16), (64, 12)])
 def test_ssm_scan_kernel_refuses_other_shapes(dev, hd, N):
     """A head dim or state size K8 has no kernel for raises before any
     launch; so does an operand that is not f32."""
-    from repro_torch.kernels import ssm_scan as SS
     args = _scan_case(1, 8, 2, hd, N, dev)
     n0 = SS.ssm_scan.launches
     with pytest.raises(ValueError, match="K8 has kernels"):

@@ -252,6 +252,15 @@ def test_ssm_scan_limits_match_c_source():
                                  re.findall(r"case (\d+):", hd_switch))
 
 
+def test_ssm_scan_fwd_chunk_matches_c_source():
+    """K8's token chunk as the wrapper sizes its scratch by it: the
+    forward source's ``kChunk``, and the entry point's note of it."""
+    from repro_torch.kernels import ssm_scan as SS
+    src = (CSRC / "ssm_scan.cu").read_text()
+    assert SS.FWD_CHUNK == int(re.search(r"kChunk = (\d+);", src).group(1))
+    assert f"nc = ceil(S / {SS.FWD_CHUNK})" in src
+
+
 def test_ssm_scan_bwd_limits_match_c_source():
     """The K8 backward's head dims, state sizes and token chunk, as the
     wrapper checks and sizes them before a launch: the state sizes are

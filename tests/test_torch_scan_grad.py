@@ -109,7 +109,8 @@ def _chunked_bwd_mirror(xh, dt, B_, C_, A, h0, gy, g_hout, L):
     the chains h_start[c] (from h0) and g_end[c] (in reverse from g_hout),
     dh0 = D_0 g_end[0] + Gamma_0; (3) each chunk's states recomputed from
     h_start[c] and its tokens walked backwards from g_end[c]. Returns
-    (dxh, ddt, dB_, dC_, dA, dh0) and D (B, H, nc)."""
+    (dxh, ddt, dB_, dC_, dA, dh0), D (B, H, nc) and h_start (one state
+    per chunk)."""
     Bn, S, H, hd = xh.shape
     decay = torch.exp(dt * A)                               # (B,S,H)
     nc = -(-S // L)
@@ -165,7 +166,8 @@ def _chunked_bwd_mirror(xh, dt, B_, C_, A, h0, gy, g_hout, L):
             ddt[:, t] = (xh[:, t] * sB).sum(-1) + A * decay[:, t] * sH
             dA_part[:, :, c] += decay[:, t] * dt[:, t] * sH
             g = gh * a(t)
-    return (dx, ddt, dB, dC, dA_part.sum((0, 2)), dh0), torch.stack(D, -1)
+    return ((dx, ddt, dB, dC, dA_part.sum((0, 2)), dh0), torch.stack(D, -1),
+            h_start)
 
 
 # (B, S, H, hd, N, what): S past a chunk and not a multiple of it, S under
@@ -194,7 +196,7 @@ def test_ssm_scan_bwd_chunk_algebra(B, S, H, hd, N, what):
     elif what == "no decay":
         arrs[4][:] = -1e-7
     ts = [torch.from_numpy(x) for x in arrs]
-    got, D = _chunked_bwd_mirror(*ts, L)
+    got, D, _ = _chunked_bwd_mirror(*ts, L)
     assert D.shape == (B, H, -(-S // L))
     if what == "underflow":
         assert bool((D[..., 1] == 0).all()) and bool((D[..., 0] > 0).all())
@@ -206,6 +208,105 @@ def test_ssm_scan_bwd_chunk_algebra(B, S, H, hd, N, what):
         assert g.shape == w.shape and bool(torch.isfinite(g).all()), name
         assert _rel(g, w) < TOL, (name, _rel(g, w))
         assert _rel(g, jw) < TOL, (name, _rel(g, jw))
+
+
+def _chunked_fwd_mirror(xh, dt, B_, C_, A, h0, L):
+    """A mirror, in PyTorch operations (f32), of the three launches of
+    K8's forward kernel over chunks of L tokens: (1) for every chunk but
+    the last, its decay product D (in token order) and its state walked
+    from zero, Delta; (2) the chain h_start[c + 1] = D_c h_start[c] +
+    Delta_c from h_start[0] = h0; (3) each chunk's tokens walked from
+    h_start[c], each step as the plain version's, y summed over the
+    states in their order (each term rounded here; the kernel fuses it
+    into the sum); h_out is the last chunk's last state. Returns
+    (y, h_out), D (B, H, nc - 1) and h_start (one state per chunk)."""
+    S, N = xh.shape[1], B_.shape[-1]
+    decay = torch.exp(dt * A)                               # (B,S,H)
+    nc = -(-S // L)
+    chunks = [range(c * L, min(S, (c + 1) * L)) for c in range(nc)]
+
+    def step(h, t):
+        dbx = (dt[:, t, :, None] * xh[:, t])[..., None] \
+            * B_[:, t, None, None, :]
+        return h * decay[:, t, :, None, None] + dbx
+    # 1. increments
+    D, Delta = [], []
+    for ts in chunks[:-1]:
+        st, p = torch.zeros_like(h0), torch.ones_like(decay[:, 0])
+        for t in ts:
+            st = step(st, t)
+            p = p * decay[:, t]
+        D.append(p)
+        Delta.append(st)
+    # 2. the chain
+    h_start = [h0]
+    for c in range(nc - 1):
+        h_start.append(D[c][..., None, None] * h_start[c] + Delta[c])
+    # 3. outputs
+    y = torch.empty_like(xh)
+    for c, ts in enumerate(chunks):
+        h = h_start[c]
+        for t in ts:
+            h = step(h, t)
+            acc = h[..., 0] * C_[:, t, None, None, 0]
+            for n in range(1, N):
+                acc = acc + h[..., n] * C_[:, t, None, None, n]
+            y[:, t] = acc
+    D = torch.stack(D, -1) if D else torch.ones(h0.shape[:2] + (0,))
+    return (y, h), D, h_start
+
+
+# (B, S, H, hd, N, what) at the forward's chunk L = FWD_CHUNK: S = 1, S
+# under, at and one past a chunk, a ragged S over ~2.3 chunks, a chunk
+# whose decay product underflows to 0 (dt in (2, 3) at A = -2 over the
+# second chunk), A near 0 (every decay ~1), and a non-zero h0 over many
+# chunks (every case starts from a non-zero h0)
+_L8 = SS.FWD_CHUNK
+FWD_CHUNK_CASES = [(2, 1, 2, 16, 8, "one"), (1, _L8 // 2, 2, 16, 16, "short"),
+                   (2, _L8, 3, 16, 8, "one chunk"),
+                   (1, _L8 + 1, 2, 32, 8, "chunk + 1"),
+                   (2, 2 * _L8 + _L8 * 3 // 10, 3, 16, 8, "ragged"),
+                   (2, 3 * _L8 + 5, 2, 16, 8, "underflow"),
+                   (1, 2 * _L8 + 7, 2, 32, 16, "no decay"),
+                   (1, 4 * _L8 + 3, 2, 16, 16, "h0")]
+
+
+@pytest.mark.parametrize("B,S,H,hd,N,what", FWD_CHUNK_CASES,
+                         ids=[c[-1] for c in FWD_CHUNK_CASES])
+def test_ssm_scan_fwd_chunk_algebra(B, S, H, hd, N, what):
+    """The chunked form of K8's forward kernel (``_chunked_fwd_mirror`` at
+    the kernel's ``FWD_CHUNK``) against ``ssm_scan_ref`` and against the
+    reference's ``ssm_scan`` (JAX on the CPU), y and h_out within the
+    kernel's tolerance 1e-4 + 1e-5 |ref|, from a non-zero h0; an
+    underflowing chunk's D is 0 and every output stays finite; the states
+    it chains into each chunk are bit for bit those of the backward's
+    mirror at the same chunk length."""
+    L = SS.FWD_CHUNK
+    arrs = _scan_case(B, S, H, hd, N, seed=S + hd + N)[:6]
+    rng = np.random.default_rng(S)
+    if what == "underflow":
+        # the other chunks' dt kept small, so that only the second
+        # chunk's product underflows at A = -2
+        arrs[1][:] = rng.uniform(0.01, 0.5, (B, S, H))
+        arrs[1][:, L:2 * L] = rng.uniform(2.0, 3.0, (B, L, H))
+        arrs[4][:] = -2.0
+    elif what == "no decay":
+        arrs[4][:] = -1e-7
+    ts = [torch.from_numpy(x) for x in arrs]
+    (y, h), D, h_start = _chunked_fwd_mirror(*ts, L)
+    nc = -(-S // L)
+    assert D.shape == (B, H, nc - 1) and len(h_start) == nc
+    if what == "underflow":
+        assert bool((D[..., 1] == 0).all()) and bool((D[..., 0] > 0).all())
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(h).all())
+    y_ref, h_ref = SS.ssm_scan_ref(*ts)
+    yj, hj = JS.ssm_scan(*map(jnp.asarray, arrs))
+    for got, want in ((y, y_ref), (h, h_ref), (y, yj), (h, hj)):
+        np.testing.assert_allclose(_np(got), _np(want), rtol=1e-5,
+                                   atol=1e-4)
+    gy = torch.zeros_like(ts[0])
+    _, _, h_bwd = _chunked_bwd_mirror(*ts, gy, torch.zeros_like(ts[5]), L)
+    assert all(torch.equal(a, b) for a, b in zip(h_start, h_bwd))
 
 
 def test_ssm_scan_saves_nothing_without_grad():
